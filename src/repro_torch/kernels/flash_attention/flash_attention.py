@@ -1,0 +1,60 @@
+"""Binding of the CUDA prefill flash-attention kernel.
+
+The kernel itself is ``src/repro_torch/csrc/flash_attention.cu``; it
+replaces the reference's Pallas TPU kernel ``flash_attention_pallas``.
+This module checks what the kernel takes, allocates the output and
+launches on PyTorch's current stream; it never falls back to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+__all__ = ["flash_attention_cuda"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+#: device type the kernel runs on (a module constant, so a test can point
+#: the dispatch at another device type with the loader mocked)
+KERNEL_DEVICE = "cuda"
+
+
+def flash_attention_cuda(q, k, v, window, *, scale, logit_cap=0.0,
+                         causal=True):
+    """q: (B, Sq, K*G, hd); k/v: (B, Sk, K, hd) — one CUDA device,
+    contiguous; ``window`` an int, 0 = global."""
+    B, Sq, KG, hd = q.shape
+    Bk, Sk, K, hd_k = k.shape
+    dev = q.device
+    if dev.type != KERNEL_DEVICE or k.device != dev or v.device != dev:
+        raise ValueError(
+            f"flash_attention kernel needs q/k/v on one CUDA device, got "
+            f"{q.device}/{k.device}/{v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            "flash_attention kernel takes float32 or bfloat16 q/k/v of one "
+            f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if hd not in (64, 128) or hd_k != hd or Bk != B or v.shape != k.shape \
+            or KG % K:
+        raise ValueError(
+            f"flash_attention kernel takes head dim 64 or 128 and GQA "
+            f"shapes, got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel takes contiguous tensors")
+    out = torch.empty_like(q)
+    fn = _build.kernel("repro_flash_attention", _ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Sq, Sk, K, KG // K, hd, int(window), float(scale),
+                float(logit_cap), int(bool(causal)), _DTYPES[q.dtype],
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "repro_flash_attention")
+    return out

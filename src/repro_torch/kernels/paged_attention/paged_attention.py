@@ -1,0 +1,73 @@
+"""Binding of the CUDA paged decode attention kernel.
+
+The kernel itself is ``src/repro_torch/csrc/paged_attention.cu``; it
+replaces the reference's Pallas TPU kernel ``paged_attention_pallas``.
+This module checks what the kernel takes, allocates the output and
+launches on PyTorch's current stream; it never falls back to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+__all__ = ["paged_attention_cuda"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+MAX_G = 16
+#: device type the kernel runs on (a module constant, so a test can point
+#: the dispatch at another device type with the loader mocked)
+KERNEL_DEVICE = "cuda"
+
+
+def paged_attention_cuda(q, k_pages, v_pages, page_table, lens, *, scale):
+    """q: (B, K*G, hd); pages: (P, page, K, hd); table: (B, W) int32;
+    lens: (B,) int32 — all on one CUDA device, contiguous."""
+    B, KG, hd = q.shape
+    _, page_size, K, hd_k = k_pages.shape
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("lens", lens)):
+        if t.device != dev:
+            raise ValueError(f"paged_attention: {name} on {t.device}, q on {dev}")
+    if dev.type != KERNEL_DEVICE:
+        raise ValueError(f"paged_attention kernel needs CUDA tensors, got {dev}")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise ValueError(
+            "paged_attention kernel takes float32 or bfloat16 q/k/v of one "
+            f"dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if hd not in (64, 128) or hd_k != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"paged_attention kernel takes head dim 64 or 128 with matching "
+            f"pages, got q {tuple(q.shape)}, pages {tuple(k_pages.shape)}")
+    if KG % K or not 1 <= KG // K <= MAX_G:
+        raise ValueError(
+            f"paged_attention kernel takes 1..{MAX_G} query heads per kv "
+            f"head, got {KG} q heads over {K} kv heads")
+    if page_table.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise ValueError("paged_attention: page_table and lens must be int32")
+    if page_table.shape[0] != B or lens.shape != (B,):
+        raise ValueError("paged_attention: table/lens batch does not match q")
+    if not all(t.is_contiguous()
+               for t in (q, k_pages, v_pages, page_table, lens)):
+        raise ValueError("paged_attention kernel takes contiguous tensors")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        # the kernel reads each lane's slice of a row as one vector load
+        raise ValueError("paged_attention kernel takes 16-byte aligned pages")
+    out = torch.empty_like(q)
+    fn = _build.kernel("repro_paged_attention", _ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                B, K, KG // K, hd, page_size, page_table.shape[1],
+                float(scale), _DTYPES[q.dtype],
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "repro_paged_attention")
+    return out

@@ -1,0 +1,48 @@
+"""Reference parameters → the port's state dict.
+
+:func:`params_from_numpy` takes the reference ``init`` output as a nested
+dict of numpy arrays — layers stacked on axis 0 (``layers.attn.wq`` is
+``(L, D, H, hd)``) — and returns the flat state dict that
+``TransformerLM.load_state_dict`` takes.  No jax import is needed: the
+caller converts the leaves with ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .common import ArchConfig, torch_dtype
+
+__all__ = ["params_from_numpy"]
+
+
+def _tensor(leaf: Any, dtype: torch.dtype) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes bfloat16 has no torch.from_numpy mapping; the trip
+        # through float32 is exact
+        arr = arr.astype(np.float32)
+    # a writable copy: jax hands out read-only buffers
+    return torch.from_numpy(np.array(arr)).to(dtype)
+
+
+def params_from_numpy(cfg: ArchConfig,
+                      tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flatten ``tree`` to ``{"layers.attn.wq": tensor, ...}`` in
+    ``cfg.dtype``."""
+    dtype = torch_dtype(cfg.dtype)
+    out: Dict[str, torch.Tensor] = {}
+
+    def visit(prefix: str, node: Mapping[str, Any]) -> None:
+        for key, val in node.items():
+            name = f"{prefix}.{key}" if prefix else key
+            if isinstance(val, Mapping):
+                visit(name, val)
+            else:
+                out[name] = _tensor(val, dtype)
+
+    visit("", tree)
+    return out

@@ -1,0 +1,366 @@
+"""Decoder-only transformer, dense family, as a PyTorch ``nn.Module``.
+
+The counterpart of ``repro/models/transformer.py`` for the dense family
+(gemma2/3, starcoder2, qwen2.5): the same stacked-parameter layout
+(layer ``l``'s ``wq`` is ``layers.attn.wq[l]`` of shape ``(D, H, hd)``),
+the same public functions, and a Python loop over layers where the
+reference scanned.  Weights live on the module; the serving functions take
+no ``params`` argument.
+
+Paged serving interface (``ServingEngine`` in paged mode):
+  ``supports_paged_decode``                       → bool
+  ``init_paged_state(num_pages, page_size)``      → pool dict
+  ``paged_prefill(tokens)``                       → (kv_rows, last_logits)
+  ``paged_write_prefill(pool, rows, page_ids, offsets)`` → pool
+  ``paged_decode_step(pool, tokens, page_table, pos)``   → (pool, logits)
+  ``paged_prefill_at(tokens, pool, page_table, start)``  → (kv_rows, logits)
+  ``paged_copy_page(pool, src, dst)``             → pool   (COW clone)
+Pools are ``(L, P, page, K, hd)`` and page tables int32 padded with -1, as
+in the reference.  Where the reference donated the pool to a jitted
+function and got a new one back, the port updates the pool in place and
+returns the same dict.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels.paged_attention.ops import paged_attention
+from .attention import NEG_INF, attention_block, attn_params_shape, qkv
+from .common import (
+    ArchConfig,
+    gated_mlp,
+    layer_rope_bases,
+    layer_windows,
+    resolve_device,
+    rms_norm,
+    scale_embedding,
+    softcap,
+    take_embedding,
+    torch_dtype,
+)
+
+__all__ = ["TransformerLM"]
+
+
+def _frozen(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class TransformerLM(nn.Module):
+    """Dense decoder-only LM; parameters are allocated, not initialised —
+    call :meth:`init` or ``load_state_dict``."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
+        super().__init__()
+        if cfg.is_moe or cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.arch_id}: family {cfg.family!r} is not ported yet "
+                "(ROADMAP.md queue 1, item 7: other model families)"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.dtype)
+        self.windows = layer_windows(cfg)
+        self.rope_bases = layer_rope_bases(cfg)
+        L, D, F, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+        dt, dev = self.dtype, self.device
+        self.embed = _frozen((V, D), dt, dev)
+        if not cfg.tie_embeddings:
+            self.unembed = _frozen((V, D), dt, dev)
+        self.final_norm = _frozen((D,), dt, dev)
+        self.layers = nn.Module()
+        norms = ["ln1", "ln2"] + (["ln1_post", "ln2_post"]
+                                  if cfg.post_norms else [])
+        for name in norms:
+            setattr(self.layers, name, _frozen((L, D), dt, dev))
+        self.layers.attn = nn.Module()
+        for name, shape in attn_params_shape(cfg).items():
+            setattr(self.layers.attn, name, _frozen((L, *shape), dt, dev))
+        self.layers.mlp = nn.Module()
+        self.layers.mlp.wu = _frozen((L, D, F), dt, dev)
+        self.layers.mlp.wd = _frozen((L, F, D), dt, dev)
+        if cfg.gated:
+            self.layers.mlp.wg = _frozen((L, D, F), dt, dev)
+
+    # ------------------------------------------------------------- params
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "TransformerLM":
+        """Random weights with the reference's distributions, drawn from
+        ``generator`` (which must live on the model's device)."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        D, F = cfg.d_model, cfg.d_ff
+
+        def normal(shape, std):
+            x = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            return (x * std).to(dt)
+
+        self.embed.copy_(normal(self.embed.shape, 1 / math.sqrt(D)))
+        for name, t in self.layers.named_parameters():
+            if name.startswith("ln"):
+                t.fill_(1)
+        for l in range(cfg.num_layers):
+            for name, shape in attn_params_shape(cfg).items():
+                t = getattr(self.layers.attn, name)[l]
+                if name.startswith("b"):
+                    t.zero_()
+                elif name.endswith("_norm"):
+                    t.fill_(1)
+                else:
+                    t.copy_(normal(shape, 1 / math.sqrt(D)))
+            mlp = self.layers.mlp
+            mlp.wu[l].copy_(normal((D, F), 1 / math.sqrt(D)))
+            mlp.wd[l].copy_(normal((F, D), 1 / math.sqrt(F)))
+            if cfg.gated:
+                mlp.wg[l].copy_(normal((D, F), 1 / math.sqrt(D)))
+        self.final_norm.fill_(1)
+        if not cfg.tie_embeddings:
+            self.unembed.copy_(normal(self.unembed.shape, 1 / math.sqrt(D)))
+        return self
+
+    def _layer_params(self, l: int) -> Dict[str, Any]:
+        p: Dict[str, Any] = {
+            name: t[l] for name, t in self.layers.named_parameters()
+            if "." not in name
+        }
+        p["attn"] = {n: t[l] for n, t in self.layers.attn.named_parameters()}
+        p["mlp"] = {n: t[l] for n, t in self.layers.mlp.named_parameters()}
+        return p
+
+    def _rope_base(self, l: int) -> float:
+        return float(self.rope_bases[l])
+
+    # ------------------------------------------------------------ forward
+
+    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
+        return scale_embedding(take_embedding(self.embed, tokens), self.cfg)
+
+    def _mlp_residual(self, h: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
+        cfg = self.cfg
+        m = rms_norm(h, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norms)
+        m = gated_mlp(m, p["mlp"]["wu"], p["mlp"].get("wg"), p["mlp"]["wd"],
+                      cfg.activation)
+        if cfg.post_norms:
+            m = rms_norm(m, p["ln2_post"], cfg.norm_eps, plus_one=True)
+        return h + m
+
+    def _attn_residual(self, h: torch.Tensor, a: torch.Tensor,
+                       p: Dict[str, Any]) -> torch.Tensor:
+        if self.cfg.post_norms:
+            a = rms_norm(a, p["ln1_post"], self.cfg.norm_eps, plus_one=True)
+        return h + a
+
+    def _layers(self, h: torch.Tensor, positions: torch.Tensor):
+        """Every layer over the full prompt; yields K/V rows per layer."""
+        cfg = self.cfg
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+            a, kv = attention_block(
+                a, p["attn"], cfg, window=int(self.windows[l]),
+                rope_base=self._rope_base(l), positions=positions,
+                return_kv=True,
+            )
+            h = self._mlp_residual(self._attn_residual(h, a, p), p)
+            yield h, kv
+
+    def _unembed(self, h: torch.Tensor) -> torch.Tensor:
+        table = self.unembed if not self.cfg.tie_embeddings else self.embed
+        logits = h @ table.T
+        if self.cfg.final_logit_softcap:
+            logits = softcap(logits, self.cfg.final_logit_softcap)
+        return logits
+
+    def _final(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = rms_norm(h, self.final_norm, cfg.norm_eps, plus_one=cfg.post_norms)
+        return self._unembed(h)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, S) tokens → (B, S, V) logits (+ the aux loss, 0 for dense)."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        h = self._embed_inputs(tokens)
+        for h, _ in self._layers(h, positions):
+            pass
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return self._final(h), aux
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None):
+        """Run the prompt, return (decode_state, logits at last position)."""
+        B, S = tokens.shape
+        max_seq = max_seq or S
+        positions = torch.arange(S, device=tokens.device)
+        h = self._embed_inputs(tokens)
+        ks, vs = [], []
+        for h, (k, v) in self._layers(h, positions):
+            if max_seq > S:
+                pad = (0, 0, 0, 0, 0, max_seq - S)
+                k = torch.nn.functional.pad(k, pad)
+                v = torch.nn.functional.pad(v, pad)
+            ks.append(k)
+            vs.append(v)
+        logits = self._final(h[:, -1])
+        state = {
+            "cache_k": torch.stack(ks),
+            "cache_v": torch.stack(vs),
+            "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
+        }
+        return state, logits
+
+    # ----------------------------------------------- serving (paged cache)
+
+    @property
+    def supports_paged_decode(self) -> bool:
+        # the paged kernel has no logit-softcap or sliding-window support
+        return (not self.cfg.attn_logit_softcap) and all(
+            w == 0 for w in self.windows
+        )
+
+    def init_paged_state(self, num_pages: int, page_size: int,
+                         dtype=None) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.hd)
+        dtype = dtype or self.dtype
+        return {
+            "k_pages": torch.zeros(shape, dtype=dtype, device=self.device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=self.device),
+        }
+
+    def paged_prefill(self, tokens: torch.Tensor):
+        """Prompt K/V rows (for page scatter) + logits at the last token."""
+        state, logits = self.prefill(tokens, max_seq=tokens.shape[1])
+        return {"k": state["cache_k"], "v": state["cache_v"]}, logits
+
+    @torch.no_grad()
+    def paged_write_prefill(self, pool, rows, page_ids, offsets):
+        """Scatter one sequence's prefill rows into its allocated pages.
+
+        Token i lands at ``(page_ids[i], offsets[i])`` of every layer, in
+        place (the reference donated the pool instead).
+        """
+        page_ids = torch.as_tensor(page_ids, device=self.device).long()
+        offsets = torch.as_tensor(offsets, device=self.device).long()
+        for name, src in (("k_pages", rows["k"]), ("v_pages", rows["v"])):
+            dst = pool[name]
+            dst[:, page_ids, offsets] = src[:, 0].to(dst.dtype)
+        return pool
+
+    @torch.no_grad()
+    def paged_prefill_at(self, tokens, pool, page_table, start: int):
+        """Suffix prefill: K/V rows + last logits for tokens at positions
+        ``[start, start + S)``, attending through the shared-prefix rows
+        already resident in the page pool.
+
+        ``tokens``: (1, S); ``page_table``: (1, W) int32, -1 padded; rows
+        ``< start`` of those pages hold the donor-written prefix K/V.  The
+        attention here is plain PyTorch, as it was plain einsum in the
+        reference: no TPU kernel computes it.
+        """
+        cfg = self.cfg
+        B, S = tokens.shape
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        G = H // K
+        page_size = pool["k_pages"].shape[2]
+        page_table = torch.as_tensor(page_table, device=self.device)
+        W = page_table.shape[1]
+        P = W * page_size
+        start = int(start)
+        scale = cfg.query_scale or (1.0 / math.sqrt(hd))
+        dev = tokens.device
+        positions = start + torch.arange(S, device=dev)
+        h = self._embed_inputs(tokens)
+        pages = torch.where(page_table[0] >= 0, page_table[0], 0).long()
+        prefix_live = (torch.arange(P, device=dev) < start)[None, None, None, None, :]
+        causal = (torch.arange(S, device=dev)[None, :]
+                  <= torch.arange(S, device=dev)[:, None])[None, :, None, None, :]
+        ks, vs = [], []
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+            q, k, v = qkv(a, p["attn"], cfg, positions, self._rope_base(l))
+            pk = pool["k_pages"][l][pages].reshape(P, K, hd)
+            pv = pool["v_pages"][l][pages].reshape(P, K, hd)
+            qf = q.reshape(B, S, K, G, hd).float() * scale
+            s_pre = torch.einsum("bskgh,pkh->bskgp", qf, pk.float())
+            s_pre = torch.where(prefix_live, s_pre, NEG_INF)
+            s_suf = torch.einsum("bskgh,btkh->bskgt", qf, k.float())
+            s_suf = torch.where(causal, s_suf, NEG_INF)
+            w = torch.softmax(torch.cat([s_pre, s_suf], dim=-1), dim=-1)
+            o = torch.einsum("bskgp,pkh->bskgh", w[..., :P], pv.float()) \
+                + torch.einsum("bskgt,btkh->bskgh", w[..., P:], v.float())
+            o = o.reshape(B, S, H * hd).to(h.dtype) @ p["attn"]["wo"]
+            h = self._mlp_residual(self._attn_residual(h, o, p), p)
+            ks.append(k)
+            vs.append(v)
+        logits = self._final(h[:, -1])
+        return {"k": torch.stack(ks), "v": torch.stack(vs)}, logits
+
+    @torch.no_grad()
+    def paged_copy_page(self, pool, src: int, dst: int):
+        """Clone page ``src`` into ``dst`` across all layers (COW), in place."""
+        for name in ("k_pages", "v_pages"):
+            pool[name][:, int(dst)] = pool[name][:, int(src)]
+        return pool
+
+    @torch.no_grad()
+    def paged_decode_step(self, pool, tokens, page_table, pos):
+        """One decode step against the arena-backed page pool.
+
+        ``page_table``: (B, W) int32, row i = slot i's physical pages, -1
+        padded (empty slots are all--1 rows).  ``pos``: (B,) int32 — the
+        row this step's K/V is written to; attention covers ``pos + 1``
+        tokens.  Dead and out-of-range lanes change nothing: the reference
+        sent them to page id ``num_pages`` and XLA dropped the
+        out-of-bounds scatter, while an out-of-bounds index asserts on
+        CUDA.  Here they repeat the first live lane's write (with no live
+        lane, they rewrite page 0's first row with itself): every index
+        then receives one value, and the lane count stays fixed, so the
+        step needs no host sync before its layers launch.
+        """
+        cfg = self.cfg
+        B = tokens.shape[0]
+        page_size = pool["k_pages"].shape[2]
+        W = page_table.shape[1]
+        scale = cfg.query_scale or (1.0 / math.sqrt(cfg.hd))
+        h = self._embed_inputs(tokens)
+        b_idx = torch.arange(B, device=tokens.device)
+        pos = pos.to(torch.int32)
+        logical = (pos // page_size).long()
+        write_page = page_table[b_idx, logical.clamp(max=W - 1)].long()
+        offset = (pos % page_size).long()
+        valid = (write_page >= 0) & (logical < W)
+        first = torch.argmax(valid.to(torch.int32)).view(1)
+        any_live = valid.any()
+        write_page = torch.where(
+            valid, write_page, torch.where(any_live, write_page[first], 0))
+        offset = torch.where(
+            valid, offset, torch.where(any_live, offset[first], 0))
+
+        def lane_rows(x, pages):
+            x = x.to(pages.dtype)
+            fill = torch.where(any_live, x[first], pages[0, 0])
+            return torch.where(valid[:, None, None], x, fill)
+
+        lens = pos + 1
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+            q, k, v = qkv(a, p["attn"], cfg, pos, self._rope_base(l))
+            kp, vp = pool["k_pages"][l], pool["v_pages"][l]
+            # in place, where the reference donated the pool to the step
+            kp[write_page, offset] = lane_rows(k, kp)
+            vp[write_page, offset] = lane_rows(v, vp)
+            o = paged_attention(q.contiguous(), kp, vp, page_table, lens,
+                                scale=scale)
+            o = o.reshape(B, -1).to(h.dtype) @ p["attn"]["wo"]
+            h = self._mlp_residual(self._attn_residual(h, o, p), p)
+        return pool, self._final(h)

@@ -1,0 +1,808 @@
+"""Serving plane: continuous batching over the arena's page pool.
+
+The counterpart of ``repro/runtime/serve_loop.py``'s :class:`ServingEngine`
+in **paged mode**: ``submit(request)`` / ``step()`` / ``drain()`` on the
+:mod:`repro_torch.core.sim` Clock/Executor substrate.  Admitting a request
+prefills exactly that sequence and scatters its K/V rows into the pages
+:class:`~repro_torch.core.arena.PagedKVAllocator` allocated for it; every
+``step()`` appends one row per live slot and decodes the batch through the
+paged-attention kernel, reading ``kv.page_table()`` directly; tokens come
+from the seeded host sampler (:mod:`repro_torch.runtime.sampling`), keyed
+by ``(request.seed, token index)``.
+
+In scope, as in the reference: per-tenant (priority, deadline, arrival)
+admit queues with quota caps and the admission slot ledger; incremental
+monolithic prefill; cross-tenant prefix sharing with copy-on-write pages
+(on by default) and parked prefix donors; arena-poison eviction;
+``serving_stats`` and the decision trace.
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md item (queue 1, item 4): ``kv_mode="dense"`` and
+``incremental=False`` (4a), ``prefill_chunk_tokens > 0`` (4b), the chaos
+hooks ``kill_batch`` / ``evacuate`` / ``poison_*`` (4c), ``Request.
+postprocess`` (4d), and a ``mesh`` (4e).  :class:`ServerConfig` has no
+fields for the ``Server`` options (``pool_watermark``, ``workers``,
+``heartbeat_timeout_s``): they come with ``Server`` (4d), and passing one
+fails as an unknown keyword.
+
+The model owns its weights (an ``nn.Module``), so the engine takes no
+``params`` argument; the reference's jitted, donating wrappers become
+direct calls that update the page pool in place.
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.admission import AdmissionController
+from repro_torch.core.arena import PagedKVAllocator
+from repro_torch.core.mm import MMConfig
+from repro_torch.core.sim import Executor, ThreadExecutor
+from repro_torch.core.tasks import TenantQuota
+from repro_torch.core.telemetry import TelemetrySink, resolve_sink
+from repro_torch.runtime.sampling import sample_token
+
+__all__ = ["Request", "ServerConfig", "ServingEngine"]
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1, item {item})"
+    )
+
+
+@dataclass
+class Request:
+    prompt: np.ndarray                   # (S,) int32
+    max_new_tokens: int = 16
+    request_id: int = 0
+    postprocess: Optional[Callable] = None   # not ported yet (item 4d)
+    tenant: str = "serving"              # admission identity
+    priority: int = 10                   # lower = admitted sooner
+    #: seconds after arrival by which the request must be *admitted*;
+    #: past it the request completes with an "expired" error instead
+    deadline_s: Optional[float] = None
+    #: sampling knobs: ``temperature <= 0`` is greedy (argmax); otherwise
+    #: top_k > 0 / top_p < 1 truncate the distribution.  ``seed`` keys
+    #: the draw together with the token index
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    # filled by the engine:
+    tokens: List[int] = field(default_factory=list)
+    done: bool = False
+    latency_s: float = 0.0               # from *arrival*, not server start
+    error: Optional[str] = None          # denial/expiry failure
+    arrived_at: Optional[float] = None   # executor clock, stamped at submit
+    admitted_at: Optional[float] = None  # first admission
+
+
+@dataclass
+class ServerConfig:
+    max_batch: int = 4
+    max_seq: int = 256
+    tokens_per_page: int = 16
+    mm_legacy: bool = False              # paper A/B: legacy vs modern arena
+    #: per-slot incremental prefill; False (the rebatching baseline) is
+    #: not ported (4a)
+    incremental: bool = True
+    #: virtual seconds one decode step occupies on the executor clock;
+    #: >0 makes the engine sleep between steps
+    step_time_s: float = 0.0
+    #: cap on the engine decision log (0 = unbounded)
+    trace_limit: int = 200_000
+    #: per-tenant serving quotas: ``max_tasks_in_flight`` caps a tenant's
+    #: concurrent decode slots (0 = denied outright); None = no caps.
+    #: Tenants absent from a provided dict get the default TenantQuota()
+    quotas: Optional[Dict[str, TenantQuota]] = None
+    #: "paged" or "auto" (paged when the model supports it); "dense" is
+    #: not ported (4a)
+    kv_mode: str = "auto"
+    #: size of the KV page pool in pages.  None = 4x the pages of a full
+    #: (max_batch, max_seq) reservation
+    kv_pool_pages: Optional[int] = None
+    #: cross-tenant prefix sharing: admission maps a matching resident
+    #: prompt prefix's pages read-only and prefills just the suffix; the
+    #: first divergent write copy-on-writes the shared page
+    prefix_sharing: bool = True
+    #: >0: retired requests park their sequence (renamed ``~pfxN``) as a
+    #: prefix donor instead of dropping it, up to this many, FIFO
+    prefix_cache_seqs: int = 0
+    #: >0 (chunked prefill) is not ported (4b)
+    prefill_chunk_tokens: int = 0
+
+
+class ServingEngine:
+    """Incremental continuous-batching engine over the paged KV arena.
+
+    ``submit()`` may be called from any thread; ``step()``/``drain()`` run
+    the decode plane.  All bookkeeping is guarded by one lock; model math
+    runs outside it.
+    """
+
+    def __init__(
+        self,
+        model,
+        cfg: ServerConfig,
+        *,
+        executor: Optional[Executor] = None,
+        kv: Optional[PagedKVAllocator] = None,
+        admission: Optional[AdmissionController] = None,
+        telemetry: Optional[TelemetrySink] = None,
+        mesh=None,
+    ) -> None:
+        if mesh is not None:
+            raise _unported("tensor-parallel serving (mesh)", "4e")
+        if not cfg.incremental:
+            raise _unported("the rebatching baseline (incremental=False)", "4a")
+        if cfg.prefill_chunk_tokens > 0:
+            raise _unported("chunked prefill (prefill_chunk_tokens)", "4b")
+        self.model = model
+        self.cfg = cfg
+        self.device = model.device
+        self._exec = executor or ThreadExecutor()
+        self.telemetry = resolve_sink(admission, telemetry)
+        self.admission = admission or AdmissionController(sink=self.telemetry)
+        self.kv = kv if kv is not None else self._build_kv(model, cfg)
+        self._lock = threading.RLock()
+
+        B = cfg.max_batch
+        self._slots: List[Optional[Request]] = [None] * B
+        #: per-tenant admit queues, each ordered by (priority,
+        #: deadline-or-inf, arrival seq); the sweep admits the global
+        #: minimum across unthrottled tenants
+        self._queues: Dict[str, List[Tuple[int, float, int, Request]]] = {}
+        #: queued deadline-bearing requests by absolute deadline
+        self._deadlines: List[Tuple[float, int, Request]] = []
+        self._live_ids: set = set()        # queued or slotted request ids
+        self._seq = itertools.count()
+        self.completed: List[Request] = []
+        self._trace: Deque[str] = deque(maxlen=cfg.trace_limit or None)
+
+        self.kv_mode = self._resolve_kv_mode(model, cfg)
+        self.tp_shards = 1                 # no mesh in this slice
+        if self.kv.pool_pages is None:
+            raise ValueError(
+                "kv_mode='paged' needs a PagedKVAllocator with a "
+                "bounded pool (pool_pages) to size the device pages"
+            )
+        # the arena *is* the backing store: the physical page tensors are
+        # bound to the allocator and every prefill/decode updates them in
+        # place, addressed by kv's page tables
+        self.kv.bind_store(
+            model.init_paged_state(self.kv.pool_pages, self.kv.tokens_per_page)
+        )
+        self._sharing = (
+            cfg.prefix_sharing
+            and hasattr(model, "paged_prefill_at")
+            and hasattr(model, "paged_copy_page")
+        )
+
+        # counters (the reference's register_serving reads these)
+        self._admitted: Dict[str, int] = {}
+        self._denied: Dict[str, int] = {}
+        self._expired: Dict[str, int] = {}
+        self._completed_n: Dict[str, int] = {}
+        self._tokens_n: Dict[str, int] = {}
+        self._decode_steps = 0
+        self._prefills = {"incremental": 0, "full": 0}
+        self._prefill_tokens = {"incremental": 0, "full": 0}
+        self._prefills_by_request: Dict[int, int] = {}
+        self._arena_poisons = 0
+        self._evictions = 0
+        #: executor timestamp of each live request's latest sampled token
+        self._last_tok_t: Dict[int, float] = {}
+        self._sampled = {"greedy": 0, "temperature": 0, "topk": 0, "topp": 0}
+        self._prefix_hits = 0
+        self._prefix_tokens_saved = 0
+        #: parked prefix donors (renamed retired sequences), FIFO
+        self._parked: Deque[str] = deque()
+        self._park_seq = itertools.count()
+
+    # ------------------------------------------------------------- helpers
+
+    @staticmethod
+    def _resolve_kv_mode(model, cfg: ServerConfig) -> str:
+        supports = bool(getattr(model, "supports_paged_decode", False))
+        if cfg.kv_mode == "dense" or (cfg.kv_mode == "auto" and not supports):
+            raise _unported("kv_mode='dense' (dense per-slot KV)", "4a")
+        if cfg.kv_mode not in ("auto", "paged"):
+            raise ValueError(f"unknown kv_mode {cfg.kv_mode!r}")
+        if not supports:
+            raise ValueError(
+                f"kv_mode='paged' but {type(model).__name__} does not "
+                "support paged decode (no paged interface, or it uses "
+                "logit softcap / sliding windows)"
+            )
+        return "paged"
+
+    @staticmethod
+    def _build_kv(model, cfg: ServerConfig) -> PagedKVAllocator:
+        mm_cfg = (MMConfig.legacy if cfg.mm_legacy else MMConfig.modern)(
+            granule=4096
+        )
+        mcfg = getattr(model, "cfg", None)
+        token_bytes = (
+            2 * mcfg.num_kv_heads * mcfg.hd * 2 if mcfg is not None else 1
+        )  # K+V bf16
+        seq_pages = -(-cfg.max_seq // cfg.tokens_per_page)
+        return PagedKVAllocator(
+            mm_cfg, tokens_per_page=cfg.tokens_per_page,
+            token_bytes=max(token_bytes, 1),
+            max_seq_pages=seq_pages,
+            pool_pages=cfg.kv_pool_pages or 4 * cfg.max_batch * seq_pages,
+        )
+
+    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _note(self, event: str, r: Optional[Request], detail: str = "") -> None:
+        rid = r.request_id if r is not None else "-"
+        tenant = r.tenant if r is not None else "-"
+        self._trace.append(
+            f"{self._exec.now():.6f} {event} req={rid} tenant={tenant}"
+            + (f" {detail}" if detail else "")
+        )
+
+    def trace(self) -> List[str]:
+        """Engine decisions in order; deterministic under SimExecutor."""
+        with self._lock:
+            return list(self._trace)
+
+    def trace_text(self) -> str:
+        return "\n".join(self.trace()) + "\n"
+
+    def quota(self, tenant: str) -> TenantQuota:
+        if self.cfg.quotas is None:
+            # no quota config = no caps: every tenant may fill the batch
+            return TenantQuota(max_tasks_in_flight=self.cfg.max_batch)
+        return self.cfg.quotas.get(tenant, TenantQuota())
+
+    def _seq_id(self, r: Request) -> str:
+        return f"req{r.request_id}"
+
+    def _enqueue_locked(self, r: Request) -> None:
+        deadline_at = (
+            r.arrived_at + r.deadline_s
+            if r.deadline_s is not None else float("inf")
+        )
+        seq = next(self._seq)
+        heapq.heappush(
+            self._queues.setdefault(r.tenant, []),
+            (r.priority, deadline_at, seq, r),
+        )
+        if r.deadline_s is not None and r.admitted_at is None:
+            heapq.heappush(self._deadlines, (deadline_at, seq, r))
+
+    def _deny_locked(self, r: Request, why: str) -> None:
+        r.error = f"admission denied: {why}"
+        self._denied[r.tenant] = self._denied.get(r.tenant, 0) + 1
+        self._note("deny", r)
+        # this request never owned its id: releasing it would strip the
+        # guard entry of a live request with the same id
+        self._finish_locked(r, release_id=False)
+        self.telemetry.emit(
+            "serving", "denied", tenant=r.tenant, detail=r.error,
+        )
+
+    # -------------------------------------------------------------- submit
+
+    def submit(self, r: Request) -> int:
+        """Queue a request for admission; returns its request id.
+
+        Denied on the spot when the tenant's quota allows zero slots, the
+        prompt is empty, the request can never fit, or its id is live.
+        """
+        if r.postprocess is not None:
+            raise _unported("Request.postprocess", "4d")
+        with self._lock:
+            if r.arrived_at is None:
+                r.arrived_at = self._exec.now()
+            if self.quota(r.tenant).max_tasks_in_flight <= 0:
+                self._deny_locked(r, f"tenant {r.tenant!r} has no slots")
+                return r.request_id
+            if len(r.prompt) == 0:
+                self._deny_locked(r, "empty prompt")
+                return r.request_id
+            if len(r.prompt) + r.max_new_tokens > self.cfg.max_seq:
+                self._deny_locked(
+                    r,
+                    f"prompt+max_new_tokens "
+                    f"({len(r.prompt)}+{r.max_new_tokens}) exceeds "
+                    f"max_seq={self.cfg.max_seq}",
+                )
+                return r.request_id
+            if r.request_id in self._live_ids:
+                self._deny_locked(
+                    r, f"request_id {r.request_id} is already live"
+                )
+                return r.request_id
+            self._live_ids.add(r.request_id)
+            self._enqueue_locked(r)
+            self._note("submit", r)
+        self._exec.notify()
+        return r.request_id
+
+    # --------------------------------------------------------------- admit
+
+    def _active_by_tenant_locked(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for r in self._slots:
+            if r is not None:
+                out[r.tenant] = out.get(r.tenant, 0) + 1
+        return out
+
+    def _expire_due_locked(self, now: float) -> None:
+        """Complete-with-error every queued request whose admit deadline
+        passed (stale entries of admitted requests are skipped)."""
+        while self._deadlines and self._deadlines[0][0] < now:
+            _, _, r = heapq.heappop(self._deadlines)
+            if r.done or r.admitted_at is not None:
+                continue
+            r.error = f"deadline {r.deadline_s}s passed before admission"
+            self._expired[r.tenant] = self._expired.get(r.tenant, 0) + 1
+            self._note("expire", r)
+            self._finish_locked(r)
+            self.telemetry.count("serving.expired")
+
+    def _clean_head_locked(
+        self, tenant: str
+    ) -> Optional[Tuple[int, float, int, Request]]:
+        heap = self._queues.get(tenant)
+        while heap:
+            _, _, _, r = heap[0]
+            if r.done:
+                heapq.heappop(heap)        # expired
+                continue
+            return heap[0]
+        return None
+
+    def _admit_locked(self) -> List[Tuple[int, Request, int]]:
+        """Fill free slots from the queues; returns [(slot, request,
+        shared_prefix_tokens)] admitted.
+
+        Each round admits the globally-best head — (priority, deadline,
+        arrival) order — among tenants below their slot cap.  With prefix
+        sharing on, a prompt whose prefix is already resident maps those
+        pages read-only and prefills only the suffix.
+        """
+        admitted: List[Tuple[int, Request, int]] = []
+        active = self._active_by_tenant_locked()
+        now = self._exec.now()
+        self._expire_due_locked(now)
+        while None in self._slots:
+            best: Optional[Tuple[int, float, int, Request]] = None
+            for tenant in sorted(self._queues):
+                head = self._clean_head_locked(tenant)
+                if head is None:
+                    continue
+                if active.get(tenant, 0) >= self.quota(tenant).max_tasks_in_flight:
+                    continue               # throttled, not denied
+                if best is None or head < best:
+                    best = head
+            if best is None:
+                break
+            r = best[3]
+            heapq.heappop(self._queues[r.tenant])
+            slot = self._slots.index(None)
+            self._slots[slot] = r
+            if r.admitted_at is None:
+                r.admitted_at = now
+                self.telemetry.observe(
+                    "serving.admit_wait_seconds", now - r.arrived_at,
+                    tenant=r.tenant,
+                )
+            active[r.tenant] = active.get(r.tenant, 0) + 1
+            seq_id = self._seq_id(r)
+            start = 0
+            self.kv.add_sequence(seq_id)
+            total = len(r.prompt) + len(r.tokens)
+            if self._sharing:
+                donor, match = self.kv.lookup_prefix(r.prompt)
+                # share whole pages covering the matched prompt prefix,
+                # but always prefill at least one token, and only bother
+                # for a full page
+                match = min(match, len(r.prompt), total - 1)
+                if donor is not None and match >= self.kv.tokens_per_page:
+                    self.kv.share_prefix(seq_id, donor, match)
+                    start = match
+                    self._prefix_hits += 1
+                    self._prefix_tokens_saved += match
+                    self._note(
+                        "prefix_share", r, f"donor={donor} tokens={match}"
+                    )
+            self.kv.append_tokens(seq_id, total - start)
+            self.admission.slot_acquired(r.tenant)
+            self._admitted[r.tenant] = self._admitted.get(r.tenant, 0) + 1
+            self._note("admit", r, f"slot={slot}")
+            admitted.append((slot, r, start))
+        return admitted
+
+    # ------------------------------------------------------------- prefill
+
+    def _sequence_tokens(self, r: Request) -> np.ndarray:
+        """The token stream the model has *consumed* for this request.
+
+        Decode feeds ``tokens[-1]`` (or ``prompt[-1]`` on the first step),
+        so after k generated tokens the consumed stream is
+        ``prompt + [prompt[-1]] + tokens[:k-1]``.
+        """
+        if r.tokens:
+            seq = list(r.prompt) + [int(r.prompt[-1])] + r.tokens[:-1]
+        else:
+            seq = list(r.prompt)
+        return np.asarray(seq, np.int32)
+
+    def _bucketed_table(self, seq_ids) -> np.ndarray:
+        """Page table padded with -1 to the next power-of-two width, as the
+        reference buckets it for its jit cache."""
+        table = self.kv.page_table(seq_ids=seq_ids)
+        w = max(table.shape[1], 1)
+        bucket = 1 << (w - 1).bit_length()
+        if bucket > table.shape[1]:
+            table = np.pad(
+                table, ((0, 0), (0, bucket - table.shape[1])),
+                constant_values=-1,
+            )
+        return table
+
+    def _cow_locked(self, seq_id: str, logical: int) -> None:
+        """Copy-on-write one logical page if another sequence maps it."""
+        if self.kv.page_writable(seq_id, logical):
+            return
+        src, dst = self.kv.cow_page(seq_id, logical)
+        self.kv.swap_store(self.model.paged_copy_page(self.kv.store, src, dst))
+        self._note("cow", None, f"seq={seq_id} page {src}->{dst}")
+
+    def _prefill_slot_paged(self, slot: int, r: Request,
+                            start: int = 0) -> None:
+        """Prefill this request's K/V rows straight into its arena pages.
+
+        With ``start`` > 0 the first ``start`` positions are shared donor
+        pages: only the suffix runs through the model (attending through
+        the resident prefix rows), any shared page in the write range is
+        COW'd, and the scatter lands on the suffix positions.
+        """
+        with self._lock:
+            if self._slots[slot] is not r:
+                return                     # evicted before the prefill ran
+            seq = self._sequence_tokens(r)
+            seq_id = self._seq_id(r)
+            if start:
+                table = self._bucketed_table([seq_id])
+        if start:
+            rows, _ = self.model.paged_prefill_at(
+                self._tensor(seq[None, start:]), self.kv.store,
+                self._tensor(table), start,
+            )
+        else:
+            rows, _ = self.model.paged_prefill(self._tensor(seq[None, :]))
+        with self._lock:
+            if self._slots[slot] is not r:
+                return                     # evicted mid-prefill: discard
+            self._prefills["incremental"] += 1
+            self._prefill_tokens["incremental"] += int(seq.size - start)
+            self._prefills_by_request[r.request_id] = (
+                self._prefills_by_request.get(r.request_id, 0) + 1
+            )
+            self._note(
+                "prefill", r,
+                f"slot={slot} tokens={seq.size - start}"
+                + (f" shared={start}" if start else ""),
+            )
+            page = self.kv.tokens_per_page
+            for lp in range(start // page, -(-seq.size // page)):
+                # a divergent write into the trailing shared (partial)
+                # page triggers COW before the scatter lands
+                self._cow_locked(seq_id, lp)
+            page_ids, offsets = self.kv.token_positions(
+                seq_id, start, seq.size - start
+            )
+            self.kv.swap_store(self.model.paged_write_prefill(
+                self.kv.store, rows, page_ids, offsets,
+            ))
+            if self._sharing:
+                # rows are resident now: this prompt can donate
+                self.kv.register_prefix(seq_id, r.prompt)
+
+    # ---------------------------------------------------------------- step
+
+    def step(self) -> int:
+        """One engine tick: validate arena, admit, decode once, retire.
+
+        Returns the number of requests retired this tick.
+        """
+        self._evict_poisoned()
+        with self._lock:
+            admitted = self._admit_locked()
+        if admitted:
+            for slot, r, start in admitted:
+                self._prefill_slot_paged(slot, r, start)
+            # sample arena occupancy while sequences are live
+            self.kv.arena.mm.host_vma_count()
+        with self._lock:
+            live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
+            if live:
+                # reserve this step's token row per live slot, then
+                # snapshot the slot-ordered page table, its width bucketed
+                # to the next power of two of the widest live sequence
+                pos = np.zeros((self.cfg.max_batch,), np.int32)
+                for i, r in live:
+                    pos[i] = len(r.prompt) + len(r.tokens)
+                    self.kv.ensure_tokens(self._seq_id(r), int(pos[i]) + 1)
+                    if self._sharing:
+                        # the append lands at pos: COW its page first if
+                        # another sequence still maps it
+                        self._cow_locked(
+                            self._seq_id(r),
+                            int(pos[i]) // self.kv.tokens_per_page,
+                        )
+                table = self._bucketed_table([
+                    self._seq_id(r) if r is not None else None
+                    for r in self._slots
+                ])
+        if not live:
+            return 0
+
+        last = np.zeros((self.cfg.max_batch,), np.int32)
+        for i, r in live:
+            last[i] = r.tokens[-1] if r.tokens else int(r.prompt[-1])
+        store, logits = self.model.paged_decode_step(
+            self.kv.store, self._tensor(last), self._tensor(table),
+            self._tensor(pos),
+        )
+        self.kv.swap_store(store)
+        # bf16 -> fp32 -> float64 (in the sampler) is exact
+        logits_np = logits.float().cpu().numpy()
+
+        retiring: List[Request] = []
+        now_t = self._exec.now()
+        with self._lock:
+            self._decode_steps += 1
+            for i, r in live:
+                if self._slots[i] is not r:
+                    continue
+                tok, method = sample_token(
+                    logits_np[i],
+                    temperature=r.temperature, top_k=r.top_k,
+                    top_p=r.top_p, seed=r.seed, index=len(r.tokens),
+                )
+                self._sampled[method] += 1
+                r.tokens.append(tok)
+                if len(r.tokens) == 1:
+                    # time-to-first-token from arrival: admit wait,
+                    # queueing and the whole prefill are inside it
+                    self.telemetry.observe(
+                        "serving.ttft_seconds", now_t - r.arrived_at,
+                        tenant=r.tenant,
+                    )
+                else:
+                    prev = self._last_tok_t.get(r.request_id)
+                    if prev is not None:
+                        self.telemetry.observe(
+                            "serving.intertoken_seconds", now_t - prev,
+                            tenant=r.tenant,
+                        )
+                self._last_tok_t[r.request_id] = now_t
+                # the row was reserved pre-step; make the count stick
+                self.kv.ensure_tokens(
+                    self._seq_id(r), len(r.prompt) + len(r.tokens)
+                )
+                self._tokens_n[r.tenant] = self._tokens_n.get(r.tenant, 0) + 1
+                if len(r.tokens) >= r.max_new_tokens:
+                    r.done = True
+                    if not self._park_locked(r):
+                        self.kv.drop_sequence(self._seq_id(r))
+                    self.admission.slot_released(r.tenant)
+                    self._slots[i] = None
+                    self._last_tok_t.pop(r.request_id, None)
+                    self._note("retire", r, f"slot={i}")
+                    retiring.append(r)
+            for r in retiring:
+                self._finish_locked(r)
+        if retiring:
+            self._exec.notify()
+        return len(retiring)
+
+    def _park_locked(self, r: Request) -> bool:
+        """Park a retiring request's sequence as a prefix-cache donor.
+
+        Renamed to ``~pfxN`` so later prompts can share it; skipped when
+        caching is off, the sequence is poisoned, its prompt never got
+        indexed, or another donor already covers this prompt.
+        """
+        if not self._sharing or self.cfg.prefix_cache_seqs <= 0:
+            return False
+        seq_id = self._seq_id(r)
+        if seq_id in self.kv.validate() or seq_id not in self.kv.prefix:
+            return False
+        donor, match = self.kv.lookup_prefix(r.prompt, exclude=(seq_id,))
+        if donor is not None and match >= len(r.prompt) - 1:
+            return False
+        name = f"~pfx{next(self._park_seq)}"
+        self.kv.rename_sequence(seq_id, name)
+        self._parked.append(name)
+        self._note("park", r, f"as={name}")
+        while len(self._parked) > self.cfg.prefix_cache_seqs:
+            old = self._parked.popleft()
+            if self.kv.has_sequence(old):
+                self.kv.drop_sequence(old)
+        return True
+
+    def flush_prefix_cache(self) -> int:
+        """Drop every parked prefix donor; returns how many were freed."""
+        with self._lock:
+            n = 0
+            while self._parked:
+                name = self._parked.popleft()
+                if self.kv.has_sequence(name):
+                    self.kv.drop_sequence(name)
+                    n += 1
+            return n
+
+    def _finish_locked(self, r: Request, *, release_id: bool = True) -> None:
+        r.done = True
+        if release_id:
+            self._live_ids.discard(r.request_id)
+        arrived = (
+            r.arrived_at if r.arrived_at is not None else self._exec.now()
+        )
+        r.latency_s = self._exec.now() - arrived
+        self._completed_n[r.tenant] = self._completed_n.get(r.tenant, 0) + 1
+        self.completed.append(r)
+        if r.admitted_at is not None:
+            self.telemetry.count("server.request")
+            self.telemetry.observe(
+                "server.request_seconds", r.latency_s, tenant=r.tenant,
+            )
+
+    # --------------------------------------------------------------- drain
+
+    def has_work(self) -> bool:
+        with self._lock:
+            return any(self._queues.values()) or any(
+                r is not None for r in self._slots
+            )
+
+    def drain(self, timeout: float = 300.0) -> List[Request]:
+        """Run steps until queue and slots are empty."""
+        deadline = time.monotonic() + timeout
+        while self.has_work():
+            self.step()
+            if self.cfg.step_time_s > 0:
+                self._exec.sleep(self.cfg.step_time_s)
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"drain: work remaining after {timeout}s wall time"
+                )
+        return self.completed
+
+    # --------------------------------------------------------------- chaos
+
+    def kill_batch(self) -> int:
+        raise _unported("ServingEngine.kill_batch", "4c")
+
+    def evacuate(self) -> List[Request]:
+        raise _unported("ServingEngine.evacuate", "4c")
+
+    def poison_live(self, index: int = 0) -> Optional[str]:
+        raise _unported("ServingEngine.poison_live", "4c")
+
+    def poison_shared(self, index: int = 0) -> Optional[str]:
+        raise _unported("ServingEngine.poison_shared", "4c")
+
+    def poison_prefilling(self, index: int = 0) -> Optional[str]:
+        raise _unported("ServingEngine.poison_prefilling", "4c")
+
+    def _requeue_locked(self, slot: int, r: Request, why: str) -> None:
+        """Evict a live sequence back to the admit queue, dropping its
+        pages; generated tokens survive, so re-admission re-prefills
+        prompt+tokens and the request resumes where it left off."""
+        self.kv.drop_sequence(self._seq_id(r))
+        self.admission.slot_released(r.tenant)
+        self._slots[slot] = None
+        self._evictions += 1
+        self._enqueue_locked(r)
+        self._note(f"evict:{why}", r, f"slot={slot}")
+        self.telemetry.count(f"serving.evict_{why}")
+
+    def _evict_poisoned(self) -> None:
+        """A poisoned arena sequence (``kv.poison_sequence``) is corrupt by
+        definition: a slotted one is evicted and re-prefilled, a parked
+        donor is dropped."""
+        with self._lock:
+            bad = self.kv.validate()
+            if not bad:
+                return
+            slotted = {
+                self._seq_id(r) for r in self._slots if r is not None
+            }
+            for i, r in enumerate(self._slots):
+                if r is not None and self._seq_id(r) in bad:
+                    self._requeue_locked(i, r, "poison")
+            for seq_id in bad:
+                if seq_id not in slotted and self.kv.has_sequence(seq_id):
+                    self.kv.drop_sequence(seq_id)
+                    self._trace.append(
+                        f"{self._exec.now():.6f} drop_resident seq={seq_id}"
+                    )
+        self._exec.notify()
+
+    # --------------------------------------------------------------- stats
+
+    def active_count(self) -> int:
+        with self._lock:
+            return sum(1 for r in self._slots if r is not None)
+
+    def _queue_depths_locked(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for tenant, heap in self._queues.items():
+            n = sum(1 for (_, _, _, r) in heap if not r.done)
+            if n:
+                out[tenant] = n
+        return out
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return sum(self._queue_depths_locked().values())
+
+    def serving_stats(self) -> Dict[str, Any]:
+        """Snapshot with the reference's keys (the chaos and chunked
+        counters stay 0 until those paths are ported)."""
+        with self._lock:
+            return {
+                "queue_depth": self._queue_depths_locked(),
+                "active_slots": self._active_by_tenant_locked(),
+                "admitted_total": dict(self._admitted),
+                "denied_total": dict(self._denied),
+                "expired_total": dict(self._expired),
+                "completed_total": dict(self._completed_n),
+                "tokens_total": dict(self._tokens_n),
+                "decode_steps_total": self._decode_steps,
+                "tp_shards": self.tp_shards,
+                "prefill_sequences_total": dict(self._prefills),
+                "prefill_tokens_total": dict(self._prefill_tokens),
+                "batch_kill_total": 0,
+                "arena_poison_total": self._arena_poisons,
+                "evicted_total": self._evictions,
+                "kv_mode": self.kv_mode,
+                "resumed_total": 0,
+                "prefill_chunks_total": 0,
+                "sampled_tokens_total": dict(self._sampled),
+                "kv_pages_allocated_total": self.kv.pages_allocated,
+                "kv_pages_freed_total": self.kv.pages_freed,
+                "prefix_hits_total": self._prefix_hits,
+                "prefix_shared_pages_total": self.kv.shared_pages_total,
+                "prefix_cow_copies_total": self.kv.cow_copies_total,
+                "prefix_prefill_tokens_saved_total": self._prefix_tokens_saved,
+            }
+
+    def prefill_counts(self) -> Dict[int, int]:
+        """Times each request was prefilled (regression probe for tests)."""
+        with self._lock:
+            return dict(self._prefills_by_request)
+
+    def reset_history(self) -> None:
+        """Release per-request history (completed, trace, prefill counts)."""
+        with self._lock:
+            self.completed.clear()
+            self._trace.clear()
+            self._prefills_by_request.clear()
+
+    def arena_report(self) -> Dict[str, Any]:
+        return {
+            "total_contiguous_runs": self.kv.total_runs(),
+            "host_vmas": self.kv.arena.mm.host_vma_count(),
+            "host_vma_high_water": self.kv.arena.mm.host_vma_high_water,
+            "mm_stats": self.kv.arena.mm.stats(),
+        }
