@@ -10,16 +10,21 @@ prints no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: every kernel compiled from ``src/repro_torch/csrc`` by nvcc;
-3. kernels against their plain PyTorch versions at the serving path's
-   shapes, in bf16 and fp32, with times, bounds and the library yardstick;
-4. serving: ``ServingEngine`` serves 8 requests on full-width qwen2.5-32b
-   (depth cut 64 -> 8 layers, random weights from a seeded generator), and
-   the kernels' launch counts prove the path went through them;
-5. card against CPU: the same small fp32 model serves the same greedy
-   requests on the card (kernels) and on the CPU (plain versions);
-6. summary: one ``{"kernels": [...]}`` line, then the result line.
+3. kernels against their plain PyTorch versions at the serving paths'
+   shapes, in bf16 and fp32, with times, bounds and the library yardstick:
+   paged decode (K1), flash prefill (K2), WKV6 (K3), segment zero-fill (K4);
+4. paged serving: ``ServingEngine`` serves 8 requests on full-width
+   qwen2.5-32b (depth cut 64 -> 8 layers, random weights from a seeded
+   generator), and the launch counts prove the path went through K1, K2;
+5. card against CPU: the same small fp32 models (a qwen-style transformer
+   and an RWKV6) serve the same greedy requests on the card (kernels) and
+   on the CPU (plain versions);
+6. dense serving: ``ServingEngine`` serves 8 requests on rwkv6-3b at its
+   full width and depth (32 layers), and the launch counts prove the path
+   went through K3 and not K1 or K2.
 
-``--phases 1,2,3`` runs a subset (the result line needs all six).
+With all six, a summary follows: one ``{"kernels": [...]}`` line, then the
+result line.  ``--phases 1,2,3`` runs a subset and prints no result line.
 Imports nothing of JAX or of the reference package ``repro``.
 """
 
@@ -46,6 +51,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # may differ by one bf16 ulp (at most 2**-7 * |ref|); in fp32 they differ by
 # the order of sums over up to 4096 keys
 TOL = {torch.bfloat16: (1e-5, 2.0 ** -7), torch.float32: (1e-5, 1e-4)}
+# WKV6's final state is fp32 whatever the inputs' dtype, so it is held to
+# the fp32 limit: both sides run the same fp32 recurrence in another order
+# of sums, each token adds a few fp32 roundings of |S|, and a decay below
+# 0.95 forgets them within ~20 tokens, so the carried error stays near 20
+# ulps of |S|, far inside rtol 1e-4
 SERVE_LAYERS = 8
 
 
@@ -268,16 +278,117 @@ def check_flash() -> dict:
     return main
 
 
+def check_wkv6() -> dict:
+    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    # (B, T, H, hd): rwkv6-3b's prefills at 2048 and a ragged 300 tokens,
+    # a batch of 4, and the 16-wide heads of the reduced config
+    cases = [(1, 2048, 40, 64), (1, 300, 40, 64), (4, 128, 40, 64),
+             (2, 77, 4, 16)]
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, T, H, hd in cases:
+            g = torch.Generator("cuda").manual_seed(B * T + hd)
+            n = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+            r = n(B, T, H, hd).to(dtype)
+            k = (n(B, T, H, hd) * 0.3).to(dtype)
+            v = n(B, T, H, hd).to(dtype)
+            w = torch.sigmoid(n(B, T, H, hd)) * 0.6 + 0.35   # (0.35, 0.95)
+            u = n(H, hd) * 0.2
+            s0 = n(B, H, hd, hd) * 0.1
+            run = lambda: wkv6(r, k, v, w, u, s0)
+            state, y = run()
+            ref_state, ref_y = wkv6_ref(r, k, v, w, u, s0)
+            what = f"wkv6 {dtype} B={B} T={T} H={H} hd={hd}"
+            err, share = compare(y, ref_y, dtype, what + " y")
+            s_err, s_share = compare(state, ref_state, torch.float32,
+                                     what + " state")
+            ms = time_ms(run)
+            plain_ms = time_ms(lambda: wkv6_ref(r, k, v, w, u, s0), iters=2,
+                               warmup=1)
+            isz = r.element_size()
+            N = B * T * H * hd
+            nbytes = (4 * N * isz + N * 4 + u.numel() * 4
+                      + 2 * s0.numel() * 4)          # r,k,v,y; w; u; states
+            # two fp32 FMAs per state element per token, on CUDA cores
+            flops = 4 * B * T * H * hd * hd
+            bms, by = bound(nbytes, flops, torch.float32)
+            log(f"[wkv6] {str(dtype)[6:]} B={B} T={T} H={H} hd={hd}: y "
+                f"max|err|={err:.3g} ({share:.3f} x {tol_str(dtype)}), state "
+                f"max|err|={s_err:.3g} ({s_share:.3f} x "
+                f"{tol_str(torch.float32)}) | {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            if dtype == torch.bfloat16 and T == 2048:
+                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bms, "bound_by": by,
+                        "shape": f"B={B} T={T} H={H} hd={hd} bf16 r/k/v",
+                        "tol": f"y {tol_str(dtype)}; state "
+                               f"{tol_str(torch.float32)}"}
+    log("[wkv6] library: no single PyTorch call computes the WKV6 "
+        "recurrence -> library_ms null")
+    main["library_ms"] = None
+    return main
+
+
+def check_segment_zero() -> dict:
+    from repro_torch.kernels.segment_zero.ops import segment_zero
+    from repro_torch.kernels.segment_zero.ref import segment_zero_ref
+
+    N = 2 ** 26 + 777
+    ranges = [(N // 3 + 1, 2 * N // 3 + 5), (0, 4099), (N - 1001, N),
+              (777, 777), (-5, 3)]                  # middle, ends, empty
+    bits = {torch.float32: torch.int32, torch.int32: torch.int32,
+            torch.bfloat16: torch.int16}
+    main = None
+    g = torch.Generator("cuda").manual_seed(26)
+    for dtype in (torch.float32, torch.int32, torch.bfloat16):
+        if dtype == torch.int32:
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, (N,), generator=g,
+                              device="cuda", dtype=torch.int32)
+        else:
+            x = torch.randn((N,), generator=g, device="cuda").to(dtype)
+        # a view 4 or 2 bytes past a 16-byte boundary: the scalar path
+        cases = [(x, lo, hi) for lo, hi in ranges] + [(x[1:10008], 100, 9000)]
+        for xs, lo, hi in cases:
+            out = segment_zero(xs, lo, hi)
+            ref = segment_zero_ref(xs, lo, hi)
+            if not torch.equal(out.view(bits[dtype]), ref.view(bits[dtype])):
+                raise AssertionError(
+                    f"segment_zero {dtype} N={xs.numel()} [{lo}, {hi}): not "
+                    "bitwise equal to the plain version")
+        lo, hi = ranges[0]
+        run = lambda: segment_zero(x, lo, hi)
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: segment_zero_ref(x, lo, hi), iters=5)
+        # reads the elements outside [lo, hi) once, writes all N once
+        nbytes = (2 * N - (hi - lo)) * x.element_size()
+        bms, by = bound(nbytes, 0, torch.float32)
+        log(f"[segment_zero] {str(dtype)[6:]} N={N}: bitwise equal over "
+            f"{len(cases)} ranges (middle, both ends, empty, out of range, "
+            f"unaligned) | middle third: {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by})")
+        if dtype == torch.float32:
+            main = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by,
+                    "shape": f"N={N} float32, zero [{lo}, {hi})",
+                    "tol": "bitwise"}
+    log("[segment_zero] library: no single PyTorch call takes (x, lo, hi) "
+        "-> library_ms null")
+    main["library_ms"] = None
+    return main
+
+
 # --------------------------------------------------------------- phase 4
 
 
-def _serving_requests(vocab: int, seed: int = 0):
+def _serving_requests(vocab: int, lengths, seed: int = 0):
+    """32 new tokens each; even requests greedy, odd ones temperature 0.8
+    with top-k 50."""
     from repro_torch.runtime import Request
 
     rng = np.random.default_rng(seed)
-    lengths = [2048, 1000, 513, 300, 128, 64, 17, 1500]
     prompts = [rng.integers(0, vocab, (n,)).astype(np.int32) for n in lengths]
-    prompts[7][:512] = prompts[0][:512]       # a shared 512-token prefix
     return [
         Request(prompt=p, max_new_tokens=32, request_id=i, seed=100 + i,
                 temperature=0.0 if i % 2 == 0 else 0.8,
@@ -286,41 +397,24 @@ def _serving_requests(vocab: int, seed: int = 0):
     ]
 
 
-def phase_serving() -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.models import build_model
-    from repro_torch.runtime import Request, ServerConfig, ServingEngine
+def _warm_up(engine) -> dict:
+    """One request first: cuBLAS handles and matmul heuristics are set up on
+    first use, which would otherwise land in the first requests' TTFT.
+    Returns the engine's (cumulative) counters after it."""
+    from repro_torch.runtime import Request
 
-    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
-                              num_layers=SERVE_LAYERS)
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda")
-    model.init(torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    log(f"[serve] qwen2.5-32b d_model={cfg.d_model} H={cfg.num_heads} "
-        f"K={cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
-        f"layers={cfg.num_layers} (of 64) bf16: "
-        f"{cfg.param_count() / 1e9:.2f}B params, init "
-        f"{time.perf_counter() - t0:.1f}s")
-    # parked prefix donors let the 1500-token request share the 2048-token
-    # request's first 512 tokens after that one retired
-    engine = ServingEngine(model, ServerConfig(
-        max_batch=4, max_seq=4096, prefix_cache_seqs=4))
-    reqs = _serving_requests(cfg.vocab_size)
-    # warm-up request: cuBLAS handles and matmul heuristics are set up on
-    # first use, which would otherwise land in the first requests' TTFT
     engine.submit(Request(prompt=np.arange(64, dtype=np.int32),
                           max_new_tokens=2, request_id=99))
     engine.drain()
     engine.flush_prefix_cache()
     engine.reset_history()
-    base = engine.serving_stats()          # counters are cumulative
+    return engine.serving_stats()
 
-    torch.cuda.reset_peak_memory_stats()
-    pa_ops.paged_attention.launches = 0
-    fa_ops.flash_attention.launches = 0
+
+def _drive(engine, reqs) -> dict:
+    """Submit ``reqs`` and step until done: wall seconds, TTFT per request
+    (from submit, host clock) and the host time and tokens of every step
+    that ran no prefill."""
     t_submit = time.perf_counter()
     for r in reqs:
         engine.submit(r)
@@ -340,19 +434,87 @@ def phase_serving() -> dict:
         if sum(engine.prefill_counts().values()) == before:
             decode_steps_ms.append(dt * 1e3)
             decode_tokens += sum(len(r.tokens) for r in reqs) - n_tok
-    wall = time.perf_counter() - t_submit
-    paged_n = pa_ops.paged_attention.launches
-    flash_n = fa_ops.flash_attention.launches
-    peak = torch.cuda.max_memory_allocated()
+    return {"wall": time.perf_counter() - t_submit,
+            "ttft": sorted(ttft.values()), "steps_ms": decode_steps_ms,
+            "tokens": decode_tokens}
+
+
+def _check_outputs(reqs, vocab: int) -> None:
+    for r in reqs:
+        if r.error or len(r.tokens) != 32 or not all(
+                0 <= t < vocab for t in r.tokens):
+            raise AssertionError(
+                f"request {r.request_id}: error={r.error} tokens={r.tokens}")
+
+
+def _log_timings(tag: str, run: dict, peak: int, note: str) -> None:
+    steps_ms, ttfts = run["steps_ms"], run["ttft"]
+    decode_s = sum(steps_ms) / 1e3
+    log(f"[{tag}] wall {run['wall']:.3f}s, decode {run['tokens']} tokens in "
+        f"{decode_s:.3f}s = {run['tokens'] / decode_s:.1f} tokens/s over "
+        f"{len(steps_ms)} decode-only steps (step p50 "
+        f"{float(np.median(steps_ms)):.2f} ms, max "
+        f"{max(steps_ms):.2f} ms), TTFT p50 "
+        f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, TTFT all ms "
+        f"{[round(t * 1e3, 1) for t in ttfts]}, peak memory "
+        f"{peak / 2**30:.2f} GiB{note}")
+
+
+def _launch_counters():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.segment_zero import ops as sz_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+
+    return {"paged_attention": pa_ops.paged_attention,
+            "flash_attention": fa_ops.flash_attention,
+            "wkv6": wkv_ops.wkv6, "segment_zero": sz_ops.segment_zero}
+
+
+def _drive_counted(engine, reqs) -> tuple:
+    """``_drive`` with every kernel's launch count set to 0 just before and
+    read just after, and the peak device memory of the run."""
+    counters = _launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    run = _drive(engine, reqs)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return run, launches, torch.cuda.max_memory_allocated()
+
+
+def phase_serving() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ServerConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[serve] qwen2.5-32b d_model={cfg.d_model} H={cfg.num_heads} "
+        f"K={cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"layers={cfg.num_layers} (of 64) bf16: "
+        f"{cfg.param_count() / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    # parked prefix donors let the 1500-token request share the 2048-token
+    # request's first 512 tokens after that one retired
+    engine = ServingEngine(model, ServerConfig(
+        max_batch=4, max_seq=4096, prefix_cache_seqs=4))
+    reqs = _serving_requests(cfg.vocab_size,
+                             [2048, 1000, 513, 300, 128, 64, 17, 1500])
+    reqs[7].prompt[:512] = reqs[0].prompt[:512]   # a shared 512-token prefix
+    base = _warm_up(engine)
+    run, launches, peak = _drive_counted(engine, reqs)
+    paged_n = launches["paged_attention"]
+    flash_n = launches["flash_attention"]
     stats = engine.serving_stats()
     engine.flush_prefix_cache()
     stats_after = engine.serving_stats()
 
-    for r in reqs:
-        if r.error or len(r.tokens) != 32 or not all(
-                0 <= t < cfg.vocab_size for t in r.tokens):
-            raise AssertionError(
-                f"request {r.request_id}: error={r.error} tokens={r.tokens}")
+    _check_outputs(reqs, cfg.vocab_size)
     steps = stats["decode_steps_total"] - base["decode_steps_total"]
     shared = stats["prefix_hits_total"] - base["prefix_hits_total"]
     full_prefills = (stats["prefill_sequences_total"]["incremental"]
@@ -372,12 +534,12 @@ def phase_serving() -> dict:
         raise AssertionError(
             f"flash_attention launches {flash_n} != {full_prefills} full "
             f"prefills x {cfg.num_layers} layers")
+    if launches["wkv6"] or launches["segment_zero"]:
+        raise AssertionError(f"the paged path launched {launches}")
     if shared < 1:
         raise AssertionError("the shared 512-token prefix was not shared")
     pages = {k: stats_after[k] - base[k] for k in
              ("kv_pages_allocated_total", "kv_pages_freed_total")}
-    ttfts = sorted(ttft.values())
-    decode_s = sum(decode_steps_ms) / 1e3
     log(f"[serve] 8 requests done, no error: decode steps {steps}, "
         f"full prefills {full_prefills}, prefix hits {shared} "
         f"({saved} tokens saved), "
@@ -385,20 +547,13 @@ def phase_serving() -> dict:
         f"{pages['kv_pages_freed_total']} (the warm-up request's excluded)")
     log(f"[serve] launches: paged_attention {paged_n} = {steps} x "
         f"{cfg.num_layers}, flash_attention {flash_n} = {full_prefills} x "
-        f"{cfg.num_layers}")
-    log(f"[serve] wall {wall:.3f}s, decode {decode_tokens} tokens in "
-        f"{decode_s:.3f}s = {decode_tokens / decode_s:.1f} tokens/s over "
-        f"{len(decode_steps_ms)} decode-only steps (step p50 "
-        f"{float(np.median(decode_steps_ms)):.2f} ms, max "
-        f"{max(decode_steps_ms):.2f} ms), TTFT p50 "
-        f"{ttfts[len(ttfts) // 2] * 1e3:.1f} ms, TTFT all ms "
-        f"{[round(t * 1e3, 1) for t in ttfts]}, peak memory "
-        f"{peak / 2**30:.2f} GiB [{SERVE_LAYERS}-layer depth cut]")
-    profile_decode(engine, cfg)
-    return {"paged_attention": paged_n, "flash_attention": flash_n}
+        f"{cfg.num_layers}, wkv6 0, segment_zero 0")
+    _log_timings("serve", run, peak, f" [{SERVE_LAYERS}-layer depth cut]")
+    profile_decode(engine, cfg, "profile")
+    return launches
 
 
-def profile_decode(engine, cfg) -> None:
+def profile_decode(engine, cfg, tag: str) -> None:
     """Device busy share, kernel time by name and the host sampler's time
     over 4 decode steps of a full batch (2 greedy, 2 top-k 50 requests
     with 512-token prompts), from ``torch.profiler``; after the launch
@@ -448,19 +603,19 @@ def profile_decode(engine, cfg) -> None:
          and e.self_device_time_total > 0),
         reverse=True)
     sampler_ms = sampler_s[0] * 1e3
-    log(f"[profile] 4 decode steps at batch 4 (seq ~520), profiler on: "
+    log(f"[{tag}] 4 decode steps at batch 4 (seq ~520), profiler on: "
         f"wall {wall_ms:.2f} ms, host sampler {sampler_ms:.2f} ms "
         f"({100 * sampler_ms / wall_ms:.1f}% of wall)")
     if not rows:
-        log("[profile] the profiler saw no device time: busy share not "
+        log(f"[{tag}] the profiler saw no device time: busy share not "
             "measured")
         return
     busy_ms = sum(r[0] for r in rows)
-    log(f"[profile] device busy {busy_ms:.2f} ms "
+    log(f"[{tag}] device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of wall), idle "
         f"{100 * (1 - busy_ms / wall_ms):.1f}%")
     for ms, key, count in rows[:8]:
-        log(f"[profile]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+        log(f"[{tag}]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
 # --------------------------------------------------------------- phase 5
@@ -501,6 +656,108 @@ def phase_card_vs_cpu() -> None:
     log(f"[card-vs-cpu] width-256 fp32 ({cfg.num_layers} layers, hd "
         f"{cfg.hd}, K={cfg.num_kv_heads}): prefill logits max|err| {err:.3g} "
         f"(tol 1e-3), greedy streams equal: {streams['cuda']}")
+    _card_vs_cpu_rwkv()
+
+
+def _card_vs_cpu_rwkv() -> None:
+    """A width-256 fp32 RWKV6 (2 layers, heads of 64): prefill through K3
+    on the card and the plain scan on the CPU, then dense serving."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Request, ServerConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_reduced("rwkv6-3b"), num_layers=2,
+                              d_model=256, num_heads=4, num_kv_heads=4,
+                              d_ff=896, rwkv_head_size=64, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(2))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (40, 17, 70)]
+    toks = torch.from_numpy(prompts[2][None])
+    state_c, logit_c = cpu.prefill(toks)
+    state_g, logit_g = gpu.prefill(toks.cuda())
+    err = (logit_g.cpu() - logit_c).abs().max().item()
+    s_err = (state_g["wkv"].cpu() - state_c["wkv"]).abs().max().item()
+    if not torch.allclose(logit_g.cpu(), logit_c, rtol=1e-3, atol=1e-3) or \
+            not torch.allclose(state_g["wkv"].cpu(), state_c["wkv"],
+                               rtol=1e-3, atol=1e-3):
+        raise AssertionError(
+            f"card vs CPU RWKV prefill: logits max|err| {err}, wkv state "
+            f"max|err| {s_err}")
+    streams = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        eng = ServingEngine(model, ServerConfig(max_batch=2, max_seq=128))
+        reqs = [Request(prompt=p, max_new_tokens=8, request_id=i)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.drain()
+        streams[name] = [r.tokens for r in reqs]
+    if streams["cpu"] != streams["cuda"]:
+        raise AssertionError(
+            f"card vs CPU RWKV greedy streams differ: {streams}")
+    log(f"[card-vs-cpu] rwkv width-256 fp32 ({cfg.num_layers} layers, head "
+        f"size {cfg.rwkv_head_size}): prefill logits max|err| {err:.3g}, "
+        f"wkv state max|err| {s_err:.3g} (tol 1e-3), greedy streams equal "
+        f"(dense mode): {streams['cuda']}")
+
+
+# --------------------------------------------------------------- phase 6
+
+
+def phase_rwkv_serving() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ServerConfig, ServingEngine
+
+    cfg = get_config("rwkv6-3b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in model.parameters())
+    log(f"[rwkv] rwkv6-3b d_model={cfg.d_model} heads={model.H}x{model.hd} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.num_layers} "
+        f"(all) bf16: {n_params / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    engine = ServingEngine(model, ServerConfig(max_batch=4, max_seq=4096))
+    if engine.kv_mode != "dense":
+        raise AssertionError(f"rwkv6-3b served in {engine.kv_mode} mode")
+    reqs = _serving_requests(cfg.vocab_size,
+                             [2048, 1024, 512, 300, 128, 64, 17, 1500])
+    base = _warm_up(engine)
+    run, launches, peak = _drive_counted(engine, reqs)
+    stats = engine.serving_stats()
+
+    _check_outputs(reqs, cfg.vocab_size)
+    steps = stats["decode_steps_total"] - base["decode_steps_total"]
+    full_prefills = (stats["prefill_sequences_total"]["incremental"]
+                     - base["prefill_sequences_total"]["incremental"])
+    pages = {k: stats[k] - base[k] for k in
+             ("kv_pages_allocated_total", "kv_pages_freed_total")}
+    if stats["kv_pages_allocated_total"] != stats["kv_pages_freed_total"]:
+        raise AssertionError(f"page leak: {stats}")
+    if engine.admission.slot_balance():
+        raise AssertionError(f"slot leak: {engine.admission.slot_balance()}")
+    if launches["wkv6"] != full_prefills * cfg.num_layers:
+        raise AssertionError(
+            f"wkv6 launches {launches['wkv6']} != {full_prefills} full "
+            f"prefills x {cfg.num_layers} layers")
+    if launches["paged_attention"] or launches["flash_attention"] or \
+            launches["segment_zero"]:
+        raise AssertionError(f"the dense RWKV path launched {launches}")
+    log(f"[rwkv] 8 requests done, no error, kv_mode dense: decode steps "
+        f"{steps}, full prefills {full_prefills}, pages allocated "
+        f"{pages['kv_pages_allocated_total']} == freed "
+        f"{pages['kv_pages_freed_total']} (the warm-up request's excluded)")
+    log(f"[rwkv] launches: wkv6 {launches['wkv6']} = {full_prefills} x "
+        f"{cfg.num_layers}, paged_attention 0, flash_attention 0, "
+        f"segment_zero 0")
+    _log_timings("rwkv", run, peak, " [full depth]")
+    profile_decode(engine, cfg, "rwkv-profile")
+    return launches
 
 
 # --------------------------------------------------------------- main
@@ -524,10 +781,19 @@ def main(argv=None) -> int:
     if 3 in phases:
         results["paged_attention"] = check_paged()
         results["flash_attention"] = check_flash()
-    launches = phase_serving() if 4 in phases else {}
+        results["wkv6"] = check_wkv6()
+        results["segment_zero"] = check_segment_zero()
+    # each kernel's launches on the path that runs it; K4 is on no path
+    launches = {"segment_zero": 0}
+    if 4 in phases:
+        qwen = phase_serving()
+        launches.update(paged_attention=qwen["paged_attention"],
+                        flash_attention=qwen["flash_attention"])
     if 5 in phases:
         phase_card_vs_cpu()
-    if 6 not in phases or not {3, 4, 5} <= phases:
+    if 6 in phases:
+        launches["wkv6"] = phase_rwkv_serving()["wkv6"]
+    if not {3, 4, 5, 6} <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {
@@ -537,6 +803,12 @@ def main(argv=None) -> int:
         "flash_attention": (
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:109"),
+        "wkv6": (
+            "src/repro_torch/csrc/wkv6.cu",
+            "src/repro/kernels/wkv6/wkv6.py:71"),
+        "segment_zero": (
+            "src/repro_torch/csrc/segment_zero.cu",
+            "src/repro/kernels/segment_zero/segment_zero.py:35"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

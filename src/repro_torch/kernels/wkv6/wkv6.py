@@ -1,0 +1,66 @@
+"""Binding of the CUDA WKV6 recurrence kernel.
+
+The kernel itself is ``src/repro_torch/csrc/wkv6.cu``; it replaces the
+reference's Pallas TPU kernel ``wkv6_pallas``.  This module checks what
+the kernel takes, allocates the outputs and launches on PyTorch's current
+stream; it never falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+__all__ = ["wkv6_cuda"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: device type the kernel runs on (a module constant, so a test can point
+#: the dispatch at another device type with the loader mocked)
+KERNEL_DEVICE = "cuda"
+
+
+def wkv6_cuda(r, k, v, w, u, state0):
+    """r/k/v: (B, T, H, hd) float32 or bfloat16; w: (B, T, H, hd) float32;
+    u: (H, hd) float32; state0: (B, H, hd, hd) float32 — one CUDA device,
+    contiguous.  Returns (state fp32, y in r's dtype)."""
+    B, T, H, hd = r.shape
+    dev = r.device
+    tensors = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+               ("state0", state0))
+    if dev.type != KERNEL_DEVICE or any(t.device != dev for _, t in tensors):
+        raise ValueError(
+            "wkv6 kernel needs every input on one CUDA device, got "
+            + ", ".join(f"{n} {t.device}" for n, t in tensors))
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(
+            "wkv6 kernel takes float32 or bfloat16 r/k/v of one dtype, got "
+            f"{r.dtype}/{k.dtype}/{v.dtype}")
+    if not (w.dtype == u.dtype == state0.dtype == torch.float32):
+        raise ValueError(
+            f"wkv6 kernel takes float32 w, u and state0, got {w.dtype}, "
+            f"{u.dtype}, {state0.dtype}")
+    if hd not in _HEAD_DIMS or k.shape != r.shape or v.shape != r.shape \
+            or w.shape != r.shape or u.shape != (H, hd) \
+            or state0.shape != (B, H, hd, hd):
+        raise ValueError(
+            f"wkv6 kernel takes head size {_HEAD_DIMS} and matching shapes, "
+            f"got r/k/v/w {tuple(r.shape)}/{tuple(k.shape)}/{tuple(v.shape)}"
+            f"/{tuple(w.shape)}, u {tuple(u.shape)}, "
+            f"state0 {tuple(state0.shape)}")
+    if not all(t.is_contiguous() for _, t in tensors):
+        raise ValueError("wkv6 kernel takes contiguous tensors")
+    y = torch.empty_like(r)
+    state = torch.empty_like(state0)
+    fn = _build.kernel("repro_wkv6", _ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), state0.data_ptr(), y.data_ptr(),
+                state.data_ptr(), B, T, H, hd, _DTYPES[r.dtype],
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "repro_wkv6")
+    return state, y

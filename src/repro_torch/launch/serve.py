@@ -1,14 +1,19 @@
-"""Serving launcher: continuous batching over the paged arena, in PyTorch.
+"""Serving launcher: continuous batching over the KV arena, in PyTorch.
 
 The counterpart of ``repro.launch.serve``, limited to the flags the
 ported engine honours, plus ``--device`` (default ``cuda``; CUDA asked
 for and absent is an error, never a silent CPU run).  Weights are random,
-drawn on the device from ``torch.Generator(device).manual_seed(0)``.
+drawn on the device from ``torch.Generator(device).manual_seed(0)``.  The
+engine picks its mode (``kv_mode="auto"``): paged for the dense
+transformers, dense per-slot state for RWKV (``--arch rwkv6-3b``).
 
-Example (reduced config)::
+Examples (full size on the card; ``--reduced --device cpu`` for the smoke
+config on the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch qwen2.5-32b --reduced --requests 8 --new-tokens 8 --device cuda
+        --arch qwen2.5-32b --requests 8 --max-seq 256 --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6-3b --requests 8 --device cuda
 """
 
 from __future__ import annotations

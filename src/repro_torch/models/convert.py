@@ -2,8 +2,10 @@
 
 :func:`params_from_numpy` takes the reference ``init`` output as a nested
 dict of numpy arrays — layers stacked on axis 0 (``layers.attn.wq`` is
-``(L, D, H, hd)``) — and returns the flat state dict that
-``TransformerLM.load_state_dict`` takes.  No jax import is needed: the
+``(L, D, H, hd)``) — and returns the flat state dict that the port's
+model's ``load_state_dict`` takes.  Every leaf is cast to ``cfg.dtype``,
+except the ones the model keeps in float32 whatever its dtype (RWKV's
+``w0`` and ``u``, as the reference initialises them).  No jax import is needed: the
 caller converts the leaves with ``np.asarray``.
 """
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .common import ArchConfig, torch_dtype
+from .rwkv import FP32_PARAMS
 
 __all__ = ["params_from_numpy"]
 
@@ -32,8 +35,9 @@ def _tensor(leaf: Any, dtype: torch.dtype) -> torch.Tensor:
 def params_from_numpy(cfg: ArchConfig,
                       tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flatten ``tree`` to ``{"layers.attn.wq": tensor, ...}`` in
-    ``cfg.dtype``."""
+    ``cfg.dtype`` (RWKV's float32 leaves stay float32)."""
     dtype = torch_dtype(cfg.dtype)
+    keep_fp32 = FP32_PARAMS if cfg.family == "ssm" else ()
     out: Dict[str, torch.Tensor] = {}
 
     def visit(prefix: str, node: Mapping[str, Any]) -> None:
@@ -42,7 +46,8 @@ def params_from_numpy(cfg: ArchConfig,
             if isinstance(val, Mapping):
                 visit(name, val)
             else:
-                out[name] = _tensor(val, dtype)
+                out[name] = _tensor(
+                    val, torch.float32 if name in keep_fp32 else dtype)
 
     visit("", tree)
     return out

@@ -1,7 +1,8 @@
 """Model factory: family → implementation dispatch.
 
-Only the dense family is ported in this slice; the others raise and are
-queued in ROADMAP.md (queue 1, item 7).
+The dense family (``TransformerLM``) and RWKV6 (``RwkvLM``, family
+``"ssm"``) are ported; the others raise and are queued in ROADMAP.md
+(queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -9,11 +10,12 @@ from __future__ import annotations
 from typing import Any
 
 from .common import ArchConfig
+from .rwkv import RwkvLM
 from .transformer import TransformerLM
 
 __all__ = ["build_model"]
 
-_FAMILIES = {"dense": TransformerLM}
+_FAMILIES = {"dense": TransformerLM, "ssm": RwkvLM}
 _KNOWN = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 

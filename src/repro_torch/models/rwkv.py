@@ -1,0 +1,320 @@
+"""RWKV6 ("Finch"), attention-free LM with data-dependent decay, in PyTorch.
+
+The counterpart of ``repro/models/rwkv.py``: the same stacked-parameter
+layout (layer ``l``'s ``wr`` is ``layers.wr[l]`` of shape ``(D, D)``), the
+same functions, and a Python loop over layers where the reference scanned.
+Per layer, a time mix (the WKV6 recurrence over a per-head ``(hd, hd)``
+fp32 state, per-channel decay ``w_t = exp(-exp(w0 + lora(x_t)))`` and
+bonus ``u``) and a channel mix (squared-ReLU FFN), both with token-shift
+ddlerp mixing (arXiv:2404.05892).
+
+Prompts run the recurrence through :func:`repro_torch.kernels.wkv6.ops.
+wkv6` (the hand-written kernel on the card, its plain version on the CPU);
+a decode step runs :func:`wkv6_step` in plain PyTorch, as the reference
+runs it outside any Pallas kernel.  Serving state is O(1) per sequence and
+there is no KV cache, so the engine serves this model in its dense mode
+(``init_decode_state`` / ``prefill`` / ``decode_step``).  Weights live on
+the module; the functions take no ``params`` argument.  ``loss`` comes with
+the training slice (ROADMAP.md queue 1, item 10).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.wkv6.ops import wkv6
+from .common import (
+    ArchConfig,
+    resolve_device,
+    rms_norm,
+    take_embedding,
+    torch_dtype,
+)
+
+__all__ = ["FP32_PARAMS", "RwkvLM", "wkv6_scan", "wkv6_step"]
+
+TM_LORA = 32
+DECAY_LORA = 64
+#: parameters kept in float32 whatever the model dtype, as the reference
+#: initialises them
+FP32_PARAMS = ("layers.w0", "layers.u")
+
+
+# --------------------------------------------------------------------------
+# WKV6 recurrence
+# --------------------------------------------------------------------------
+
+
+def wkv6_step(state, r, k, v, w, u):
+    """One token.  state: (..., H, hd, hd); r/k/v/w: (..., H, hd); u: (H, hd).
+
+    y_t[j] = sum_i r[i] * (S[i,j] + u[i] k[i] v[j]);  S = w⊙S + k^T v.
+    """
+    rk = r * u * k
+    y = torch.einsum("...hi,...hij->...hj", r, state) + torch.einsum(
+        "...hi,...hj->...hj", rk, v)
+    state = state * w[..., None] + torch.einsum("...hi,...hj->...hij", k, v)
+    return state, y
+
+
+def wkv6_scan(r, k, v, w, u, state0):
+    """(B, T, H, hd) inputs → final state + (B, T, H, hd) outputs in r's
+    dtype: the exact per-token scan of :func:`wkv6_step` in fp32, for any
+    T (the reference's XLA scan also checkpoints chunks of 64 tokens, which
+    needs 64 to divide T)."""
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    state, u = state0.float(), u.float()
+    ys = []
+    for t in range(r.shape[1]):
+        state, y = wkv6_step(state, r32[:, t], k32[:, t], v32[:, t],
+                             w32[:, t], u)
+        ys.append(y)
+    return state, torch.stack(ys, dim=1).to(r.dtype)
+
+
+# --------------------------------------------------------------------------
+# layer pieces
+# --------------------------------------------------------------------------
+
+
+def _token_shift(x, prev=None):
+    """shift(x)[t] = x[t-1]; position 0 gets ``prev`` (or zeros)."""
+    first = torch.zeros_like(x[:, :1]) if prev is None \
+        else prev[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _group_norm(x, scale, bias, H, eps=64e-5):
+    """RWKV's per-head GroupNorm on (..., H*hd), population variance."""
+    shp = x.shape
+    xh = x.reshape(*shp[:-1], H, shp[-1] // H).float()
+    mu = xh.mean(-1, keepdim=True)
+    var = xh.var(-1, keepdim=True, unbiased=False)
+    xh = (xh - mu) * torch.rsqrt(var + eps)
+    out = xh.reshape(shp) * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def _frozen(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _layer_shapes(cfg: ArchConfig, H: int, hd: int) -> Dict[str, tuple]:
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {
+        "ln1": (D,), "ln2": (D,), "mu_x": (D,), "mu_rkvwg": (5, D),
+        "tm_w1": (D, 5 * TM_LORA), "tm_w2": (5, TM_LORA, D),
+        "w0": (D,), "dw1": (D, DECAY_LORA), "dw2": (DECAY_LORA, D),
+        "u": (H, hd),
+        "wr": (D, D), "wk": (D, D), "wv": (D, D), "wg": (D, D), "wo": (D, D),
+        "lnx_scale": (D,), "lnx_bias": (D,), "cmu_k": (D,), "cmu_r": (D,),
+        "wck": (D, F_), "wcv": (F_, D), "wcr": (D, D),
+    }
+
+
+class RwkvLM(nn.Module):
+    """RWKV6 LM; parameters are allocated, not initialised — call
+    :meth:`init` or ``load_state_dict``."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
+        super().__init__()
+        if cfg.family != "ssm":
+            raise ValueError(f"RwkvLM needs family 'ssm', got {cfg.family!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.dtype)
+        self.hd = cfg.rwkv_head_size
+        self.H = cfg.d_model // self.hd
+        L, D = cfg.num_layers, cfg.d_model
+        dt, dev = self.dtype, self.device
+        self.embed = _frozen((cfg.vocab_size, D), dt, dev)
+        self.final_norm = _frozen((D,), dt, dev)
+        self.layers = nn.Module()
+        for name, shape in _layer_shapes(cfg, self.H, self.hd).items():
+            ldt = torch.float32 if f"layers.{name}" in FP32_PARAMS else dt
+            setattr(self.layers, name, _frozen((L, *shape), ldt, dev))
+
+    # ------------------------------------------------------------- params
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "RwkvLM":
+        """Random weights with the reference's distributions, drawn from
+        ``generator`` (which must live on the model's device)."""
+        cfg, dev = self.cfg, self.device
+        D, F_ = cfg.d_model, cfg.d_ff
+        s = 1.0 / math.sqrt(D)
+        std = {"tm_w1": s, "tm_w2": 0.1, "dw1": s, "dw2": 0.1, "u": 0.1,
+               "wr": s, "wk": s, "wv": s, "wg": s, "wo": s, "wck": s,
+               "wcv": 1.0 / math.sqrt(F_), "wcr": s}
+        fill = {"ln1": 1.0, "ln2": 1.0, "lnx_scale": 1.0, "w0": -2.0}
+
+        def normal(shape, scale, dtype):
+            x = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            return (x * scale).to(dtype)
+
+        self.embed.copy_(normal(self.embed.shape, s, self.dtype))
+        self.final_norm.fill_(1)
+        for name, t in self.layers.named_parameters():
+            if name in std:
+                for l in range(cfg.num_layers):   # one layer at a time
+                    t[l].copy_(normal(t.shape[1:], std[name], t.dtype))
+            else:
+                t.fill_(fill.get(name, 0.0))
+        return self
+
+    def _layer_params(self, l: int) -> Dict[str, torch.Tensor]:
+        return {name: t[l] for name, t in self.layers.named_parameters()}
+
+    # ----------------------------------------------------------- time mix
+
+    def _ddlerp(self, x, xx, p):
+        """Data-dependent lerp producing the 5 mixed inputs (r,k,v,w,g)."""
+        B, T, D = x.shape
+        base = x + xx * p["mu_x"]
+        lora = torch.tanh(base @ p["tm_w1"]).reshape(B, T, 5, TM_LORA)
+        delta = torch.einsum("btfl,fld->btfd", lora, p["tm_w2"])
+        mixed = x[:, :, None] + xx[:, :, None] * (p["mu_rkvwg"] + delta)
+        return [mixed[:, :, i] for i in range(5)]
+
+    def _time_mix(self, x, p, state, prev):
+        B, T, D = x.shape
+        H, hd = self.H, self.hd
+        xx = _token_shift(x, prev) - x
+        xr, xk, xv, xw, xg = self._ddlerp(x, xx, p)
+        r = (xr @ p["wr"]).reshape(B, T, H, hd)
+        k = (xk @ p["wk"]).reshape(B, T, H, hd)
+        v = (xv @ p["wv"]).reshape(B, T, H, hd)
+        g = F.silu(xg @ p["wg"])
+        dec = p["w0"] + torch.tanh(xw @ p["dw1"]) @ p["dw2"]
+        w = torch.exp(-torch.exp(dec.float())).reshape(B, T, H, hd)
+        state, y = wkv6(r, k, v, w, p["u"], state)
+        y = _group_norm(y.reshape(B, T, D), p["lnx_scale"], p["lnx_bias"], H)
+        return (y * g) @ p["wo"], state, x[:, -1]
+
+    def _channel_mix(self, x, p, prev):
+        xx = _token_shift(x, prev) - x
+        xk = x + xx * p["cmu_k"]
+        xr = x + xx * p["cmu_r"]
+        h = torch.square(torch.relu(xk @ p["wck"]))
+        return torch.sigmoid(xr @ p["wcr"]) * (h @ p["wcv"]), x[:, -1]
+
+    # ------------------------------------------------------------ forward
+
+    def _layers(self, h):
+        """Every layer over the whole prompt from a zero state; yields
+        (h, wkv state, normed time-mix input, normed channel-mix input)."""
+        cfg = self.cfg
+        B = h.shape[0]
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            a = rms_norm(h, p["ln1"], cfg.norm_eps)
+            state0 = torch.zeros((B, self.H, self.hd, self.hd),
+                                 dtype=torch.float32, device=h.device)
+            a2, state, _ = self._time_mix(a, p, state0, None)
+            h = h + a2
+            m = rms_norm(h, p["ln2"], cfg.norm_eps)
+            m2, _ = self._channel_mix(m, p, None)
+            h = h + m2
+            yield h, state, a, m
+
+    def _final(self, h):
+        h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        return h @ self.embed.T                      # tied embedding
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T) tokens → (B, T, V) logits (+ the aux loss, 0)."""
+        h = take_embedding(self.embed, tokens)
+        for h, _, _, _ in self._layers(h):
+            pass
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return self._final(h), aux
+
+    # ------------------------------------------------------------ serving
+
+    def init_decode_state(self, batch_size: int, max_seq: int, dtype=None,
+                          device=None) -> Dict[str, torch.Tensor]:
+        """Zero decode state for ``batch_size`` slots; ``device`` overrides
+        the model's (``"meta"`` gives the shapes alone)."""
+        cfg = self.cfg
+        L, D, H, hd = cfg.num_layers, cfg.d_model, self.H, self.hd
+        dev = self.device if device is None else device
+        return {
+            "wkv": torch.zeros((L, batch_size, H, hd, hd),
+                               dtype=torch.float32, device=dev),
+            "tm_prev": torch.zeros((L, batch_size, D), dtype=self.dtype,
+                                   device=dev),
+            "cm_prev": torch.zeros((L, batch_size, D), dtype=self.dtype,
+                                   device=dev),
+            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+        }
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None):
+        """Run the prompt, return (decode_state, logits at last position)."""
+        B, T = tokens.shape
+        wkv, tm_prev, cm_prev = [], [], []
+        h = take_embedding(self.embed, tokens)
+        for h, state, a, m in self._layers(h):
+            wkv.append(state)
+            tm_prev.append(a[:, -1])
+            cm_prev.append(m[:, -1])
+        logits = self._final(h[:, -1])
+        state = {
+            "wkv": torch.stack(wkv), "tm_prev": torch.stack(tm_prev),
+            "cm_prev": torch.stack(cm_prev),
+            "pos": torch.full((B,), T, dtype=torch.int32, device=tokens.device),
+        }
+        return state, logits
+
+    @torch.no_grad()
+    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor):
+        """One token per slot: (new decode state, (B, V) logits)."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        D, H, hd = cfg.d_model, self.H, self.hd
+        h = take_embedding(self.embed, tokens)
+        wkv, tm_prev, cm_prev = [], [], []
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            a = rms_norm(h, p["ln1"], cfg.norm_eps)
+            # single-token time mix (closed form of _time_mix with T=1)
+            xx = state["tm_prev"][l].to(a.dtype) - a
+            base = a + xx * p["mu_x"]
+            lora = torch.tanh(base @ p["tm_w1"]).reshape(B, 5, TM_LORA)
+            delta = torch.einsum("bfl,fld->bfd", lora, p["tm_w2"])
+            mixed = a[:, None] + xx[:, None] * (p["mu_rkvwg"] + delta)
+            xr, xk, xv, xw, xg = [mixed[:, i] for i in range(5)]
+            r = (xr @ p["wr"]).reshape(B, H, hd).float()
+            k = (xk @ p["wk"]).reshape(B, H, hd).float()
+            v = (xv @ p["wv"]).reshape(B, H, hd).float()
+            g = F.silu(xg @ p["wg"])
+            dec = p["w0"] + torch.tanh(xw @ p["dw1"]) @ p["dw2"]
+            w = torch.exp(-torch.exp(dec.float())).reshape(B, H, hd)
+            s, y = wkv6_step(state["wkv"][l], r, k, v, w, p["u"])
+            y = _group_norm(y.reshape(B, D).to(a.dtype), p["lnx_scale"],
+                            p["lnx_bias"], H)
+            h = h + (y * g) @ p["wo"]
+            # channel mix
+            m = rms_norm(h, p["ln2"], cfg.norm_eps)
+            xx2 = state["cm_prev"][l].to(m.dtype) - m
+            xk2 = m + xx2 * p["cmu_k"]
+            xr2 = m + xx2 * p["cmu_r"]
+            cm = torch.sigmoid(xr2 @ p["wcr"]) * (
+                torch.square(torch.relu(xk2 @ p["wck"])) @ p["wcv"])
+            h = h + cm
+            wkv.append(s)
+            tm_prev.append(a)
+            cm_prev.append(m)
+        new_state = {
+            "wkv": torch.stack(wkv), "tm_prev": torch.stack(tm_prev),
+            "cm_prev": torch.stack(cm_prev), "pos": state["pos"] + 1,
+        }
+        return new_state, self._final(h)

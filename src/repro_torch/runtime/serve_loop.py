@@ -1,14 +1,24 @@
-"""Serving plane: continuous batching over the arena's page pool.
+"""Serving plane: continuous batching over the KV arena.
 
 The counterpart of ``repro/runtime/serve_loop.py``'s :class:`ServingEngine`
-in **paged mode**: ``submit(request)`` / ``step()`` / ``drain()`` on the
-:mod:`repro_torch.core.sim` Clock/Executor substrate.  Admitting a request
-prefills exactly that sequence and scatters its K/V rows into the pages
-:class:`~repro_torch.core.arena.PagedKVAllocator` allocated for it; every
-``step()`` appends one row per live slot and decodes the batch through the
-paged-attention kernel, reading ``kv.page_table()`` directly; tokens come
-from the seeded host sampler (:mod:`repro_torch.runtime.sampling`), keyed
-by ``(request.seed, token index)``.
+in **paged mode** and in incremental **dense mode**: ``submit(request)`` /
+``step()`` / ``drain()`` on the :mod:`repro_torch.core.sim` Clock/Executor
+substrate.  Tokens come from the seeded host sampler
+(:mod:`repro_torch.runtime.sampling`), keyed by ``(request.seed, token
+index)``.
+
+* Paged (``kv_mode="paged"``, and ``"auto"`` for a model with the paged
+  interface): admitting a request prefills exactly that sequence and
+  scatters its K/V rows into the pages
+  :class:`~repro_torch.core.arena.PagedKVAllocator` allocated for it; every
+  ``step()`` appends one row per live slot and decodes the batch through
+  the paged-attention kernel, reading ``kv.page_table()`` directly.
+* Dense (``kv_mode="dense"``, and ``"auto"`` otherwise, e.g. RWKV): one
+  batch decode state from ``model.init_decode_state(max_batch, max_seq)``;
+  admitting a request prefills it alone and writes its state into its slot
+  (the other slots are untouched), and every ``step()`` runs
+  ``model.decode_step`` over the whole batch.  The page ledger is kept as
+  in the reference, one token appended per decode.
 
 In scope, as in the reference: per-tenant (priority, deadline, arrival)
 admit queues with quota caps and the admission slot ledger; incremental
@@ -17,17 +27,18 @@ monolithic prefill; cross-tenant prefix sharing with copy-on-write pages
 ``serving_stats`` and the decision trace.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item (queue 1, item 4): ``kv_mode="dense"`` and
-``incremental=False`` (4a), ``prefill_chunk_tokens > 0`` (4b), the chaos
-hooks ``kill_batch`` / ``evacuate`` / ``poison_*`` (4c), ``Request.
-postprocess`` (4d), and a ``mesh`` (4e).  :class:`ServerConfig` has no
+ROADMAP.md item (queue 1, item 4 unless said): ``incremental=False`` (4a),
+dense mode for a model without ``init_decode_state``/``decode_step``, as
+the port's ``TransformerLM`` (item 2), ``prefill_chunk_tokens > 0`` (4b),
+the chaos hooks ``kill_batch`` / ``evacuate`` / ``poison_*`` (4c),
+``Request.postprocess`` (4d), and a ``mesh`` (4e).  :class:`ServerConfig` has no
 fields for the ``Server`` options (``pool_watermark``, ``workers``,
 ``heartbeat_timeout_s``): they come with ``Server`` (4d), and passing one
 fails as an unknown keyword.
 
 The model owns its weights (an ``nn.Module``), so the engine takes no
 ``params`` argument; the reference's jitted, donating wrappers become
-direct calls that update the page pool in place.
+direct calls that update the page pool and the slot state in place.
 """
 
 from __future__ import annotations
@@ -105,8 +116,10 @@ class ServerConfig:
     #: concurrent decode slots (0 = denied outright); None = no caps.
     #: Tenants absent from a provided dict get the default TenantQuota()
     quotas: Optional[Dict[str, TenantQuota]] = None
-    #: "paged" or "auto" (paged when the model supports it); "dense" is
-    #: not ported (4a)
+    #: "paged": decode from the arena's page pool (the model must support
+    #: it); "dense": one per-slot decode state (init_decode_state /
+    #: decode_step); "auto": paged when the model supports it, dense
+    #: otherwise
     kv_mode: str = "auto"
     #: size of the KV page pool in pages.  None = 4x the pages of a full
     #: (max_batch, max_seq) reservation
@@ -123,7 +136,7 @@ class ServerConfig:
 
 
 class ServingEngine:
-    """Incremental continuous-batching engine over the paged KV arena.
+    """Incremental continuous-batching engine, paged or dense.
 
     ``submit()`` may be called from any thread; ``step()``/``drain()`` run
     the decode plane.  All bookkeeping is guarded by one lock; model math
@@ -171,22 +184,29 @@ class ServingEngine:
 
         self.kv_mode = self._resolve_kv_mode(model, cfg)
         self.tp_shards = 1                 # no mesh in this slice
-        if self.kv.pool_pages is None:
-            raise ValueError(
-                "kv_mode='paged' needs a PagedKVAllocator with a "
-                "bounded pool (pool_pages) to size the device pages"
+        if self.kv_mode == "paged":
+            if self.kv.pool_pages is None:
+                raise ValueError(
+                    "kv_mode='paged' needs a PagedKVAllocator with a "
+                    "bounded pool (pool_pages) to size the device pages"
+                )
+            # the arena *is* the backing store: the physical page tensors
+            # are bound to the allocator and every prefill/decode updates
+            # them in place, addressed by kv's page tables
+            self.kv.bind_store(model.init_paged_state(
+                self.kv.pool_pages, self.kv.tokens_per_page))
+            self._state = None
+            self._sharing = (
+                cfg.prefix_sharing
+                and hasattr(model, "paged_prefill_at")
+                and hasattr(model, "paged_copy_page")
             )
-        # the arena *is* the backing store: the physical page tensors are
-        # bound to the allocator and every prefill/decode updates them in
-        # place, addressed by kv's page tables
-        self.kv.bind_store(
-            model.init_paged_state(self.kv.pool_pages, self.kv.tokens_per_page)
-        )
-        self._sharing = (
-            cfg.prefix_sharing
-            and hasattr(model, "paged_prefill_at")
-            and hasattr(model, "paged_copy_page")
-        )
+        else:
+            self._sharing = False
+            # decode state lives per slot: one persistent batch state whose
+            # slot i is overwritten on admission
+            self._state = model.init_decode_state(B, cfg.max_seq)
+            self._batch_axes = self._find_batch_axes(model, cfg.max_seq)
 
         # counters (the reference's register_serving reads these)
         self._admitted: Dict[str, int] = {}
@@ -214,17 +234,49 @@ class ServingEngine:
     @staticmethod
     def _resolve_kv_mode(model, cfg: ServerConfig) -> str:
         supports = bool(getattr(model, "supports_paged_decode", False))
-        if cfg.kv_mode == "dense" or (cfg.kv_mode == "auto" and not supports):
-            raise _unported("kv_mode='dense' (dense per-slot KV)", "4a")
-        if cfg.kv_mode not in ("auto", "paged"):
+        if cfg.kv_mode not in ("auto", "paged", "dense"):
             raise ValueError(f"unknown kv_mode {cfg.kv_mode!r}")
-        if not supports:
+        if cfg.kv_mode == "paged" and not supports:
             raise ValueError(
                 f"kv_mode='paged' but {type(model).__name__} does not "
                 "support paged decode (no paged interface, or it uses "
                 "logit softcap / sliding windows)"
             )
-        return "paged"
+        if cfg.kv_mode == "paged" or (cfg.kv_mode == "auto" and supports):
+            return "paged"
+        if not (hasattr(model, "init_decode_state")
+                and hasattr(model, "decode_step")):
+            raise _unported(
+                f"dense decode of {type(model).__name__} "
+                "(init_decode_state / decode_step, the dense-cache path)",
+                "2")
+        return "dense"
+
+    @staticmethod
+    def _find_batch_axes(model, max_seq: int) -> Dict[str, int]:
+        """Per-leaf batch axis of the decode state, generic across models:
+        the axis whose extent tracks ``batch_size``, found by diffing the
+        shapes at batch 2 and 1 on the meta device (no memory)."""
+        two = model.init_decode_state(2, max_seq, device="meta")
+        one = model.init_decode_state(1, max_seq, device="meta")
+        axes = {}
+        for name, a in two.items():
+            diff = [i for i, (x, y) in enumerate(zip(a.shape, one[name].shape))
+                    if x != y]
+            if not diff:
+                raise ValueError(
+                    f"decode-state leaf {name!r} has no batch axis: "
+                    f"{tuple(a.shape)}")
+            axes[name] = diff[0]
+        return axes
+
+    def _write_slot(self, sub: Dict[str, torch.Tensor], slot: int) -> None:
+        """Write a one-sequence state into slot ``slot`` of the batch state,
+        in place (the reference donated the state), cast to each leaf's
+        dtype."""
+        for name, dst in self._state.items():
+            dst.narrow(self._batch_axes[name], slot, 1).copy_(
+                sub[name].to(dst.dtype))
 
     @staticmethod
     def _build_kv(model, cfg: ServerConfig) -> PagedKVAllocator:
@@ -456,6 +508,27 @@ class ServingEngine:
             )
         return table
 
+    def _prefill_slot(self, slot: int, r: Request, start: int = 0) -> None:
+        """Dense mode: prefill exactly this request and write its state
+        into its slot; live slots are untouched."""
+        with self._lock:
+            if self._slots[slot] is not r:
+                return                     # evicted before the prefill ran
+            seq = self._sequence_tokens(r)
+        sub, _ = self.model.prefill(self._tensor(seq[None, :]),
+                                    max_seq=self.cfg.max_seq)
+        sub["pos"] = torch.full_like(sub["pos"], len(seq))
+        with self._lock:
+            if self._slots[slot] is not r:
+                return                     # evicted mid-prefill: discard
+            self._prefills["incremental"] += 1
+            self._prefill_tokens["incremental"] += int(seq.size)
+            self._prefills_by_request[r.request_id] = (
+                self._prefills_by_request.get(r.request_id, 0) + 1
+            )
+            self._note("prefill", r, f"slot={slot} tokens={seq.size}")
+        self._write_slot(sub, slot)
+
     def _cow_locked(self, seq_id: str, logical: int) -> None:
         """Copy-on-write one logical page if another sequence maps it."""
         if self.kv.page_writable(seq_id, logical):
@@ -525,14 +598,16 @@ class ServingEngine:
         self._evict_poisoned()
         with self._lock:
             admitted = self._admit_locked()
+        paged = self.kv_mode == "paged"
         if admitted:
+            prefill = self._prefill_slot_paged if paged else self._prefill_slot
             for slot, r, start in admitted:
-                self._prefill_slot_paged(slot, r, start)
+                prefill(slot, r, start)
             # sample arena occupancy while sequences are live
             self.kv.arena.mm.host_vma_count()
         with self._lock:
             live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
-            if live:
+            if live and paged:
                 # reserve this step's token row per live slot, then
                 # snapshot the slot-ordered page table, its width bucketed
                 # to the next power of two of the widest live sequence
@@ -557,13 +632,20 @@ class ServingEngine:
         last = np.zeros((self.cfg.max_batch,), np.int32)
         for i, r in live:
             last[i] = r.tokens[-1] if r.tokens else int(r.prompt[-1])
-        store, logits = self.model.paged_decode_step(
-            self.kv.store, self._tensor(last), self._tensor(table),
-            self._tensor(pos),
-        )
-        self.kv.swap_store(store)
-        # bf16 -> fp32 -> float64 (in the sampler) is exact
-        logits_np = logits.float().cpu().numpy()
+        if paged:
+            store, logits = self.model.paged_decode_step(
+                self.kv.store, self._tensor(last), self._tensor(table),
+                self._tensor(pos),
+            )
+            self.kv.swap_store(store)
+        else:
+            self._state, logits = self.model.decode_step(
+                self._state, self._tensor(last))
+        # bf16 -> fp32 -> float64 (in the sampler) is exact; integer
+        # logits go to the sampler as they are
+        if logits.is_floating_point():
+            logits = logits.float()
+        logits_np = logits.cpu().numpy()
 
         retiring: List[Request] = []
         now_t = self._exec.now()
@@ -594,10 +676,13 @@ class ServingEngine:
                             tenant=r.tenant,
                         )
                 self._last_tok_t[r.request_id] = now_t
-                # the row was reserved pre-step; make the count stick
-                self.kv.ensure_tokens(
-                    self._seq_id(r), len(r.prompt) + len(r.tokens)
-                )
+                if paged:
+                    # the row was reserved pre-step; make the count stick
+                    self.kv.ensure_tokens(
+                        self._seq_id(r), len(r.prompt) + len(r.tokens)
+                    )
+                else:
+                    self.kv.append_tokens(self._seq_id(r), 1)
                 self._tokens_n[r.tenant] = self._tokens_n.get(r.tenant, 0) + 1
                 if len(r.tokens) >= r.max_new_tokens:
                     r.done = True

@@ -30,6 +30,10 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import paged_attention as pa_bind
+from repro_torch.kernels.segment_zero import ops as sz_ops
+from repro_torch.kernels.segment_zero import segment_zero as sz_bind
+from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6 import wkv6 as wkv_bind
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -163,17 +167,41 @@ def _meta_flash():
     return q, k
 
 
+def _meta_wkv6(dtype=torch.float32, hd=64):
+    r = torch.empty((1, 20, 3, hd), dtype=dtype, device="meta")
+    w = torch.empty((1, 20, 3, hd), device="meta")
+    u = torch.empty((3, hd), device="meta")
+    s0 = torch.empty((1, 3, hd, hd), device="meta")
+    return r, w, u, s0
+
+
 def _loader_raises(*_a, **_k):
     raise RuntimeError("kernel loader called")
 
 
-@pytest.mark.parametrize("op", ["paged", "flash"])
+OPS = ["paged", "flash", "wkv6", "segzero"]
+
+
+@pytest.mark.parametrize("op", OPS)
 def test_non_cpu_tensor_never_gets_the_plain_result(op, monkeypatch):
     """A tensor off the CPU goes to the kernel binding; with the kernel
     device pointed at it and the loader failing, the error propagates
     and no launch is counted — there is no fallback to the plain path."""
     monkeypatch.setattr(_build, "kernel", _loader_raises)
-    if op == "paged":
+    if op == "wkv6":
+        monkeypatch.setattr(wkv_bind, "KERNEL_DEVICE", "meta")
+        r, w, u, s0 = _meta_wkv6()
+        before = wkv_ops.wkv6.launches
+        with pytest.raises(RuntimeError, match="kernel loader called"):
+            wkv_ops.wkv6(r, r, r, w, u, s0)
+        assert wkv_ops.wkv6.launches == before
+    elif op == "segzero":
+        monkeypatch.setattr(sz_bind, "KERNEL_DEVICE", "meta")
+        before = sz_ops.segment_zero.launches
+        with pytest.raises(RuntimeError, match="kernel loader called"):
+            sz_ops.segment_zero(torch.empty((100,), device="meta"), 3, 9)
+        assert sz_ops.segment_zero.launches == before
+    elif op == "paged":
         monkeypatch.setattr(pa_bind, "KERNEL_DEVICE", "meta")
         q, kp, table, lens = _meta_paged()
         before = pa_ops.paged_attention.launches
@@ -189,10 +217,17 @@ def test_non_cpu_tensor_never_gets_the_plain_result(op, monkeypatch):
         assert fa_ops.flash_attention.launches == before
 
 
-@pytest.mark.parametrize("op", ["paged", "flash"])
+@pytest.mark.parametrize("op", OPS)
 def test_non_cuda_device_is_refused_by_the_binding(op):
     """Without the test override the binding accepts CUDA tensors only."""
-    if op == "paged":
+    if op == "wkv6":
+        r, w, u, s0 = _meta_wkv6()
+        with pytest.raises(ValueError, match="CUDA"):
+            wkv_ops.wkv6(r, r, r, w, u, s0)
+    elif op == "segzero":
+        with pytest.raises(ValueError, match="CUDA"):
+            sz_ops.segment_zero(torch.empty((100,), device="meta"), 3, 9)
+    elif op == "paged":
         q, kp, table, lens = _meta_paged()
         with pytest.raises(ValueError, match="CUDA"):
             pa_ops.paged_attention(q, kp, kp, table, lens, scale=0.1)
@@ -207,6 +242,15 @@ def test_bindings_refuse_what_the_kernels_do_not_take(dtype, hd, monkeypatch):
     monkeypatch.setattr(_build, "kernel", _loader_raises)
     monkeypatch.setattr(pa_bind, "KERNEL_DEVICE", "meta")
     monkeypatch.setattr(fa_bind, "KERNEL_DEVICE", "meta")
+    monkeypatch.setattr(wkv_bind, "KERNEL_DEVICE", "meta")
+    monkeypatch.setattr(sz_bind, "KERNEL_DEVICE", "meta")
+    r, w, u, s0 = _meta_wkv6(dtype, hd)
+    with pytest.raises(ValueError):
+        wkv_ops.wkv6(r, r, r, w, u, s0)
+    with pytest.raises(ValueError):     # float16, or not a flat buffer
+        sz_ops.segment_zero(
+            torch.empty((hd,) if dtype == torch.float16 else (2, hd),
+                        dtype=dtype, device="meta"), 0, 1)
     q = torch.empty((2, 10, hd), dtype=dtype, device="meta")
     kp = torch.empty((6, 16, 2, hd), dtype=dtype, device="meta")
     with pytest.raises(ValueError):
@@ -225,10 +269,14 @@ def test_c_entry_points_exist_in_the_sources():
     """Every symbol a binding looks up is an ``extern "C"`` of csrc/."""
     text = "\n".join(p.read_text() for p in _build.sources())
     exported = set(re.findall(r'extern "C"[^(]*?\b(repro_\w+)\s*\(', text))
-    assert {"repro_paged_attention", "repro_flash_attention",
-            "repro_cuda_error_string"} <= exported
+    assert {"repro_paged_attention", "repro_flash_attention", "repro_wkv6",
+            "repro_segment_zero", "repro_cuda_error_string"} <= exported
     names = {p.name for p in _build.sources()}
-    assert {"paged_attention.cu", "flash_attention.cu"} <= names
+    assert {"paged_attention.cu", "flash_attention.cu", "wkv6.cu",
+            "segment_zero.cu"} <= names
+    # one library links every source: each symbol is defined once
+    defs = re.findall(r'extern "C"[^(]*?\b(repro_\w+)\s*\(', text)
+    assert len(defs) == len(set(defs)), sorted(defs)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -264,7 +264,7 @@ def test_unported_families_and_absent_cuda_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config("qwen3-moe-235b-a22b"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("rwkv6-3b"), device="cpu")
+        build_model(get_config("hymba-1.5b"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(dataclasses.replace(
