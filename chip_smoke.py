@@ -9,10 +9,16 @@ Phases, each raising on failure (the process then exits non-zero and
 prints no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
-2. build: every kernel compiled from ``src/repro_torch/csrc`` by nvcc;
+2. build: every kernel compiled from ``src/repro_torch/csrc`` by nvcc, with
+   each kernel's registers and spills from ptxas and, where the toolkit has
+   ``cuobjdump``, the count of tensor-core (``HGMMA``) instructions in each
+   kernel's SASS (the flash kernel's bf16 route must have some);
 3. kernels against their plain PyTorch versions at the serving paths'
    shapes, in bf16 and fp32, with times, bounds and the library yardstick:
-   paged decode (K1), flash prefill (K2), WKV6 (K3), segment zero-fill (K4);
+   paged decode (K1), flash prefill (K2), WKV6 (K3), segment zero-fill (K4).
+   Timed launches queue behind a sleep of the card, so the events time the
+   card and not the host's enqueue; K1 is timed with the L2 cache flushed
+   before each call (a decode step finds each layer's pages cold) and warm;
 4. paged serving: ``ServingEngine`` serves 8 requests on full-width
    qwen2.5-32b (depth cut 64 -> 8 layers, random weights from a seeded
    generator), and the launch counts prove the path went through K1, K2;
@@ -33,6 +39,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -63,18 +70,63 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# cycles per second that ``torch.cuda._sleep`` is given for a second of
+# sleep: at or above the card's top SM clock, so the sleep is never short
+SLEEP_CYCLES_PER_S = 2.0e9
+# bytes written between K1 launches to evict the 50 MB L2 cache
+FLUSH_BYTES = 256 * 2 ** 20
+
+
+def _hold_card(fn, calls: int) -> None:
+    """Keep the card busy (``torch.cuda._sleep``) for about twice the host's
+    time to enqueue ``calls`` calls of ``fn``, so the timed launches queue
+    up behind it and the events measure the card, not the host's enqueue."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(0.2, 2 * calls * host_s) * SLEEP_CYCLES_PER_S))
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn`` on the card, from CUDA events."""
+    """Mean milliseconds of ``fn`` on the card, from CUDA events, with the
+    launches queued behind a sleep of the card (caches warm)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    _hold_card(fn, iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cold_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds of ``fn`` with the L2 cache flushed before each
+    call: a write of FLUSH_BYTES, then events around the call alone."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+
+    def one(pair=None):
+        flush.zero_()
+        if pair:
+            pair[0].record()
+        fn()
+        if pair:
+            pair[1].record()
+
+    _hold_card(one, iters)
+    for pair in events:
+        one(pair)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
 def tol_str(dtype) -> str:
@@ -133,8 +185,33 @@ def phase_build() -> None:
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.build_seconds:.1f}s)")
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or line.startswith("==")
+                or "Compiling entry" in line or "wgmma" in line):
             log(f"[build] {line.strip()}")
+    log_tensor_core_instructions(lib)
+
+
+def log_tensor_core_instructions(lib: Path) -> None:
+    """The count of HGMMA (wgmma) instructions in each kernel's SASS, where
+    the toolkit has ``cuobjdump``: the flash kernel's bf16 route must have
+    them."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("[build] cuobjdump not found: HGMMA count not printed")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and name:
+            counts[name] = counts.get(name, 0) + 1
+    for name, n in sorted(counts.items()):
+        log(f"[build] SASS {name}: {n} HGMMA instructions")
+    if not any("flash_prefill_tc" in name for name in counts):
+        raise AssertionError("no HGMMA in the flash kernel's bf16 route")
 
 
 # --------------------------------------------------------------- phase 3
@@ -189,7 +266,8 @@ def check_paged() -> dict:
                     f" and {wide.shape[1]} differ")
             if not torch.equal(out[1], torch.zeros_like(out[1])):
                 raise AssertionError("paged_attention: dead row is not 0")
-            ms = time_ms(run)
+            warm_ms = time_ms(run)
+            ms = time_cold_ms(run)
             plain_ms = time_ms(
                 lambda: paged_attention_ref(q, kp, vp, table, lens,
                                             scale=scale), iters=5)
@@ -203,10 +281,11 @@ def check_paged() -> dict:
                 f"hd={hd} page={page} W={table.shape[1]} live_rows={live}: "
                 f"max|err|={err:.3g} ({share:.3f} x {tol_str(dtype)}), "
                 f"width W==2W bitwise, "
-                f"dead row 0 | {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bms:.4f} ms ({by})")
+                f"dead row 0 | {ms:.4f} ms L2 flushed, {warm_ms:.4f} ms "
+                f"warm, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
             if dtype == torch.bfloat16 and B == 4:
-                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                main = {"max_abs_err": err, "ms": ms, "warm_ms": warm_ms,
+                        "plain_ms": plain_ms,
                         "bound_ms": bms, "bound_by": by,
                         "shape": f"B={B} KG={K * G} K={K} hd={hd} page={page}"
                                  f" W={table.shape[1]} live_rows={live} bf16",
@@ -266,7 +345,8 @@ def check_flash() -> dict:
                     enable_gqa=True))
             log(f"[flash_attention] {str(dtype)[6:]} B=1 S={S} H={H} K={K} "
                 f"hd={hd} window={window} cap={cap}: max|err|={err:.3g} "
-                f"({share:.3f} x {tol_str(dtype)}) | {ms:.4f} ms, plain "
+                f"({share:.3f} x {tol_str(dtype)}) | {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s of the function), plain "
                 f"{plain_ms:.4f} ms, "
                 f"bound {bms:.4f} ms ({by}), sdpa "
                 + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"))
@@ -821,6 +901,8 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "tol": r["tol"],
         })
+        if "warm_ms" in r:         # K1: "ms" is with the L2 cache flushed
+            kernels[-1]["warm_ms"] = r["warm_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

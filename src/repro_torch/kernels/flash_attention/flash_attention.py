@@ -49,6 +49,12 @@ def flash_attention_cuda(q, k, v, window, *, scale, logit_cap=0.0,
             f"v {tuple(v.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous tensors")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        # the bf16 route loads by TMA: 16-byte aligned bases (rows of
+        # 64 or 128 bf16 are always multiples of 16 bytes)
+        raise ValueError("flash_attention bf16 kernel takes 16-byte aligned "
+                         "q/k/v")
     out = torch.empty_like(q)
     fn = _build.kernel("repro_flash_attention", _ARGS)
     with torch.cuda.device(dev):

@@ -2,9 +2,9 @@
 
 The kernel itself is ``src/repro_torch/csrc/paged_attention.cu``; it
 replaces the reference's Pallas TPU kernel ``paged_attention_pallas``.
-This module checks what the kernel takes, allocates the output and
-launches on PyTorch's current stream; it never falls back to the plain
-version.
+This module checks what the kernel takes, allocates the output and the
+split-KV scratch and launches on PyTorch's current stream; it never falls
+back to the plain version.
 """
 
 from __future__ import annotations
@@ -15,15 +15,29 @@ import torch
 
 from .. import _build
 
-__all__ = ["paged_attention_cuda"]
+__all__ = ["paged_attention_cuda", "scratch_shape", "split_pages"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 MAX_G = 16
+#: rows of logical pages one split covers (``kSplitRows`` in the source):
+#: a constant, so the split partition never depends on the table width
+SPLIT_ROWS = 256
 #: device type the kernel runs on (a module constant, so a test can point
 #: the dispatch at another device type with the loader mocked)
 KERNEL_DEVICE = "cuda"
+
+
+def split_pages(page_size: int) -> int:
+    """Pages of one split at this page size."""
+    return max(1, SPLIT_ROWS // page_size)
+
+
+def scratch_shape(B: int, K: int, G: int, hd: int, page_size: int,
+                  W: int) -> tuple:
+    """Shape of the fp32 split scratch: each split's (acc, m, l) per head."""
+    return (B, K, -(-W // split_pages(page_size)), G, hd + 2)
 
 
 def paged_attention_cuda(q, k_pages, v_pages, page_table, lens, *, scale):
@@ -61,13 +75,16 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lens, *, scale):
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         # the kernel reads each lane's slice of a row as one vector load
         raise ValueError("paged_attention kernel takes 16-byte aligned pages")
+    W = page_table.shape[1]
     out = torch.empty_like(q)
+    part = torch.empty(scratch_shape(B, K, KG // K, hd, page_size, W),
+                       dtype=torch.float32, device=dev)
     fn = _build.kernel("repro_paged_attention", _ARGS)
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                B, K, KG // K, hd, page_size, page_table.shape[1],
-                float(scale), _DTYPES[q.dtype],
+                part.data_ptr(), B, K, KG // K, hd, page_size, W,
+                part.shape[2], float(scale), _DTYPES[q.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "repro_paged_attention")
     return out

@@ -12,7 +12,9 @@ tests pin about them is the dispatch: a non-CPU tensor never gets the plain
 result, and a failure to load or launch the kernel propagates.
 """
 
+import contextlib
 import re
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -262,6 +264,65 @@ def test_bindings_refuse_what_the_kernels_do_not_take(dtype, hd, monkeypatch):
         fa_ops.flash_attention(qf, kf, kf, window=0, scale=0.1)
 
 
+def test_flash_bf16_binding_refuses_misaligned_inputs(monkeypatch):
+    """The bf16 route loads q/k/v by TMA, which needs 16-byte aligned
+    bases: a view 2 bytes off is refused before any launch; the fp32 route
+    has no such need and goes on to the kernel."""
+    monkeypatch.setattr(_build, "kernel", _loader_raises)
+    monkeypatch.setattr(fa_bind, "KERNEL_DEVICE", "cpu")
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = torch.zeros(8 * 4 * 64 + 1, dtype=dtype)
+        q = buf[1:].view(1, 8, 4, 64)
+        k = torch.zeros((1, 8, 2, 64), dtype=dtype)
+        assert q.is_contiguous() and q.data_ptr() % 16
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="aligned"):
+                fa_bind.flash_attention_cuda(q, k, k, 0, scale=0.1)
+        else:
+            with pytest.raises(RuntimeError, match="kernel loader called"):
+                fa_bind.flash_attention_cuda(q, k, k, 0, scale=0.1)
+
+
+@pytest.mark.parametrize("page,W", [(16, 40), (8, 40), (16, 8)])
+def test_paged_binding_passes_the_split_scratch(page, W, monkeypatch):
+    """The wrapper allocates the fp32 split scratch of ``scratch_shape`` and
+    passes its split count, which the entry point checks against W."""
+    calls = []
+
+    def fake_kernel(name, argtypes):
+        def fn(*args):
+            calls.append(args)
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "kernel", fake_kernel)
+    monkeypatch.setattr(pa_bind, "KERNEL_DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    allocated = []
+    empty = torch.empty
+
+    def spy_empty(*shape, **kw):
+        allocated.append((tuple(shape[0]) if len(shape) == 1 else shape, kw))
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(pa_bind.torch, "empty", spy_empty)
+    q = torch.zeros((2, 10, 64))
+    kp = torch.zeros((6, page, 2, 64))
+    table = torch.zeros((2, W), dtype=torch.int32)
+    lens = torch.ones((2,), dtype=torch.int32)
+    pa_bind.paged_attention_cuda(q, kp, kp, table, lens, scale=0.1)
+    (args,) = calls
+    assert len(args) == len(pa_bind._ARGS)
+    n_splits = -(-W // max(1, pa_bind.SPLIT_ROWS // page))
+    assert args[13] == n_splits
+    shape = pa_bind.scratch_shape(2, 2, 5, 64, page, W)
+    assert shape == (2, 2, n_splits, 5, 66)
+    assert (shape, {"dtype": torch.float32, "device": q.device}) in allocated
+
+
 # ------------------------------------------------------------------- build
 
 
@@ -277,6 +338,19 @@ def test_c_entry_points_exist_in_the_sources():
     # one library links every source: each symbol is defined once
     defs = re.findall(r'extern "C"[^(]*?\b(repro_\w+)\s*\(', text)
     assert len(defs) == len(set(defs)), sorted(defs)
+    # each binding passes as many arguments as its entry point takes
+    # (ctypes would not notice a mismatch)
+    params = {name: len(args.split(",")) for name, args in re.findall(
+        r'extern "C"[^(]*?\b(repro_\w+)\s*\(([^)]*)\)', text)}
+    for name, binding in (("repro_paged_attention", pa_bind),
+                          ("repro_flash_attention", fa_bind),
+                          ("repro_wkv6", wkv_bind),
+                          ("repro_segment_zero", sz_bind)):
+        assert params[name] == len(binding._ARGS), name
+    # the split length the paged wrapper sizes its scratch by is the
+    # kernel's own
+    rows = re.search(r"kSplitRows = (\d+);", text)
+    assert rows and int(rows.group(1)) == pa_bind.SPLIT_ROWS
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
