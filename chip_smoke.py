@@ -11,11 +11,17 @@ prints no result line):
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: every kernel compiled from ``src/repro_torch/csrc`` by nvcc, with
    each kernel's registers and spills from ptxas and, where the toolkit has
-   ``cuobjdump``, the count of tensor-core (``HGMMA``) instructions in each
-   kernel's SASS (the flash kernel's bf16 route must have some);
+   ``cuobjdump``, the count of tensor-core instructions (``HGMMA`` from
+   wgmma, ``HMMA`` from mma.sync) in each kernel's SASS (the flash kernel's
+   and the chunked WKV6 kernels' bf16 routes must have some);
 3. kernels against their plain PyTorch versions at the serving paths'
    shapes, in bf16 and fp32, with times, bounds and the library yardstick:
    paged decode (K1), flash prefill (K2), WKV6 (K3), segment zero-fill (K4).
+   WKV6 also runs on decays that RWKV6's own law gives (w = exp(-exp(dec)),
+   dec over [-8, 5], down to w = 0) and on runs of strong decays followed
+   by weak ones inside a chunk, at ragged lengths and head sizes 16-128;
+   and on a memory of thousands of tokens, logged against an fp64 run of
+   the recurrence.
    Timed launches queue behind a sleep of the card, so the events time the
    card and not the host's enqueue; K1 is timed with the L2 cache flushed
    before each call (a decode step finds each layer's pages cold) and warm;
@@ -27,7 +33,8 @@ prints no result line):
    on the CPU (plain versions);
 6. dense serving: ``ServingEngine`` serves 8 requests on rwkv6-3b at its
    full width and depth (32 layers), and the launch counts prove the path
-   went through K3 and not K1 or K2.
+   went through K3 and not K1 or K2; then the device time of one
+   2048-token prefill by kernel (K3, GEMMs, the rest) and its idle share.
 
 With all six, a summary follows: one ``{"kernels": [...]}`` line, then the
 result line.  ``--phases 1,2,3`` runs a subset and prints no result line.
@@ -134,18 +141,23 @@ def tol_str(dtype) -> str:
     return f"atol {atol:g} + rtol {rtol:g} * |ref|"
 
 
+def _share(out, ref, dtype) -> float:
+    """The largest share of the elementwise limit of ``TOL[dtype]``."""
+    atol, rtol = TOL[dtype]
+    return ((out.float() - ref.float()).abs()
+            / (atol + rtol * ref.float().abs())).max().item()
+
+
 def compare(out, ref, dtype, what: str) -> tuple:
     """Max |out - ref| and its largest share of the elementwise limit;
     raises past the limit."""
-    atol, rtol = TOL[dtype]
-    out, ref = out.float(), ref.float()
-    err = (out - ref).abs()
-    share = (err / (atol + rtol * ref.abs())).max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    share = _share(out, ref, dtype)
     if not share <= 1.0:
         raise AssertionError(
-            f"{what}: max|err| {err.max().item()} exceeds {tol_str(dtype)} "
+            f"{what}: max|err| {err} exceeds {tol_str(dtype)} "
             f"({share:.3g} x the limit)")
-    return err.max().item(), share
+    return err, share
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -191,13 +203,19 @@ def phase_build() -> None:
     log_tensor_core_instructions(lib)
 
 
+# tensor-core instructions each of these kernels' SASS must hold: the bf16
+# routes of the flash kernel (wgmma) and of the chunked WKV6 (mma.sync)
+TENSOR_CORE_KERNELS = {"flash_prefill_tc": "HGMMA",
+                       "wkv6_chunk_state": "HMMA", "wkv6_chunk_out": "HMMA"}
+
+
 def log_tensor_core_instructions(lib: Path) -> None:
-    """The count of HGMMA (wgmma) instructions in each kernel's SASS, where
-    the toolkit has ``cuobjdump``: the flash kernel's bf16 route must have
-    them."""
+    """The count of tensor-core instructions (HGMMA from wgmma, HMMA from
+    mma.sync) in each kernel's SASS, where the toolkit has ``cuobjdump``;
+    raises if a kernel of ``TENSOR_CORE_KERNELS`` has none of its kind."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        log("[build] cuobjdump not found: HGMMA count not printed")
+        log("[build] cuobjdump not found: HGMMA/HMMA counts not printed")
         return
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300).stdout
@@ -206,12 +224,18 @@ def log_tensor_core_instructions(lib: Path) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-        elif "HGMMA" in line and name:
-            counts[name] = counts.get(name, 0) + 1
-    for name, n in sorted(counts.items()):
-        log(f"[build] SASS {name}: {n} HGMMA instructions")
-    if not any("flash_prefill_tc" in name for name in counts):
-        raise AssertionError("no HGMMA in the flash kernel's bf16 route")
+        elif name:
+            for op in ("HGMMA", "HMMA"):      # neither name holds the other
+                if op in line:
+                    ops = counts.setdefault(name, {})
+                    ops[op] = ops.get(op, 0) + 1
+    for name, ops in sorted(counts.items()):
+        log(f"[build] SASS {name}: " + ", ".join(
+            f"{n} {op}" for op, n in sorted(ops.items())) + " instructions")
+    for kernel, op in TENSOR_CORE_KERNELS.items():
+        if not any(kernel in name and op in ops
+                   for name, ops in counts.items()):
+            raise AssertionError(f"no {op} in the SASS of {kernel}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -358,32 +382,122 @@ def check_flash() -> dict:
     return main
 
 
+def wkv6_decay(kind: str, shape, g) -> torch.Tensor:
+    """fp32 decays w of ``shape`` (B, T, H, hd) on the card:
+
+    * ``sigmoid``: w in (0.35, 0.95), the reference sweep's law;
+    * ``law``: RWKV6's own, w = exp(-exp(dec)) with dec uniform over
+      [-8, 5]: from w ~ 1 - 3e-4 down to w that underflows to exactly 0;
+    * ``runs``: in each 64-token chunk, strong decays (dec ~ 5, w = 0) on
+      its first (7 i) % 64 tokens, then weak ones (dec ~ -3.5, w ~ 0.95 to
+      0.98) on the rest, so channel i turns from strong to weak at its own
+      place in a chunk (channel 0 never decays strongly);
+    * ``long``: w ~ 1 - 3e-4 (dec ~ -8) everywhere: a memory of thousands
+      of tokens, carried from chunk to chunk (see ``wkv6_long_memory``).
+    """
+    if kind == "sigmoid":
+        return torch.sigmoid(torch.randn(shape, generator=g, device="cuda")) \
+            * 0.6 + 0.35
+    jitter = torch.rand(shape, generator=g, device="cuda")
+    if kind == "law":
+        dec = jitter * 13.0 - 8.0
+    elif kind == "long":
+        dec = jitter - 8.5
+    else:
+        t = torch.arange(shape[1], device="cuda")[:, None] % 64
+        edge = (torch.arange(shape[3], device="cuda") * 7)[None, :] % 64
+        dec = torch.where(t < edge, 5.0, -3.5)[None, :, None, :] \
+            + (jitter - 0.5)
+    return torch.exp(-torch.exp(dec))
+
+
+# (B, T, H, hd, decay): rwkv6-3b's prefills at 2048 and a ragged 300
+# tokens, a batch of 4 and the 16-wide heads of the reduced config, and the
+# 1024 and 512 of phase 6's first prompts, timed; then the decay hazards at
+# ragged lengths and every head size, checked
+WKV6_CASES = [(1, 2048, 40, 64, "sigmoid"), (1, 300, 40, 64, "sigmoid"),
+              (4, 128, 40, 64, "sigmoid"), (2, 77, 4, 16, "sigmoid"),
+              (1, 1024, 40, 64, "sigmoid"), (1, 512, 40, 64, "sigmoid")]
+WKV6_DECAY_CASES = [
+    (1, 2048, 40, 64, "law"), (1, 2048, 40, 64, "runs"),
+    (1, 300, 40, 64, "law"), (4, 128, 40, 64, "runs"), (2, 77, 4, 16, "law"),
+    (1, 1, 4, 64, "law"), (2, 17, 4, 16, "runs"), (1, 65, 8, 32, "runs"),
+    (1, 63, 8, 32, "law"), (1, 200, 8, 128, "law"),
+    (1, 200, 8, 128, "runs"), (1, 2048, 40, 64, "long"),
+    (2, 300, 4, 16, "long")]
+WKV6_DECAYS = ["sigmoid", "law", "runs", "long"]
+WKV6_ROUTES = {torch.bfloat16: "chunked, tensor cores (wkv6_chunk_state, "
+                               "wkv6_chunk_scan, wkv6_chunk_out)",
+               torch.float32: "exact per-token (wkv6_kernel)"}
+
+
+def wkv6_fp64(r, k, v, w, u, s0):
+    """The per-token recurrence in float64: (state, y), both float64."""
+    r, k, v, w = (x.double() for x in (r, k, v, w))
+    u, S = u.double()[None, :, :, None], s0.double()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + u * kv))
+        S = S * w[:, t, :, :, None] + kv
+    return S, torch.stack(ys, dim=1)
+
+
+def wkv6_long_memory(what, out, plain, exact) -> str:
+    """A memory of thousands of tokens (w ~ 1 - 3e-4, |y| in the hundreds):
+    the kernel and the plain version against the float64 recurrence (y
+    rounded to the output dtype once, the state to fp32).  Logged, not
+    held: on the outputs that cancel towards 0 every fp32 order of
+    evaluation, the plain version's included, lies ~5e-5 from the fp64
+    value, 5 x the atol of ``TOL``."""
+    (state, y), (p_state, p_y), (x_state, x_y) = out, plain, exact
+    x_y, x_state = x_y.to(y.dtype), x_state.float()
+    shares = {"y": _share(y, x_y, y.dtype),
+              "state": _share(state, x_state, torch.float32),
+              "plain y": _share(p_y, x_y, y.dtype),
+              "plain state": _share(p_state, x_state, torch.float32)}
+    return (f"[wkv6] {what[5:]}: against the fp64 recurrence, not held, "
+            f"shares of {tol_str(y.dtype)} (state "
+            f"{tol_str(torch.float32)}): "
+            + ", ".join(f"{name} {v:.3f}" for name, v in shares.items()))
+
+
 def check_wkv6() -> dict:
     from repro_torch.kernels.wkv6.ops import wkv6
     from repro_torch.kernels.wkv6.ref import wkv6_ref
 
-    # (B, T, H, hd): rwkv6-3b's prefills at 2048 and a ragged 300 tokens,
-    # a batch of 4, and the 16-wide heads of the reduced config
-    cases = [(1, 2048, 40, 64), (1, 300, 40, 64), (4, 128, 40, 64),
-             (2, 77, 4, 16)]
     main = None
     for dtype in (torch.bfloat16, torch.float32):
-        for B, T, H, hd in cases:
-            g = torch.Generator("cuda").manual_seed(B * T + hd)
+        log(f"[wkv6] {str(dtype)[6:]} route: {WKV6_ROUTES[dtype]}")
+        for B, T, H, hd, decay in WKV6_CASES + WKV6_DECAY_CASES:
+            g = torch.Generator("cuda").manual_seed(
+                B * T + hd + 1000 * WKV6_DECAYS.index(decay))
             n = lambda *shape: torch.randn(shape, generator=g, device="cuda")
             r = n(B, T, H, hd).to(dtype)
             k = (n(B, T, H, hd) * 0.3).to(dtype)
             v = n(B, T, H, hd).to(dtype)
-            w = torch.sigmoid(n(B, T, H, hd)) * 0.6 + 0.35   # (0.35, 0.95)
+            w = wkv6_decay(decay, (B, T, H, hd), g)
             u = n(H, hd) * 0.2
             s0 = n(B, H, hd, hd) * 0.1
             run = lambda: wkv6(r, k, v, w, u, s0)
             state, y = run()
+            what = f"wkv6 {dtype} B={B} T={T} H={H} hd={hd} decay {decay}"
+            if decay == "long":
+                log(wkv6_long_memory(what, (state, y),
+                                     wkv6_ref(r, k, v, w, u, s0),
+                                     wkv6_fp64(r, k, v, w, u, s0)))
+                continue
             ref_state, ref_y = wkv6_ref(r, k, v, w, u, s0)
-            what = f"wkv6 {dtype} B={B} T={T} H={H} hd={hd}"
             err, share = compare(y, ref_y, dtype, what + " y")
             s_err, s_share = compare(state, ref_state, torch.float32,
                                      what + " state")
+            checked = (f"[wkv6] {str(dtype)[6:]} B={B} T={T} H={H} hd={hd} "
+                       f"decay {decay}: y max|err|={err:.3g} ({share:.3f} x "
+                       f"{tol_str(dtype)}), state max|err|={s_err:.3g} "
+                       f"({s_share:.3f} x {tol_str(torch.float32)})")
+            if decay != "sigmoid":               # checked, not timed
+                log(checked)
+                continue
             ms = time_ms(run)
             plain_ms = time_ms(lambda: wkv6_ref(r, k, v, w, u, s0), iters=2,
                                warmup=1)
@@ -394,11 +508,8 @@ def check_wkv6() -> dict:
             # two fp32 FMAs per state element per token, on CUDA cores
             flops = 4 * B * T * H * hd * hd
             bms, by = bound(nbytes, flops, torch.float32)
-            log(f"[wkv6] {str(dtype)[6:]} B={B} T={T} H={H} hd={hd}: y "
-                f"max|err|={err:.3g} ({share:.3f} x {tol_str(dtype)}), state "
-                f"max|err|={s_err:.3g} ({s_share:.3f} x "
-                f"{tol_str(torch.float32)}) | {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+            log(f"{checked} | {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})")
             if dtype == torch.bfloat16 and T == 2048:
                 main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bms, "bound_by": by,
@@ -837,7 +948,76 @@ def phase_rwkv_serving() -> dict:
         f"segment_zero 0")
     _log_timings("rwkv", run, peak, " [full depth]")
     profile_decode(engine, cfg, "rwkv-profile")
+    profile_prefill(model, cfg)
     return launches
+
+
+# substrings of the names of cuBLAS's GEMM kernels on this card
+GEMM_KERNEL_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def profile_prefill(model, cfg, T: int = 2048) -> None:
+    """The device time of one T-token prefill (B=1, as the dense engine
+    runs it) by kernel: K3, the GEMMs and the rest, with its idle share.
+    CUDA events and the host clock around one prefill without the
+    profiler, then ``torch.profiler`` around another; after the launch
+    counts were read."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, T)).astype(np.int32)).cuda()
+    run = lambda: model.prefill(tokens, max_seq=4096)
+    run()                                      # same shapes: warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    span_ms = start.elapsed_time(end)
+    # a warm-up step inside the profiler, then the recorded one: a window
+    # that opens with the prefill can lose its first kernels
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()                            # the recorded step from here
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels and copies only: the step's own range spans the device too
+    rows = [(e.self_device_time_total / 1e3, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+    log(f"[rwkv-prefill] one {T}-token prefill, B=1, {cfg.num_layers} "
+        f"layers: wall {wall_ms:.2f} ms, CUDA events first launch to last "
+        f"end {span_ms:.2f} ms (no profiler)")
+    if not rows:
+        log("[rwkv-prefill] the profiler saw no device time: breakdown not "
+            "measured")
+        return
+    groups = {"K3 (wkv6)": [0.0, 0], "GEMMs": [0.0, 0], "the rest": [0.0, 0]}
+    for ms, key, count in rows:
+        name = ("K3 (wkv6)" if "wkv6" in key else
+                "GEMMs" if any(x in key.lower() for x in GEMM_KERNEL_KEYS)
+                else "the rest")
+        groups[name][0] += ms
+        groups[name][1] += count
+    busy_ms = sum(r[0] for r in rows)
+    log(f"[rwkv-prefill] profiler on: wall {prof_wall_ms:.2f} ms, device "
+        f"busy {busy_ms:.3f} ms ({100 * busy_ms / prof_wall_ms:.1f}% of "
+        f"wall), idle {100 * (1 - busy_ms / prof_wall_ms):.1f}%; "
+        + ", ".join(f"{name} {ms:.3f} ms x{n} ({100 * ms / busy_ms:.1f}%)"
+                    for name, (ms, n) in groups.items()))
+    for ms, key, count in sorted(rows, reverse=True)[:10]:
+        log(f"[rwkv-prefill]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
 # --------------------------------------------------------------- main

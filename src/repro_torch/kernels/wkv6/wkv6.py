@@ -1,9 +1,12 @@
-"""Binding of the CUDA WKV6 recurrence kernel.
+"""Binding of the CUDA WKV6 recurrence kernels.
 
-The kernel itself is ``src/repro_torch/csrc/wkv6.cu``; it replaces the
-reference's Pallas TPU kernel ``wkv6_pallas``.  This module checks what
-the kernel takes, allocates the outputs and launches on PyTorch's current
-stream; it never falls back to the plain version.
+The kernels are ``src/repro_torch/csrc/wkv6.cu``; they replace the
+reference's Pallas TPU kernel ``wkv6_pallas``.  bf16 r/k/v take the chunked
+form on the tensor cores (three launches: chunk states, the scan over
+chunks, the outputs); float32 r/k/v take the exact per-token kernel.  This
+module checks what the kernels take, allocates the outputs and the chunked
+route's scratch and launches on PyTorch's current stream; it never falls
+back to the plain version.
 """
 
 from __future__ import annotations
@@ -14,11 +17,13 @@ import torch
 
 from .. import _build
 
-__all__ = ["wkv6_cuda"]
+__all__ = ["chunk_scratch", "wkv6_cuda"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#: tokens of a chunk of the bf16 route
+CHUNK = 64
 #: device type the kernel runs on (a module constant, so a test can point
 #: the dispatch at another device type with the loader mocked)
 KERNEL_DEVICE = "cuda"
@@ -54,13 +59,30 @@ def wkv6_cuda(r, k, v, w, u, state0):
             f"state0 {tuple(state0.shape)}")
     if not all(t.is_contiguous() for _, t in tensors):
         raise ValueError("wkv6 kernel takes contiguous tensors")
+    if r.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for _, t in tensors):
+        # the chunked route loads 16 bytes at a time (rows of hd elements
+        # keep that alignment)
+        raise ValueError("wkv6 bf16 kernel takes 16-byte aligned inputs")
     y = torch.empty_like(r)
     state = torch.empty_like(state0)
+    states, dec = chunk_scratch(B, T, H, hd, r.dtype, dev)
     fn = _build.kernel("repro_wkv6", _ARGS)
     with torch.cuda.device(dev):
         rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), state0.data_ptr(), y.data_ptr(),
-                state.data_ptr(), B, T, H, hd, _DTYPES[r.dtype],
+                state.data_ptr(), states.data_ptr(), dec.data_ptr(), B, T,
+                H, hd, _DTYPES[r.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "repro_wkv6")
     return state, y
+
+
+def chunk_scratch(B, T, H, hd, dtype, device):
+    """The bf16 route's fp32 scratch: each chunk's state change, then its
+    incoming state (B, H, chunks, hd, hd), and its decay (B, H, chunks,
+    hd); empty for the float32 route, which needs none."""
+    nc = -(-T // CHUNK) if dtype == torch.bfloat16 else 0
+    return (torch.empty((B, H, nc, hd, hd), dtype=torch.float32,
+                        device=device),
+            torch.empty((B, H, nc, hd), dtype=torch.float32, device=device))

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from helpers.torch_kernel_emul import wkv6_decay
 from helpers.torch_port import to_torch
 
 from repro.kernels.segment_zero.ops import segment_zero as jax_segment_zero
@@ -82,6 +83,32 @@ def test_wkv6_plain_matches_reference_kernel(B, T, H, hd, dtype):
                                    **BF16_ULP)
         np.testing.assert_allclose(y32, np.asarray(y_r, np.float32),
                                    **BF16_HALF_ULP)
+
+
+@pytest.mark.parametrize("decay", ["law", "runs"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_plain_matches_reference_on_rwkv_decays(decay, dtype):
+    """RWKV6's own decay law (w = exp(-exp(dec)), dec over [-8, 5]: w from
+    ~1 - 3e-4 down to exactly 0) and strong decays followed by weak ones
+    inside a chunk: the plain version against the reference's Pallas
+    kernel and oracle, at the tolerances above."""
+    B, T, H, hd = 2, 128, 2, 16
+    r, k, v, w, u, s0 = _wkv_inputs(T + len(decay), B, T, H, hd)
+    w = wkv6_decay(decay, (B, T, H, hd), np.random.default_rng(T))
+    if dtype == "float32":
+        jr, jk, jv = r, k, v
+        tr, tk, tv = to_torch(r), to_torch(k), to_torch(v)
+    else:
+        (jr, tr), (jk, tk), (jv, tv) = _bf16(r), _bf16(k), _bf16(v)
+    S_k, y_k = jax_wkv6(jr, jk, jv, w, u, s0, interpret=True)
+    S_r, y_r = jax_wkv6_ref(jr, jk, jv, w, u, s0)
+    S, y = wkv_ops.wkv6(tr, tk, tv, to_torch(w), to_torch(u), to_torch(s0))
+    y32 = y.float().numpy()
+    for S_ref, y_ref in ((S_k, y_k), (S_r, y_r)):
+        np.testing.assert_allclose(S.numpy(), np.asarray(S_ref), **FP32)
+        np.testing.assert_allclose(
+            y32, np.asarray(y_ref, np.float32),
+            **(FP32 if dtype == "float32" else BF16_ULP))
 
 
 @pytest.mark.parametrize("T", [1, 37, 300])
