@@ -16,28 +16,40 @@ prints no result line):
    and the chunked WKV6 kernels' bf16 routes must have some);
 3. kernels against their plain PyTorch versions at the serving paths'
    shapes, in bf16 and fp32, with times, bounds and the library yardstick:
-   paged decode (K1), flash prefill (K2), WKV6 (K3), segment zero-fill (K4).
-   WKV6 also runs on decays that RWKV6's own law gives (w = exp(-exp(dec)),
-   dec over [-8, 5], down to w = 0) and on runs of strong decays followed
-   by weak ones inside a chunk, at ragged lengths and head sizes 16-128;
-   and on a memory of thousands of tokens, logged against an fp64 run of
-   the recurrence.
+   paged decode (K1), flash prefill (K2, also at gemma2's head dim 256 with
+   its window and softcap, to 6000 tokens), WKV6 (K3), segment zero-fill
+   (K4).  WKV6 also runs on decays that RWKV6's own law gives (w =
+   exp(-exp(dec)), dec over [-8, 5], down to w = 0) and on runs of strong
+   decays followed by weak ones inside a chunk, at ragged lengths and head
+   sizes 16-128; and on a memory of thousands of tokens, logged against an
+   fp64 run of the recurrence.
    Timed launches queue behind a sleep of the card, so the events time the
    card and not the host's enqueue; K1 is timed with the L2 cache flushed
    before each call (a decode step finds each layer's pages cold) and warm;
 4. paged serving: ``ServingEngine`` serves 8 requests on full-width
    qwen2.5-32b (depth cut 64 -> 8 layers, random weights from a seeded
    generator), and the launch counts prove the path went through K1, K2;
-5. card against CPU: the same small fp32 models (a qwen-style transformer
-   and an RWKV6) serve the same greedy requests on the card (kernels) and
-   on the CPU (plain versions);
+5. card against CPU: the same small fp32 models (a qwen-style transformer,
+   an RWKV6 and a gemma2 with heads of 256, a window and softcaps) serve
+   the same greedy requests on the card (kernels) and on the CPU (plain
+   versions);
 6. dense serving: ``ServingEngine`` serves 8 requests on rwkv6-3b at its
    full width and depth (32 layers), and the launch counts prove the path
    went through K3 and not K1 or K2; then the device time of one
-   2048-token prefill by kernel (K3, GEMMs, the rest) and its idle share.
+   2048-token prefill by kernel (K3, GEMMs, the rest) and its idle share;
+7. dense serving of a transformer: 8 requests (prompts to 6000 tokens) on
+   gemma2-9b at its full width and depth (42 layers), every prefill layer
+   through K2 at head dim 256 with its window and softcap, decode on the
+   dense cache; the launch counts prove K2 ran once per prefill and layer
+   and K1, K3, K4 never;
+8. the engine's other prefill modes on phase 4's model: a 4000-token
+   prompt admitted under three decoding requests with chunked prefill
+   (512-token budget; paged, beside monolithic, and dense), and the
+   rebatching baseline beside incremental prefill in dense mode.
 
-With all six, a summary follows: one ``{"kernels": [...]}`` line, then the
-result line.  ``--phases 1,2,3`` runs a subset and prints no result line.
+With all eight, a summary follows: one ``{"kernels": [...]}`` line (each
+kernel's launches summed over the phases that ran it), then the result
+line.  ``--phases 1,2,3`` runs a subset and prints no result line.
 Imports nothing of JAX or of the reference package ``repro``.
 """
 
@@ -330,8 +342,9 @@ def check_flash() -> dict:
         (2048, 40, 8, 128, 0, 0.0),
         (1000, 40, 8, 128, 0, 0.0),
         (512, 8, 4, 64, 128, 50.0),
-    ]
+    ] + FLASH_HD256_CASES
     main = None
+    hd256 = None
     for dtype in (torch.bfloat16, torch.float32):
         for S, H, K, hd, window, cap in cases:
             g = torch.Generator("cuda").manual_seed(S + H)
@@ -374,12 +387,26 @@ def check_flash() -> dict:
                 f"{plain_ms:.4f} ms, "
                 f"bound {bms:.4f} ms ({by}), sdpa "
                 + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"))
-            if dtype == torch.bfloat16 and S == 2048:
-                main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                        "shape": f"B=1 S={S} H={H} K={K} hd={hd} causal bf16",
-                        "tol": tol_str(dtype)}
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                   "shape": f"B=1 S={S} H={H} K={K} hd={hd} causal bf16",
+                   "tol": tol_str(dtype)}
+            if dtype == torch.bfloat16 and S == 2048 and not window:
+                if hd == 128:
+                    main = row
+                else:
+                    hd256 = row
+    # gemma2/3's head dim, on the CUDA-core route: its numbers ride along
+    main["hd256"] = hd256
     return main
+
+
+# gemma2-9b's attention (16 q / 8 kv heads of 256): global, and its window
+# of 4096 with the softcap of 50, at 2048 tokens, at 6000 (where the window
+# bites) and at 512 with a short window
+FLASH_HD256_CASES = [(2048, 16, 8, 256, 0, 0.0), (2048, 16, 8, 256, 4096, 50.0),
+                     (6000, 16, 8, 256, 4096, 50.0),
+                     (512, 16, 8, 256, 128, 50.0)]
 
 
 def wkv6_decay(kind: str, shape, g) -> torch.Tensor:
@@ -638,6 +665,13 @@ def _check_outputs(reqs, vocab: int) -> None:
                 f"request {r.request_id}: error={r.error} tokens={r.tokens}")
 
 
+def _check_ledgers(engine, stats) -> None:
+    if stats["kv_pages_allocated_total"] != stats["kv_pages_freed_total"]:
+        raise AssertionError(f"page leak: {stats}")
+    if engine.admission.slot_balance():
+        raise AssertionError(f"slot leak: {engine.admission.slot_balance()}")
+
+
 def _log_timings(tag: str, run: dict, peak: int, note: str) -> None:
     steps_ms, ttfts = run["steps_ms"], run["ttft"]
     decode_s = sum(steps_ms) / 1e3
@@ -712,11 +746,7 @@ def phase_serving() -> dict:
                      - base["prefill_sequences_total"]["incremental"] - shared)
     saved = (stats["prefix_prefill_tokens_saved_total"]
              - base["prefix_prefill_tokens_saved_total"])
-    if stats_after["kv_pages_allocated_total"] != \
-            stats_after["kv_pages_freed_total"]:
-        raise AssertionError(f"page leak: {stats_after}")
-    if engine.admission.slot_balance():
-        raise AssertionError(f"slot leak: {engine.admission.slot_balance()}")
+    _check_ledgers(engine, stats_after)
     if paged_n != steps * cfg.num_layers:
         raise AssertionError(
             f"paged_attention launches {paged_n} != {steps} steps x "
@@ -848,6 +878,65 @@ def phase_card_vs_cpu() -> None:
         f"{cfg.hd}, K={cfg.num_kv_heads}): prefill logits max|err| {err:.3g} "
         f"(tol 1e-3), greedy streams equal: {streams['cuda']}")
     _card_vs_cpu_rwkv()
+    _card_vs_cpu_gemma2()
+
+
+def _card_vs_cpu_gemma2() -> None:
+    """A width-512 fp32 gemma2 (2 layers, 2 q / 1 kv heads of 256, window
+    64, softcaps 50 and 30): prefill through K2 at head dim 256 on the card
+    and its plain version on the CPU, then dense serving of ~200-token
+    prompts (the window bites) on both, decode on the dense cache."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Request, ServerConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_reduced("gemma2-9b"), num_layers=2,
+                              d_model=512, num_heads=2, num_kv_heads=1,
+                              head_dim=256, d_ff=1024, local_window=64,
+                              query_scale=256 ** -0.5, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (200, 150, 230)]
+    toks = torch.from_numpy(prompts[0][None])
+    state_c, logit_c = cpu.prefill(toks, max_seq=256)
+    state_g, logit_g = gpu.prefill(toks.cuda(), max_seq=256)
+    err = (logit_g.cpu() - logit_c).abs().max().item()
+    if not torch.allclose(logit_g.cpu(), logit_c, rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"card vs CPU gemma2 prefill logits: max|err| "
+                             f"{err}")
+    # decode over the dense cache past the window: each step's logits
+    step_err = 0.0
+    for _ in range(4):
+        tok = logit_c.argmax(-1).to(torch.int32)
+        state_c, logit_c = cpu.decode_step(state_c, tok)
+        state_g, logit_g = gpu.decode_step(state_g, tok.cuda())
+        step_err = max(step_err, (logit_g.cpu() - logit_c).abs().max().item())
+        if not torch.allclose(logit_g.cpu(), logit_c, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"card vs CPU gemma2 decode logits: max|err| "
+                                 f"{step_err}")
+    streams = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        eng = ServingEngine(model, ServerConfig(max_batch=2, max_seq=256))
+        if eng.kv_mode != "dense":
+            raise AssertionError(f"gemma2 served in {eng.kv_mode} mode")
+        reqs = [Request(prompt=p, max_new_tokens=8, request_id=i)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.drain()
+        streams[name] = [r.tokens for r in reqs]
+    if streams["cpu"] != streams["cuda"]:
+        raise AssertionError(
+            f"card vs CPU gemma2 greedy streams differ: {streams}")
+    log(f"[card-vs-cpu] gemma2 width-512 fp32 ({cfg.num_layers} layers, hd "
+        f"{cfg.hd}, H={cfg.num_heads} K={cfg.num_kv_heads}, window "
+        f"{cfg.local_window}, softcaps {cfg.attn_logit_softcap}/"
+        f"{cfg.final_logit_softcap}): prefill logits max|err| {err:.3g}, "
+        f"4 decode steps' logits max|err| {step_err:.3g} (tol 1e-3), greedy "
+        f"streams equal (dense mode): {streams['cuda']}")
 
 
 def _card_vs_cpu_rwkv() -> None:
@@ -928,10 +1017,7 @@ def phase_rwkv_serving() -> dict:
                      - base["prefill_sequences_total"]["incremental"])
     pages = {k: stats[k] - base[k] for k in
              ("kv_pages_allocated_total", "kv_pages_freed_total")}
-    if stats["kv_pages_allocated_total"] != stats["kv_pages_freed_total"]:
-        raise AssertionError(f"page leak: {stats}")
-    if engine.admission.slot_balance():
-        raise AssertionError(f"slot leak: {engine.admission.slot_balance()}")
+    _check_ledgers(engine, stats)
     if launches["wkv6"] != full_prefills * cfg.num_layers:
         raise AssertionError(
             f"wkv6 launches {launches['wkv6']} != {full_prefills} full "
@@ -1020,12 +1106,209 @@ def profile_prefill(model, cfg, T: int = 2048) -> None:
         log(f"[rwkv-prefill]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
+# --------------------------------------------------------------- phase 7
+
+
+def phase_gemma_serving() -> dict:
+    """gemma2-9b at its published widths and full depth (42 layers) in the
+    engine's dense mode: every prefill layer through K2 at head dim 256
+    with its window (4096, on alternate layers) and softcap (50); decode
+    on the dense cache, in plain PyTorch as the reference's XLA."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ServerConfig, ServingEngine
+
+    cfg = get_config("gemma2-9b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda")
+    model.init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in model.parameters())
+    log(f"[gemma] gemma2-9b d_model={cfg.d_model} H={cfg.num_heads} "
+        f"K={cfg.num_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} layers={cfg.num_layers} (all), window "
+        f"{cfg.local_window} on {int((model.windows > 0).sum())} layers, "
+        f"softcaps {cfg.attn_logit_softcap}/{cfg.final_logit_softcap} bf16: "
+        f"{n_params / 1e9:.2f}B params, init {time.perf_counter() - t0:.1f}s")
+    engine = ServingEngine(model, ServerConfig(max_batch=4, max_seq=8192))
+    if engine.kv_mode != "dense":
+        raise AssertionError(f"gemma2-9b served in {engine.kv_mode} mode")
+    cache = sum(t.numel() * t.element_size() for t in engine._state.values())
+    log(f"[gemma] kv_mode dense, cache (max_batch 4, max_seq 8192) "
+        f"{cache / 1e9:.2f} GB")
+    reqs = _serving_requests(cfg.vocab_size,
+                             [6000, 2048, 1000, 513, 300, 128, 17, 4500])
+    base = _warm_up(engine)
+    run, launches, peak = _drive_counted(engine, reqs)
+    stats = engine.serving_stats()
+
+    _check_outputs(reqs, cfg.vocab_size)
+    steps = stats["decode_steps_total"] - base["decode_steps_total"]
+    full_prefills = (stats["prefill_sequences_total"]["incremental"]
+                     - base["prefill_sequences_total"]["incremental"])
+    pages = {k: stats[k] - base[k] for k in
+             ("kv_pages_allocated_total", "kv_pages_freed_total")}
+    _check_ledgers(engine, stats)
+    if launches["flash_attention"] != full_prefills * cfg.num_layers:
+        raise AssertionError(
+            f"flash_attention launches {launches['flash_attention']} != "
+            f"{full_prefills} full prefills x {cfg.num_layers} layers")
+    if launches["paged_attention"] or launches["wkv6"] or \
+            launches["segment_zero"]:
+        raise AssertionError(f"the dense gemma2 path launched {launches}")
+    log(f"[gemma] 8 requests done, no error, kv_mode dense: decode steps "
+        f"{steps}, full prefills {full_prefills}, pages allocated "
+        f"{pages['kv_pages_allocated_total']} == freed "
+        f"{pages['kv_pages_freed_total']} (the warm-up request's excluded)")
+    log(f"[gemma] launches: flash_attention {launches['flash_attention']} = "
+        f"{full_prefills} x {cfg.num_layers} (hd {cfg.hd}), "
+        f"paged_attention 0, wkv6 0, segment_zero 0")
+    _log_timings("gemma", run, peak, " [full depth]")
+    profile_decode(engine, cfg, "gemma-profile")
+    return launches
+
+
+# --------------------------------------------------------------- phase 8
+
+LONG_PROMPT = 4000
+CHUNK = 512
+
+
+def _long_prompt_run(engine, vocab: int) -> tuple:
+    """Three short greedy requests decoding, then a LONG_PROMPT-token prompt
+    admitted; returns the host ms of every step from its admission to its
+    first token, its ``prefill_chunk`` trace notes, the launch counts
+    (set to 0 just before, read just after) and the decode steps."""
+    from repro_torch.runtime import Request
+
+    rng = np.random.default_rng(9)
+    short = [Request(prompt=rng.integers(0, vocab, (n,)).astype(np.int32),
+                     max_new_tokens=48, request_id=i)
+             for i, n in enumerate((64, 100, 200))]
+    long = Request(prompt=rng.integers(0, vocab, (LONG_PROMPT,)).astype(
+        np.int32), max_new_tokens=16, request_id=3)
+    counters = _launch_counters()
+    base = engine.serving_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    for r in short:
+        engine.submit(r)
+    while not all(r.tokens for r in short):
+        engine.step()
+    engine.submit(long)
+    stall_ms = []
+    while not long.tokens:
+        t = time.perf_counter()
+        engine.step()
+        stall_ms.append((time.perf_counter() - t) * 1e3)
+    engine.drain()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    reqs = short + [long]
+    for r in reqs:
+        if r.error or len(r.tokens) != r.max_new_tokens or not all(
+                0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"request {r.request_id}: error={r.error} "
+                                 f"tokens={r.tokens}")
+    stats = engine.serving_stats()
+    engine.flush_prefix_cache()
+    _check_ledgers(engine, engine.serving_stats())
+    chunks = [ln for ln in engine.trace()
+              if f" prefill_chunk req={long.request_id} " in ln]
+    steps = stats["decode_steps_total"] - base["decode_steps_total"]
+    return stall_ms, chunks, launches, steps
+
+
+def phase_chunked_and_rebatching() -> dict:
+    """qwen2.5-32b at phase 4's 8-layer depth cut: (a) paged with chunked
+    prefill against monolithic, a 4000-token prompt admitted under three
+    decoding requests; (b) dense with chunked prefill; (c) the rebatching
+    baseline (``incremental=False``) beside incremental prefill in dense
+    mode, on phase 4's 8 requests.  Returns the launches summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ServerConfig, ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=SERVE_LAYERS)
+    L = cfg.num_layers
+    model = build_model(cfg, device="cuda")
+    model.init(torch.Generator("cuda").manual_seed(0))
+    total = dict.fromkeys(_launch_counters(), 0)
+    n_chunks = -(-LONG_PROMPT // CHUNK)
+    stalls = {}
+    for label, kv_mode, chunk in (("paged chunked", "paged", CHUNK),
+                                  ("paged monolithic", "paged", 0),
+                                  ("dense chunked", "dense", CHUNK)):
+        engine = ServingEngine(model, ServerConfig(
+            max_batch=4, max_seq=4096, kv_mode=kv_mode,
+            prefill_chunk_tokens=chunk))
+        _warm_up(engine)
+        stall_ms, chunks, launches, steps = _long_prompt_run(
+            engine, cfg.vocab_size)
+        if chunk and len(chunks) != n_chunks:
+            raise AssertionError(
+                f"[{label}] {len(chunks)} prefill_chunk notes for the "
+                f"{LONG_PROMPT}-token prompt, not {n_chunks}")
+        first_chunks = sum(1 for ln in engine.trace()
+                           if " prefill_chunk " in ln and " at=0" in ln)
+        full = first_chunks if chunk else engine.serving_stats()[
+            "prefill_sequences_total"]["incremental"] - 1   # the warm-up's
+        want = {"paged_attention": steps * L if kv_mode == "paged" else 0,
+                "flash_attention": full * L if kv_mode == "paged" else 0,
+                "wkv6": 0, "segment_zero": 0}
+        if launches != want:
+            raise AssertionError(f"[{label}] launches {launches} != {want}")
+        for name, n in launches.items():
+            total[name] += n
+        stalls[label] = max(stall_ms)
+        log(f"[chunked] {label}: the {LONG_PROMPT}-token prompt took "
+            f"{len(stall_ms)} steps to its first token ({len(chunks)} "
+            f"prefill_chunk notes), max step during its prefill "
+            f"{max(stall_ms):.2f} ms, steps "
+            f"{[round(t, 1) for t in stall_ms]} ms; ledgers balance; "
+            f"launches {launches}")
+    log(f"[chunked] max decode step during the long prefill: paged chunked "
+        f"{stalls['paged chunked']:.2f} ms vs monolithic "
+        f"{stalls['paged monolithic']:.2f} ms, dense chunked "
+        f"{stalls['dense chunked']:.2f} ms")
+
+    for incremental in (True, False):
+        label = "incremental" if incremental else "rebatching"
+        engine = ServingEngine(model, ServerConfig(
+            max_batch=4, max_seq=4096, kv_mode="dense",
+            incremental=incremental))
+        reqs = _serving_requests(cfg.vocab_size,
+                                 [2048, 1000, 513, 300, 128, 64, 17, 1500])
+        base = _warm_up(engine)
+        run, launches, peak = _drive_counted(engine, reqs)
+        stats = engine.serving_stats()
+        _check_outputs(reqs, cfg.vocab_size)
+        _check_ledgers(engine, stats)
+        kind = "incremental" if incremental else "full"
+        prefills = (stats["prefill_sequences_total"][kind]
+                    - base["prefill_sequences_total"][kind])
+        want = {"paged_attention": 0, "flash_attention": prefills * L,
+                "wkv6": 0, "segment_zero": 0}
+        if launches != want:
+            raise AssertionError(f"[{label}] launches {launches} != {want}")
+        for name, n in launches.items():
+            total[name] += n
+        tokens = sum(len(r.tokens) for r in reqs)
+        log(f"[rebatch] dense {label}: {prefills} {kind} prefills "
+            f"({stats['prefill_tokens_total'][kind] - base['prefill_tokens_total'][kind]}"
+            f" tokens), flash_attention {launches['flash_attention']} = "
+            f"{prefills} x {L}; {tokens} tokens in {run['wall']:.3f}s = "
+            f"{tokens / run['wall']:.1f} tokens/s end to end")
+        _log_timings("rebatch", run, peak, f" [dense {label}, {L} layers]")
+    return total
+
+
 # --------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1043,7 +1326,8 @@ def main(argv=None) -> int:
         results["flash_attention"] = check_flash()
         results["wkv6"] = check_wkv6()
         results["segment_zero"] = check_segment_zero()
-    # each kernel's launches on the path that runs it; K4 is on no path
+    # each kernel's launches, summed over the paths that run it (K1:
+    # phases 4 and 8; K2: 4, 7 and 8; K3: 6); K4 is on no path
     launches = {"segment_zero": 0}
     if 4 in phases:
         qwen = phase_serving()
@@ -1053,7 +1337,15 @@ def main(argv=None) -> int:
         phase_card_vs_cpu()
     if 6 in phases:
         launches["wkv6"] = phase_rwkv_serving()["wkv6"]
-    if not {3, 4, 5, 6} <= phases:
+    if 7 in phases:
+        gemma = phase_gemma_serving()
+        launches["flash_attention"] = (launches.get("flash_attention", 0)
+                                       + gemma["flash_attention"])
+    if 8 in phases:
+        qwen8 = phase_chunked_and_rebatching()
+        for name in ("paged_attention", "flash_attention"):
+            launches[name] = launches.get(name, 0) + qwen8[name]
+    if not {3, 4, 5, 6, 7, 8} <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {
@@ -1083,6 +1375,8 @@ def main(argv=None) -> int:
         })
         if "warm_ms" in r:         # K1: "ms" is with the L2 cache flushed
             kernels[-1]["warm_ms"] = r["warm_ms"]
+        if "hd256" in r:           # K2 at gemma2's head dim, CUDA cores
+            kernels[-1]["hd256"] = r["hd256"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

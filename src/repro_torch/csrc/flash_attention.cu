@@ -61,6 +61,12 @@
 //     shared-memory reads of a KV row hit 8 distinct banks and broadcast
 //     across the 4 rows of a warp; the 8 partial dot products reduce with 3
 //     shuffles.
+//   * head dim 256 (gemma2/3), in fp32 and in bf16: the same kernel with KV
+//     tiles of 16 rows, so the fp32 K/V tiles stay at 32 KB of static shared
+//     memory (32 rows would need 64 KB, past the 48 KB static limit) and a
+//     thread holds 32 dims of q and of the accumulator.  bf16 inputs are
+//     converted to fp32 as they are staged and the output rounded once.  The
+//     tensor-core route is built for head dims 64 and 128 only.
 //
 // Both routes: softcap is applied before the mask, masked scores are the
 // finite -2e38 of the reference, masked probabilities are exactly 0, and
@@ -82,23 +88,32 @@ constexpr float kNegInf = -2.0e38f;
 // ------------------------------------------------------------ fp32 route
 
 constexpr int kBQ = 32;            // query rows per block
-constexpr int kBK = 32;            // kv rows per tile
 constexpr int kSplit = 8;          // threads per query row
 constexpr int kThreads = kBQ * kSplit;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
-template <typename T, int HD>
+// kBK: kv rows per tile (32, and 16 at head dim 256)
+template <typename T, int HD, int kBK>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int Sq,
                      int Sk, int K, int G, int window, float scale,
                      float logit_cap, int causal) {
   constexpr int kDims = HD / kSplit;  // dims owned by one thread
+  static_assert(2 * kBK * HD * sizeof(float) <= 48 * 1024,
+                "K/V tiles past the static shared-memory limit");
   __shared__ float k_s[kBK][HD];
   __shared__ float v_s[kBK][HD];
 
@@ -739,44 +754,52 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace tc
 
-void launch_fp32(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int K, int G, int hd, int window,
-                 float scale, float logit_cap, int causal,
-                 cudaStream_t stream) {
+template <typename T, int HD, int kBK>
+void launch_cc(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Sk, int K, int G, int window, float scale,
+               float logit_cap, int causal, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, K * G, B);
-  if (hd == 64) {
-    flash_prefill_kernel<float, 64><<<grid, kThreads, 0, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
-        Sk, K, G, window, scale, logit_cap, causal);
-  } else {
-    flash_prefill_kernel<float, 128><<<grid, kThreads, 0, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
-        Sk, K, G, window, scale, logit_cap, causal);
-  }
+  flash_prefill_kernel<T, HD, kBK><<<grid, kThreads, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, K, G, window,
+      scale, logit_cap, causal);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core route:
-// every pointer 16-byte aligned); hd in {64, 128} (the Python wrapper checks
-// all three).  Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (every pointer 16-byte
+// aligned; the tensor-core route at hd 64 and 128, the CUDA-core route at
+// 256); hd in {64, 128, 256} (the Python wrapper checks all three).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int K, int G, int hd, int window,
                                      float scale, float logit_cap, int causal,
                                      int dtype, void* stream) {
-  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  if (hd != 64 && hd != 128 && hd != 256) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || K == 0 || G == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    launch_fp32(q, k, v, out, B, Sq, Sk, K, G, hd, window, scale, logit_cap,
-                causal, s);
+    if (hd == 64) {
+      launch_cc<float, 64, 32>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                               logit_cap, causal, s);
+    } else if (hd == 128) {
+      launch_cc<float, 128, 32>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                                logit_cap, causal, s);
+    } else {
+      launch_cc<float, 256, 16>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                                logit_cap, causal, s);
+    }
     return (int)cudaGetLastError();
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const uintptr_t align = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                           (uintptr_t)out;
   if (align % 16) return (int)cudaErrorMisalignedAddress;
+  if (hd == 256) {
+    launch_cc<__nv_bfloat16, 256, 16>(q, k, v, out, B, Sq, Sk, K, G, window,
+                                      scale, logit_cap, causal, s);
+    return (int)cudaGetLastError();
+  }
   return hd == 64 ? tc::launch<64>(q, k, v, out, B, Sq, Sk, K, G, window,
                                    scale, logit_cap, causal, s)
                   : tc::launch<128>(q, k, v, out, B, Sq, Sk, K, G, window,

@@ -41,18 +41,19 @@ def flash_attention_cuda(q, k, v, window, *, scale, logit_cap=0.0,
         raise ValueError(
             "flash_attention kernel takes float32 or bfloat16 q/k/v of one "
             f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd not in (64, 128) or hd_k != hd or Bk != B or v.shape != k.shape \
-            or KG % K:
+    if hd not in (64, 128, 256) or hd_k != hd or Bk != B \
+            or v.shape != k.shape or KG % K:
         raise ValueError(
-            f"flash_attention kernel takes head dim 64 or 128 and GQA "
+            f"flash_attention kernel takes head dim 64, 128 or 256 and GQA "
             f"shapes, got q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous tensors")
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in (q, k, v)):
-        # the bf16 route loads by TMA: 16-byte aligned bases (rows of
-        # 64 or 128 bf16 are always multiples of 16 bytes)
+        # the bf16 route loads by TMA at head dims 64 and 128: 16-byte
+        # aligned bases (rows of 64, 128 or 256 bf16 are always multiples
+        # of 16 bytes); the entry point checks it for every bf16 call
         raise ValueError("flash_attention bf16 kernel takes 16-byte aligned "
                          "q/k/v")
     out = torch.empty_like(q)

@@ -3,15 +3,20 @@
 The counterpart of ``repro.launch.serve``, limited to the flags the
 ported engine honours, plus ``--device`` (default ``cuda``; CUDA asked
 for and absent is an error, never a silent CPU run).  Weights are random,
-drawn on the device from ``torch.Generator(device).manual_seed(0)``.  The
-engine picks its mode (``kv_mode="auto"``): paged for the dense
-transformers, dense per-slot state for RWKV (``--arch rwkv6-3b``).
+drawn on the device from ``torch.Generator(device).manual_seed(0)``.  By
+default (``--kv-mode auto``) the engine picks its mode: paged for the
+dense transformers that can decode from pages, dense per-slot state for
+those with sliding windows or a softcap (``--arch gemma2-9b``) and for
+RWKV (``--arch rwkv6-3b``); ``--no-incremental`` runs the rebatching
+baseline (dense).
 
 Examples (full size on the card; ``--reduced --device cpu`` for the smoke
 config on the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2.5-32b --requests 8 --max-seq 256 --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch gemma2-9b --requests 8 --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch rwkv6-3b --requests 8 --device cuda
 """
@@ -50,6 +55,17 @@ def main(argv=None) -> None:
                          "slots (0 = uncapped)")
     ap.add_argument("--deadline", type=float, default=None, metavar="SECONDS",
                     help="admit deadline per request")
+    ap.add_argument("--no-incremental", action="store_true",
+                    help="A/B: run the old rebatching baseline (every "
+                         "admit re-prefills the whole batch) instead of "
+                         "per-slot incremental prefill")
+    ap.add_argument("--kv-mode", default="auto",
+                    choices=("auto", "paged", "dense"),
+                    help="KV backing store: 'paged' routes decode through "
+                         "the paged-attention kernel over the arena's page "
+                         "pool; 'dense' keeps the per-slot (batch, max_seq) "
+                         "reservation; 'auto' picks paged when the model "
+                         "supports it")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy argmax)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -76,6 +92,7 @@ def main(argv=None) -> None:
     engine = ServingEngine(model, ServerConfig(
         max_batch=args.max_batch, max_seq=args.max_seq,
         mm_legacy=args.legacy_arena, quotas=quotas,
+        incremental=not args.no_incremental, kv_mode=args.kv_mode,
     ))
     print(f"[serve] device: {device} kv_mode: {engine.kv_mode}")
     rng = np.random.default_rng(0)
@@ -105,7 +122,8 @@ def main(argv=None) -> None:
     stats = engine.serving_stats()
     print(f"[serve] kv pages: allocated={stats['kv_pages_allocated_total']} "
           f"freed={stats['kv_pages_freed_total']} "
-          f"sampled={json.dumps(stats['sampled_tokens_total'])}")
+          f"sampled={json.dumps(stats['sampled_tokens_total'])} "
+          f"prefills={json.dumps(stats['prefill_sequences_total'])}")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,16 @@
-"""Attention: GQA with RoPE, sliding windows and softcap, for prefill.
+"""Attention: GQA with RoPE, sliding windows and softcap.
 
 The counterpart of ``repro/models/attention.py``.  The port has no
 ``impl`` knob: prefill attention always goes through
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention` — the
 hand-written CUDA kernel on the card, its plain PyTorch version on the
 CPU.  Decode attention over the page pool lives in
-:meth:`repro_torch.models.transformer.TransformerLM.paged_decode_step`.
+:meth:`repro_torch.models.transformer.TransformerLM.paged_decode_step`;
+decode over a dense (B, max_seq) cache is :func:`update_cache` and
+:func:`decode_attn`, plain PyTorch as the reference computed them in XLA
+(no TPU kernel).  There is no mesh, so the reference's ``layout`` knob
+(a sharding choice) is not ported.  ``blockwise_attn`` is on no serving
+path of the port and waits for training (ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -16,9 +21,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..kernels.flash_attention import ops as fa_ops
-from .common import ArchConfig, rms_norm, rope
+from .common import ArchConfig, rms_norm, rope, softcap
 
-__all__ = ["NEG_INF", "attn_params_shape", "attention_block", "qkv"]
+__all__ = ["NEG_INF", "attn_params_shape", "attention_block", "decode_attn",
+           "qkv", "update_cache"]
 
 NEG_INF = -2.0e38
 
@@ -86,3 +92,63 @@ def attention_block(
     if return_kv:
         return y, (k, v)
     return y
+
+
+# --------------------------------------------------------------------------
+# decode path (dense cache)
+# --------------------------------------------------------------------------
+
+
+def update_cache(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor, pos: torch.Tensor):
+    """Insert one token's K/V at per-sequence positions, in place.
+
+    cache: (B, S, K, hd); k_new/v_new: (B, K, hd); pos: (B,) int.  The
+    reference's ``.at[b, pos].set`` drops a write whose position lies
+    outside the cache (a free lane of the dense batch keeps counting past
+    ``max_seq``), while an out-of-range index asserts on CUDA.  So such a
+    lane writes its own row's old value back at a clamped position: the
+    cache is unchanged and the step needs no host sync.
+    """
+    B, S = cache_k.shape[:2]
+    b_idx = torch.arange(B, device=cache_k.device)
+    pos = pos.long()
+    pos = torch.where(pos < 0, pos + S, pos)     # numpy-style negatives
+    valid = ((pos >= 0) & (pos < S))[:, None, None]
+    at = pos.clamp(0, S - 1)
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache[b_idx, at] = torch.where(valid, new.to(cache.dtype),
+                                       cache[b_idx, at])
+    return cache_k, cache_v
+
+
+def decode_attn(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                pos: torch.Tensor, cfg: ArchConfig, *,
+                window: int) -> torch.Tensor:
+    """One token's attention over a dense cache: (B, H, hd) → (B, H*hd) fp32.
+
+    The reference's numerics: q scaled in fp32 and rounded back to its
+    dtype; scores summed in fp32 from the cache in its storage dtype (the
+    operands are upcast — a product of two bf16 values is exact in fp32 —
+    never a bf16 score tensor); the softcap before the mask; the mask
+    ``idx <= pos`` and ``pos - idx < window``; the weights rounded to the
+    cache's dtype before P·V, which sums in fp32.
+    """
+    B, S, K, hd = cache_k.shape
+    H = cfg.num_heads
+    G = H // K
+    scale = cfg.query_scale or (1.0 / math.sqrt(hd))
+    qg = (q.reshape(B, K, G, hd).float() * scale).to(q.dtype)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), cache_k.float())
+    if cfg.attn_logit_softcap:
+        s = softcap(s, cfg.attn_logit_softcap)
+    idx = torch.arange(S, device=cache_k.device)
+    pos = pos.long()
+    mask = idx[None, :] <= pos[:, None]                      # (B, S)
+    if int(window) > 0:
+        mask &= pos[:, None] - idx[None, :] < int(window)
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", w.to(cache_v.dtype).float(),
+                       cache_v.float())
+    return out.reshape(B, H * hd)

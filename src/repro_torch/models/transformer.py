@@ -19,6 +19,16 @@ Pools are ``(L, P, page, K, hd)`` and page tables int32 padded with -1, as
 in the reference.  Where the reference donated the pool to a jitted
 function and got a new one back, the port updates the pool in place and
 returns the same dict.
+
+Dense serving interface (``ServingEngine`` in dense mode, which gemma2/3
+need: the paged kernel has no window or softcap):
+  ``init_decode_state(batch, max_seq)``      → state dict
+  ``prefill(tokens, max_seq=)``              → (state, last_logits)
+  ``decode_step(state, tokens)``             → (state, logits)
+  ``prefill_chunk(tokens, state, start)``    → (state, last_logits)
+States hold ``cache_k``/``cache_v`` of ``(L, B, max_seq, K, hd)`` and
+``pos`` (B,) int32.  ``decode_step`` and ``prefill_chunk`` write the cache
+rows in place and return the same cache tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +40,14 @@ import torch
 from torch import nn
 
 from ..kernels.paged_attention.ops import paged_attention
-from .attention import NEG_INF, attention_block, attn_params_shape, qkv
+from .attention import (
+    NEG_INF,
+    attention_block,
+    attn_params_shape,
+    decode_attn,
+    qkv,
+    update_cache,
+)
 from .common import (
     ArchConfig,
     gated_mlp,
@@ -215,6 +232,98 @@ class TransformerLM(nn.Module):
             "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
         }
         return state, logits
+
+    # ----------------------------------------------- serving (dense cache)
+
+    def init_decode_state(self, batch_size: int, max_seq: int, dtype=None,
+                          device=None) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        dtype = dtype or self.dtype
+        dev = self.device if device is None else device
+        shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads, cfg.hd)
+        return {
+            "cache_k": torch.zeros(shape, dtype=dtype, device=dev),
+            "cache_v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+        }
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens, state, start):
+        """Chunked dense prefill: consume ``tokens`` (1, S) at positions
+        ``[start, start + S)`` of a batch-of-one decode state, attending
+        through the cache rows earlier chunks wrote.
+
+        Row ``start + i`` attends the cached rows ``< start`` plus chunk
+        rows ``<= i`` (plain PyTorch in fp32, as the reference's einsums),
+        so chunks compose to the monolithic prefill.  The chunk's K/V rows
+        are written in place at ``start``, clamped to ``[0, max_seq - S]``
+        as ``dynamic_update_slice`` clamps; ``pos`` becomes ``start + S``.
+        Returns the state and the logits at the chunk's last position.
+        """
+        cfg = self.cfg
+        if cfg.attn_logit_softcap or any(w != 0 for w in self.windows):
+            raise NotImplementedError(
+                "chunked dense prefill supports neither attention logit "
+                "softcap nor sliding windows"
+            )
+        B, S = tokens.shape
+        max_seq = state["cache_k"].shape[2]
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        G = H // K
+        scale = cfg.query_scale or (1.0 / math.sqrt(hd))
+        start = int(start)
+        at = min(max(start, 0), max_seq - S)
+        dev = tokens.device
+        positions = start + torch.arange(S, device=dev)
+        h = self._embed_inputs(tokens)
+        prefix_live = (torch.arange(max_seq, device=dev)
+                       < start)[None, None, None, None, :]
+        causal = (torch.arange(S, device=dev)[None, :]
+                  <= torch.arange(S, device=dev)[:, None])[None, :, None, None, :]
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            ck, cv = state["cache_k"][l], state["cache_v"][l]
+            a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+            q, k, v = qkv(a, p["attn"], cfg, positions, self._rope_base(l))
+            qf = q.reshape(B, S, K, G, hd).float() * scale
+            s_pre = torch.einsum("bskgh,bpkh->bskgp", qf, ck.float())
+            s_pre = torch.where(prefix_live, s_pre, NEG_INF)
+            s_suf = torch.einsum("bskgh,btkh->bskgt", qf, k.float())
+            s_suf = torch.where(causal, s_suf, NEG_INF)
+            w = torch.softmax(torch.cat([s_pre, s_suf], dim=-1), dim=-1)
+            o = torch.einsum("bskgp,bpkh->bskgh", w[..., :max_seq], cv.float()) \
+                + torch.einsum("bskgt,btkh->bskgh", w[..., max_seq:], v.float())
+            o = o.reshape(B, S, H * hd).to(h.dtype) @ p["attn"]["wo"]
+            h = self._mlp_residual(self._attn_residual(h, o, p), p)
+            # this layer's rows < start are all it read: write the chunk now
+            ck[:, at:at + S] = k.to(ck.dtype)
+            cv[:, at:at + S] = v.to(cv.dtype)
+        logits = self._final(h[:, -1])
+        state["pos"] = torch.full_like(state["pos"], start + S)
+        return state, logits
+
+    @torch.no_grad()
+    def decode_step(self, state, tokens):
+        """One token per sequence against the dense cache: ``tokens`` (B,)
+        → (state, logits (B, V)).  Lane b writes its K/V at ``pos[b]`` (a
+        lane past ``max_seq`` writes nothing, as in the reference) and
+        attends rows ``<= pos[b]`` within its layer's window; ``pos``
+        advances by one on every lane."""
+        cfg = self.cfg
+        pos = state["pos"]
+        h = self._embed_inputs(tokens)
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+            q, k, v = qkv(a, p["attn"], cfg, pos, self._rope_base(l))
+            ck, cv = state["cache_k"][l], state["cache_v"][l]
+            update_cache(ck, cv, k, v, pos)
+            o = decode_attn(q, ck, cv, pos, cfg, window=int(self.windows[l]))
+            o = o.to(h.dtype) @ p["attn"]["wo"]
+            h = self._mlp_residual(self._attn_residual(h, o, p), p)
+        new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
+                     "pos": pos + 1}
+        return new_state, self._final(h)
 
     # ----------------------------------------------- serving (paged cache)
 

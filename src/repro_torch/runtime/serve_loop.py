@@ -1,11 +1,10 @@
 """Serving plane: continuous batching over the KV arena.
 
-The counterpart of ``repro/runtime/serve_loop.py``'s :class:`ServingEngine`
-in **paged mode** and in incremental **dense mode**: ``submit(request)`` /
-``step()`` / ``drain()`` on the :mod:`repro_torch.core.sim` Clock/Executor
-substrate.  Tokens come from the seeded host sampler
-(:mod:`repro_torch.runtime.sampling`), keyed by ``(request.seed, token
-index)``.
+The counterpart of ``repro/runtime/serve_loop.py``'s :class:`ServingEngine`:
+``submit(request)`` / ``step()`` / ``drain()`` on the
+:mod:`repro_torch.core.sim` Clock/Executor substrate.  Tokens come from the
+seeded host sampler (:mod:`repro_torch.runtime.sampling`), keyed by
+``(request.seed, token index)``.
 
 * Paged (``kv_mode="paged"``, and ``"auto"`` for a model with the paged
   interface): admitting a request prefills exactly that sequence and
@@ -13,28 +12,30 @@ index)``.
   :class:`~repro_torch.core.arena.PagedKVAllocator` allocated for it; every
   ``step()`` appends one row per live slot and decodes the batch through
   the paged-attention kernel, reading ``kv.page_table()`` directly.
-* Dense (``kv_mode="dense"``, and ``"auto"`` otherwise, e.g. RWKV): one
-  batch decode state from ``model.init_decode_state(max_batch, max_seq)``;
-  admitting a request prefills it alone and writes its state into its slot
-  (the other slots are untouched), and every ``step()`` runs
-  ``model.decode_step`` over the whole batch.  The page ledger is kept as
-  in the reference, one token appended per decode.
+* Dense (``kv_mode="dense"``, and ``"auto"`` otherwise: RWKV, and the
+  transformers with windows or a softcap, gemma2/3): one batch decode
+  state from ``model.init_decode_state(max_batch, max_seq)``; admitting a
+  request prefills it alone and writes its state into its slot (the other
+  slots are untouched), and every ``step()`` runs ``model.decode_step``
+  over the whole batch.  The page ledger is kept as in the reference, one
+  token appended per decode.  ``incremental=False`` is the rebatching
+  baseline: every admission re-prefills the whole zero-padded batch.
 
-In scope, as in the reference: per-tenant (priority, deadline, arrival)
-admit queues with quota caps and the admission slot ledger; incremental
-monolithic prefill; cross-tenant prefix sharing with copy-on-write pages
-(on by default) and parked prefix donors; arena-poison eviction;
+As in the reference: per-tenant (priority, deadline, arrival) admit queues
+with quota caps and the admission slot ledger; incremental monolithic or
+chunked prefill (``prefill_chunk_tokens``: a per-step token budget, the
+dense carry held outside the batch state until its last chunk);
+cross-tenant prefix sharing with copy-on-write pages (on by default) and
+parked prefix donors; the chaos hooks ``kill_batch`` (paged mode keeps the
+pages: re-admission resumes), ``evacuate``, ``poison_live`` /
+``poison_shared`` / ``poison_prefilling`` and arena-poison eviction;
 ``serving_stats`` and the decision trace.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item (queue 1, item 4 unless said): ``incremental=False`` (4a),
-dense mode for a model without ``init_decode_state``/``decode_step``, as
-the port's ``TransformerLM`` (item 2), ``prefill_chunk_tokens > 0`` (4b),
-the chaos hooks ``kill_batch`` / ``evacuate`` / ``poison_*`` (4c),
-``Request.postprocess`` (4d), and a ``mesh`` (4e).  :class:`ServerConfig` has no
-fields for the ``Server`` options (``pool_watermark``, ``workers``,
-``heartbeat_timeout_s``): they come with ``Server`` (4d), and passing one
-fails as an unknown keyword.
+ROADMAP.md item (queue 1, item 4): ``Request.postprocess`` (4d) and a
+``mesh`` (4e).  :class:`ServerConfig` has no fields for the ``Server``
+options (``pool_watermark``, ``workers``, ``heartbeat_timeout_s``): they
+come with ``Server`` (4d), and passing one fails as an unknown keyword.
 
 The model owns its weights (an ``nn.Module``), so the engine takes no
 ``params`` argument; the reference's jitted, donating wrappers become
@@ -104,8 +105,8 @@ class ServerConfig:
     max_seq: int = 256
     tokens_per_page: int = 16
     mm_legacy: bool = False              # paper A/B: legacy vs modern arena
-    #: per-slot incremental prefill; False (the rebatching baseline) is
-    #: not ported (4a)
+    #: per-slot incremental prefill; False = the rebatching baseline (every
+    #: admission re-prefills the whole dense batch), for A/B
     incremental: bool = True
     #: virtual seconds one decode step occupies on the executor clock;
     #: >0 makes the engine sleep between steps
@@ -131,7 +132,11 @@ class ServerConfig:
     #: >0: retired requests park their sequence (renamed ``~pfxN``) as a
     #: prefix donor instead of dropping it, up to this many, FIFO
     prefix_cache_seqs: int = 0
-    #: >0 (chunked prefill) is not ported (4b)
+    #: chunked prefill: per-step budget of prompt tokens, shared across
+    #: prefilling slots in slot order; a slot joins the decode batch once
+    #: its prompt is resident.  Needs ``incremental`` and a model exposing
+    #: ``paged_prefill_at`` (paged) or ``prefill_chunk`` (dense).  0 =
+    #: monolithic prefill
     prefill_chunk_tokens: int = 0
 
 
@@ -156,10 +161,6 @@ class ServingEngine:
     ) -> None:
         if mesh is not None:
             raise _unported("tensor-parallel serving (mesh)", "4e")
-        if not cfg.incremental:
-            raise _unported("the rebatching baseline (incremental=False)", "4a")
-        if cfg.prefill_chunk_tokens > 0:
-            raise _unported("chunked prefill (prefill_chunk_tokens)", "4b")
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -168,6 +169,12 @@ class ServingEngine:
         self.admission = admission or AdmissionController(sink=self.telemetry)
         self.kv = kv if kv is not None else self._build_kv(model, cfg)
         self._lock = threading.RLock()
+        self._chunked = cfg.prefill_chunk_tokens > 0
+        if self._chunked and not cfg.incremental:
+            raise ValueError(
+                "prefill_chunk_tokens requires incremental=True (the "
+                "rebatching baseline re-prefills whole dense batches)"
+            )
 
         B = cfg.max_batch
         self._slots: List[Optional[Request]] = [None] * B
@@ -201,10 +208,22 @@ class ServingEngine:
                 and hasattr(model, "paged_prefill_at")
                 and hasattr(model, "paged_copy_page")
             )
+            if self._chunked and not hasattr(model, "paged_prefill_at"):
+                raise ValueError(
+                    "prefill_chunk_tokens (paged) needs a model exposing "
+                    "paged_prefill_at — later chunks attend through the "
+                    "rows earlier chunks scattered"
+                )
         else:
             self._sharing = False
+            if self._chunked and not hasattr(model, "prefill_chunk"):
+                raise ValueError(
+                    "prefill_chunk_tokens (dense) needs a model exposing "
+                    "prefill_chunk — later chunks continue the carry "
+                    "earlier chunks built"
+                )
             # decode state lives per slot: one persistent batch state whose
-            # slot i is overwritten on admission
+            # slot i is overwritten on admission (rebatching: replaced)
             self._state = model.init_decode_state(B, cfg.max_seq)
             self._batch_axes = self._find_batch_axes(model, cfg.max_seq)
 
@@ -218,8 +237,24 @@ class ServingEngine:
         self._prefills = {"incremental": 0, "full": 0}
         self._prefill_tokens = {"incremental": 0, "full": 0}
         self._prefills_by_request: Dict[int, int] = {}
+        self._batch_kills = 0
         self._arena_poisons = 0
         self._evictions = 0
+        self._resumes = 0
+        self._prefill_chunks = 0
+        #: PREFILLING sequences: seq_id -> consumed-stream tokens made
+        #: resident so far (the last chunk boundary).  An entry exists
+        #: exactly while a sequence's prefill is incomplete — slotted, or
+        #: evicted with its pages kept (paged batch kill), where it marks
+        #: the point the resumed prefill continues from
+        self._chunk_progress: Dict[str, int] = {}
+        #: dense chunked prefill only: seq_id -> the batch-of-one carry
+        #: state built so far, allocated at the sequence's first chunk and
+        #: written in place by the later ones.  Held outside the batch
+        #: state until the last chunk installs it, so intervening decode
+        #: steps (which run the whole batch) cannot corrupt a half-built
+        #: slot
+        self._chunk_carry: Dict[str, Any] = {}
         #: executor timestamp of each live request's latest sampled token
         self._last_tok_t: Dict[int, float] = {}
         self._sampled = {"greedy": 0, "temperature": 0, "topk": 0, "topp": 0}
@@ -228,29 +263,32 @@ class ServingEngine:
         #: parked prefix donors (renamed retired sequences), FIFO
         self._parked: Deque[str] = deque()
         self._park_seq = itertools.count()
+        #: set by evacuate(): the engine is inert
+        self.dead = False
 
     # ------------------------------------------------------------- helpers
 
     @staticmethod
     def _resolve_kv_mode(model, cfg: ServerConfig) -> str:
         supports = bool(getattr(model, "supports_paged_decode", False))
-        if cfg.kv_mode not in ("auto", "paged", "dense"):
-            raise ValueError(f"unknown kv_mode {cfg.kv_mode!r}")
-        if cfg.kv_mode == "paged" and not supports:
-            raise ValueError(
-                f"kv_mode='paged' but {type(model).__name__} does not "
-                "support paged decode (no paged interface, or it uses "
-                "logit softcap / sliding windows)"
-            )
-        if cfg.kv_mode == "paged" or (cfg.kv_mode == "auto" and supports):
+        if cfg.kv_mode == "auto":
+            return "paged" if (supports and cfg.incremental) else "dense"
+        if cfg.kv_mode == "paged":
+            if not supports:
+                raise ValueError(
+                    f"kv_mode='paged' but {type(model).__name__} does not "
+                    "support paged decode (no paged interface, or it uses "
+                    "logit softcap / sliding windows)"
+                )
+            if not cfg.incremental:
+                raise ValueError(
+                    "kv_mode='paged' requires incremental=True (the "
+                    "rebatching baseline re-prefills dense batches)"
+                )
             return "paged"
-        if not (hasattr(model, "init_decode_state")
-                and hasattr(model, "decode_step")):
-            raise _unported(
-                f"dense decode of {type(model).__name__} "
-                "(init_decode_state / decode_step, the dense-cache path)",
-                "2")
-        return "dense"
+        if cfg.kv_mode == "dense":
+            return "dense"
+        raise ValueError(f"unknown kv_mode {cfg.kv_mode!r}")
 
     @staticmethod
     def _find_batch_axes(model, max_seq: int) -> Dict[str, int]:
@@ -419,16 +457,19 @@ class ServingEngine:
             return heap[0]
         return None
 
-    def _admit_locked(self) -> List[Tuple[int, Request, int]]:
+    def _admit_locked(self) -> List[Tuple[int, Request, bool, int]]:
         """Fill free slots from the queues; returns [(slot, request,
-        shared_prefix_tokens)] admitted.
+        needs_prefill, shared_prefix_tokens)] admitted.
 
         Each round admits the globally-best head — (priority, deadline,
-        arrival) order — among tenants below their slot cap.  With prefix
-        sharing on, a prompt whose prefix is already resident maps those
-        pages read-only and prefills only the suffix.
+        arrival) order — among tenants below their slot cap.  In paged mode
+        a batch-killed request's pages survive its eviction, so its
+        re-admission is a resume: no prefill, or the chunk pump continues
+        from its last boundary.  With prefix sharing on, a fresh prompt
+        whose prefix is already resident maps those pages read-only and
+        prefills only the suffix.
         """
-        admitted: List[Tuple[int, Request, int]] = []
+        admitted: List[Tuple[int, Request, bool, int]] = []
         active = self._active_by_tenant_locked()
         now = self._exec.now()
         self._expire_due_locked(now)
@@ -456,28 +497,45 @@ class ServingEngine:
                 )
             active[r.tenant] = active.get(r.tenant, 0) + 1
             seq_id = self._seq_id(r)
+            resume = self.kv_mode == "paged" and self.kv.has_sequence(seq_id)
             start = 0
-            self.kv.add_sequence(seq_id)
-            total = len(r.prompt) + len(r.tokens)
-            if self._sharing:
-                donor, match = self.kv.lookup_prefix(r.prompt)
-                # share whole pages covering the matched prompt prefix,
-                # but always prefill at least one token, and only bother
-                # for a full page
-                match = min(match, len(r.prompt), total - 1)
-                if donor is not None and match >= self.kv.tokens_per_page:
-                    self.kv.share_prefix(seq_id, donor, match)
-                    start = match
-                    self._prefix_hits += 1
-                    self._prefix_tokens_saved += match
-                    self._note(
-                        "prefix_share", r, f"donor={donor} tokens={match}"
+            if resume:
+                if seq_id not in self._chunk_progress:
+                    # pages survived the eviction: re-entry is a table edit
+                    # (mid-prefill, the chunk pump continues instead)
+                    self.kv.ensure_tokens(
+                        seq_id, len(r.prompt) + len(r.tokens)
                     )
-            self.kv.append_tokens(seq_id, total - start)
+                self._resumes += 1
+            else:
+                self.kv.add_sequence(seq_id)
+                total = len(r.prompt) + len(r.tokens)
+                if self._sharing:
+                    donor, match = self.kv.lookup_prefix(r.prompt)
+                    # share whole pages covering the matched prompt
+                    # prefix, but always prefill at least one token, and
+                    # only bother for a full page
+                    match = min(match, len(r.prompt), total - 1)
+                    if donor is not None and match >= self.kv.tokens_per_page:
+                        self.kv.share_prefix(seq_id, donor, match)
+                        start = match
+                        self._prefix_hits += 1
+                        self._prefix_tokens_saved += match
+                        self._note(
+                            "prefix_share", r,
+                            f"donor={donor} tokens={match}"
+                        )
+                if self._chunked:
+                    # PREFILLING: the pump allocates pages chunk by chunk,
+                    # so a partial sequence holds exactly its scattered rows
+                    self._chunk_progress[seq_id] = start
+                else:
+                    self.kv.append_tokens(seq_id, total - start)
             self.admission.slot_acquired(r.tenant)
             self._admitted[r.tenant] = self._admitted.get(r.tenant, 0) + 1
-            self._note("admit", r, f"slot={slot}")
-            admitted.append((slot, r, start))
+            self._note("admit", r,
+                       f"slot={slot}" + (" resume" if resume else ""))
+            admitted.append((slot, r, not resume, start))
         return admitted
 
     # ------------------------------------------------------------- prefill
@@ -588,6 +646,153 @@ class ServingEngine:
                 # rows are resident now: this prompt can donate
                 self.kv.register_prefix(seq_id, r.prompt)
 
+    # ----------------------------------------------------- chunked prefill
+
+    def _pump_prefill_chunks(self) -> bool:
+        """Advance PREFILLING slots by at most one token budget, in total,
+        shared across them in slot order; returns whether a chunk ran."""
+        budget = self.cfg.prefill_chunk_tokens
+        with self._lock:
+            pending = [
+                (i, r, self._chunk_progress[self._seq_id(r)])
+                for i, r in enumerate(self._slots)
+                if r is not None and self._seq_id(r) in self._chunk_progress
+            ]
+        chunk_fn = (
+            self._prefill_chunk_paged if self.kv_mode == "paged"
+            else self._prefill_chunk_dense
+        )
+        worked = False
+        for slot, r, p in pending:
+            if budget <= 0:
+                break
+            n = min(budget, len(r.prompt) + len(r.tokens) - p)
+            if n <= 0:
+                continue
+            chunk_fn(slot, r, p, n)
+            budget -= n
+            worked = True
+        return worked
+
+    def _prefill_chunk_paged(self, slot: int, r: Request,
+                             p: int, n: int) -> None:
+        """One paged chunk: scatter consumed-stream rows [p, p+n) into the
+        sequence's arena pages, allocated chunk by chunk.  Chunks after the
+        first (and any chunk of a shared-prefix admission) attend through
+        the resident rows via ``paged_prefill_at``; the progress entry,
+        kept across page-preserving evictions, marks where a resumed
+        prefill continues."""
+        with self._lock:
+            if self._slots[slot] is not r:
+                return                     # evicted before the chunk ran
+            seq = self._sequence_tokens(r)
+            seq_id = self._seq_id(r)
+            self.kv.ensure_tokens(seq_id, p + n)
+            if p:
+                table = self._bucketed_table([seq_id])
+        if p:
+            rows, _ = self.model.paged_prefill_at(
+                self._tensor(seq[None, p:p + n]), self.kv.store,
+                self._tensor(table), p,
+            )
+        else:
+            rows, _ = self.model.paged_prefill(self._tensor(seq[None, :n]))
+        with self._lock:
+            if self._slots[slot] is not r:
+                return                     # evicted mid-chunk: discard
+            self._prefill_chunks += 1
+            self._prefills["incremental"] += 1
+            self._prefill_tokens["incremental"] += n
+            self._prefills_by_request[r.request_id] = (
+                self._prefills_by_request.get(r.request_id, 0) + 1
+            )
+            self._note("prefill_chunk", r, f"slot={slot} tokens={n} at={p}")
+            page = self.kv.tokens_per_page
+            for lp in range(p // page, -(-(p + n) // page)):
+                # a write into a shared page (the trailing partial page of
+                # a shared prefix) triggers COW before the scatter
+                self._cow_locked(seq_id, lp)
+            page_ids, offsets = self.kv.token_positions(seq_id, p, n)
+            self.kv.swap_store(self.model.paged_write_prefill(
+                self.kv.store, rows, page_ids, offsets,
+            ))
+            if p + n >= seq.size:
+                # fully resident: the slot joins the decode batch
+                del self._chunk_progress[seq_id]
+                if self._sharing:
+                    self.kv.register_prefix(seq_id, r.prompt)
+            else:
+                self._chunk_progress[seq_id] = p + n
+
+    def _prefill_chunk_dense(self, slot: int, r: Request,
+                             p: int, n: int) -> None:
+        """One dense chunk: fold consumed-stream rows [p, p+n) into the
+        sequence's carry, which the last chunk installs into its slot with
+        ``_write_slot``.  The carry is allocated once, at the sequence's
+        first chunk (``model.prefill_chunk`` restarts at ``start == 0``)."""
+        with self._lock:
+            if self._slots[slot] is not r:
+                return                     # evicted before the chunk ran
+            seq = self._sequence_tokens(r)
+            seq_id = self._seq_id(r)
+            carry = self._chunk_carry.get(seq_id)
+        if carry is None:
+            carry = self.model.init_decode_state(1, self.cfg.max_seq)
+        carry, _ = self.model.prefill_chunk(
+            self._tensor(seq[None, p:p + n]), carry, p)
+        with self._lock:
+            if self._slots[slot] is not r:
+                return                     # evicted mid-chunk: discard
+            self.kv.ensure_tokens(seq_id, p + n)
+            self._prefill_chunks += 1
+            self._prefills["incremental"] += 1
+            self._prefill_tokens["incremental"] += n
+            self._prefills_by_request[r.request_id] = (
+                self._prefills_by_request.get(r.request_id, 0) + 1
+            )
+            self._note("prefill_chunk", r, f"slot={slot} tokens={n} at={p}")
+            if p + n >= seq.size:
+                del self._chunk_progress[seq_id]
+                self._chunk_carry.pop(seq_id, None)
+                done = True
+            else:
+                self._chunk_progress[seq_id] = p + n
+                self._chunk_carry[seq_id] = carry
+                done = False
+        if done:
+            self._write_slot(carry, slot)
+
+    def _prefill_full(self) -> None:
+        """Rebatching baseline: re-prefill every live slot as one
+        zero-padded (B, S) batch and replace the batch state."""
+        with self._lock:
+            live = [
+                (i, r) for i, r in enumerate(self._slots) if r is not None
+            ]
+            seqs = {i: self._sequence_tokens(r) for i, r in live}
+        if not live:
+            return
+        B = self.cfg.max_batch
+        S = max(max(s.size for s in seqs.values()), 1)
+        toks = np.zeros((B, S), np.int32)
+        lens = np.zeros((B,), np.int32)
+        for i, _ in live:
+            toks[i, : seqs[i].size] = seqs[i][:S]
+            lens[i] = seqs[i].size
+        state, _ = self.model.prefill(self._tensor(toks),
+                                      max_seq=self.cfg.max_seq)
+        state["pos"] = self._tensor(lens)
+        self._state = state
+        with self._lock:
+            self._prefills["full"] += 1
+            self._prefill_tokens["full"] += int(B * S)
+            for i, r in live:
+                if self._slots[i] is r:    # skip slots evicted mid-prefill
+                    self._prefills_by_request[r.request_id] = (
+                        self._prefills_by_request.get(r.request_id, 0) + 1
+                    )
+            self._note("prefill_full", None, f"live={len(live)} tokens={B*S}")
+
     # ---------------------------------------------------------------- step
 
     def step(self) -> int:
@@ -595,18 +800,35 @@ class ServingEngine:
 
         Returns the number of requests retired this tick.
         """
+        if self.dead:
+            return 0
         self._evict_poisoned()
         with self._lock:
             admitted = self._admit_locked()
         paged = self.kv_mode == "paged"
-        if admitted:
-            prefill = self._prefill_slot_paged if paged else self._prefill_slot
-            for slot, r, start in admitted:
-                prefill(slot, r, start)
+        if self._chunked:
+            # the pump runs every tick: a prompt larger than one budget
+            # finishes over several steps
+            if self._pump_prefill_chunks():
+                self.kv.arena.mm.host_vma_count()
+        elif admitted:
+            if self.cfg.incremental:
+                prefill = (self._prefill_slot_paged if paged
+                           else self._prefill_slot)
+                for slot, r, need, start in admitted:
+                    if need:
+                        prefill(slot, r, start)
+            else:
+                self._prefill_full()
             # sample arena occupancy while sequences are live
             self.kv.arena.mm.host_vma_count()
         with self._lock:
-            live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
+            # PREFILLING slots join the decode batch only once their
+            # prompt is fully resident
+            live = [
+                (i, r) for i, r in enumerate(self._slots)
+                if r is not None and self._seq_id(r) not in self._chunk_progress
+            ]
             if live and paged:
                 # reserve this step's token row per live slot, then
                 # snapshot the slot-ordered page table, its width bucketed
@@ -622,8 +844,13 @@ class ServingEngine:
                             self._seq_id(r),
                             int(pos[i]) // self.kv.tokens_per_page,
                         )
+                # a PREFILLING slot maps to an all--1 table row like an
+                # empty one: its lane writes nothing
                 table = self._bucketed_table([
-                    self._seq_id(r) if r is not None else None
+                    self._seq_id(r)
+                    if r is not None
+                    and self._seq_id(r) not in self._chunk_progress
+                    else None
                     for r in self._slots
                 ])
         if not live:
@@ -774,26 +1001,18 @@ class ServingEngine:
 
     # --------------------------------------------------------------- chaos
 
-    def kill_batch(self) -> int:
-        raise _unported("ServingEngine.kill_batch", "4c")
-
-    def evacuate(self) -> List[Request]:
-        raise _unported("ServingEngine.evacuate", "4c")
-
-    def poison_live(self, index: int = 0) -> Optional[str]:
-        raise _unported("ServingEngine.poison_live", "4c")
-
-    def poison_shared(self, index: int = 0) -> Optional[str]:
-        raise _unported("ServingEngine.poison_shared", "4c")
-
-    def poison_prefilling(self, index: int = 0) -> Optional[str]:
-        raise _unported("ServingEngine.poison_prefilling", "4c")
-
-    def _requeue_locked(self, slot: int, r: Request, why: str) -> None:
-        """Evict a live sequence back to the admit queue, dropping its
-        pages; generated tokens survive, so re-admission re-prefills
-        prompt+tokens and the request resumes where it left off."""
-        self.kv.drop_sequence(self._seq_id(r))
+    def _requeue_locked(self, slot: int, r: Request, why: str,
+                        *, drop_pages: bool = True) -> None:
+        """Evict a live sequence back to the admit queue; generated tokens
+        survive, so the request resumes where it left off.  With
+        ``drop_pages=False`` (paged batch kill) the sequence stays resident
+        and re-admission is a page-table edit; otherwise its pages (and
+        any partial chunked prefill) are released and re-admission
+        prefills prompt+tokens from scratch."""
+        if drop_pages:
+            self.kv.drop_sequence(self._seq_id(r))
+            self._chunk_progress.pop(self._seq_id(r), None)
+            self._chunk_carry.pop(self._seq_id(r), None)
         self.admission.slot_released(r.tenant)
         self._slots[slot] = None
         self._evictions += 1
@@ -801,10 +1020,124 @@ class ServingEngine:
         self._note(f"evict:{why}", r, f"slot={slot}")
         self.telemetry.count(f"serving.evict_{why}")
 
+    def kill_batch(self) -> int:
+        """Chaos: the decode batch dies mid-flight.  Every live slot's
+        request is requeued with its tokens intact; returns how many.
+        Dense mode drops the KV pages (the state dies with the batch);
+        paged mode keeps them, so the re-admitted sequence decodes on
+        without a prefill."""
+        with self._lock:
+            live = [(i, r) for i, r in enumerate(self._slots) if r is not None]
+            for i, r in live:
+                self._requeue_locked(
+                    i, r, "kill", drop_pages=self.kv_mode != "paged"
+                )
+            self._batch_kills += 1
+            self._note("kill_batch", None, f"evicted={len(live)}")
+        self.telemetry.count("serving.batch_kill")
+        self._exec.notify()
+        return len(live)
+
+    def evacuate(self) -> List[Request]:
+        """Tear this engine down: return every incomplete request, live
+        slots first (slot order), then the queues ((priority, deadline,
+        arrival) order), and drop every resident sequence, parked donors
+        included.  After this the engine is inert (``step()`` returns 0)
+        and the page ledger balances."""
+        with self._lock:
+            out: List[Request] = []
+            for i, r in enumerate(self._slots):
+                if r is None:
+                    continue
+                self.kv.drop_sequence(self._seq_id(r))
+                self.admission.slot_released(r.tenant)
+                self._slots[i] = None
+                self._evictions += 1
+                self._note("evict:evacuate", r, f"slot={i}")
+                out.append(r)
+            for tenant in sorted(self._queues):
+                heap = self._queues[tenant]
+                for _, _, _, r in sorted(heap):
+                    if not r.done:
+                        out.append(r)
+                        self._note("evacuate_queued", r)
+                heap.clear()
+            self._deadlines.clear()
+            self._parked.clear()
+            self._chunk_progress.clear()
+            self._chunk_carry.clear()
+            self._last_tok_t.clear()
+            for seq_id in self.kv.sequence_ids():
+                if self.kv.has_sequence(seq_id):
+                    self.kv.drop_sequence(seq_id)
+            self._live_ids.clear()
+            self.dead = True
+        self._exec.notify()
+        return out
+
+    def poison_live(self, index: int = 0) -> Optional[str]:
+        """Chaos: poison the ``index``-th live sequence's arena pages (live
+        ids sorted); the next :meth:`step` evicts it."""
+        with self._lock:
+            live = sorted(
+                self._seq_id(r) for r in self._slots if r is not None
+            )
+            if not live:
+                return None
+            victim = live[index % len(live)]
+            self.kv.poison_sequence(victim)
+            self._arena_poisons += 1
+            self._trace.append(
+                f"{self._exec.now():.6f} poison seq={victim}"
+            )
+        self.telemetry.count("serving.arena_poison")
+        return victim
+
+    def poison_shared(self, index: int = 0) -> Optional[str]:
+        """Chaos: poison the ``index``-th sequence whose pages are shared
+        (live slots and parked donors, sorted); the poison reaches every
+        co-mapper, so the whole sharing clique evicts.  None when nothing
+        is shared."""
+        with self._lock:
+            names = [
+                self._seq_id(r) for r in self._slots if r is not None
+            ] + [p for p in self._parked if self.kv.has_sequence(p)]
+            shared = sorted(
+                s for s in names if self.kv.sequence_shared(s)
+            )
+            if not shared:
+                return None
+            victim = shared[index % len(shared)]
+            self.kv.poison_sequence(victim)
+            self._arena_poisons += 1
+            self._trace.append(
+                f"{self._exec.now():.6f} poison_shared seq={victim}"
+            )
+        self.telemetry.count("serving.arena_poison")
+        return victim
+
+    def poison_prefilling(self, index: int = 0) -> Optional[str]:
+        """Chaos: poison the ``index``-th mid-prefill sequence (sorted):
+        its partial pages drop and the chunked prefill restarts from zero.
+        None when nothing is mid-prefill."""
+        with self._lock:
+            prefilling = sorted(self._chunk_progress)
+            if not prefilling:
+                return None
+            victim = prefilling[index % len(prefilling)]
+            self.kv.poison_sequence(victim)
+            self._arena_poisons += 1
+            self._trace.append(
+                f"{self._exec.now():.6f} poison_prefilling seq={victim}"
+            )
+        self.telemetry.count("serving.arena_poison")
+        return victim
+
     def _evict_poisoned(self) -> None:
         """A poisoned arena sequence (``kv.poison_sequence``) is corrupt by
-        definition: a slotted one is evicted and re-prefilled, a parked
-        donor is dropped."""
+        definition: a slotted one is evicted and re-prefilled (its pages
+        dropped, in paged mode too), and an evicted-but-resident or
+        parked one is dropped."""
         with self._lock:
             bad = self.kv.validate()
             if not bad:
@@ -818,6 +1151,8 @@ class ServingEngine:
             for seq_id in bad:
                 if seq_id not in slotted and self.kv.has_sequence(seq_id):
                     self.kv.drop_sequence(seq_id)
+                    self._chunk_progress.pop(seq_id, None)
+                    self._chunk_carry.pop(seq_id, None)
                     self._trace.append(
                         f"{self._exec.now():.6f} drop_resident seq={seq_id}"
                     )
@@ -842,8 +1177,7 @@ class ServingEngine:
             return sum(self._queue_depths_locked().values())
 
     def serving_stats(self) -> Dict[str, Any]:
-        """Snapshot with the reference's keys (the chaos and chunked
-        counters stay 0 until those paths are ported)."""
+        """Snapshot with the reference's keys."""
         with self._lock:
             return {
                 "queue_depth": self._queue_depths_locked(),
@@ -857,12 +1191,12 @@ class ServingEngine:
                 "tp_shards": self.tp_shards,
                 "prefill_sequences_total": dict(self._prefills),
                 "prefill_tokens_total": dict(self._prefill_tokens),
-                "batch_kill_total": 0,
+                "batch_kill_total": self._batch_kills,
                 "arena_poison_total": self._arena_poisons,
                 "evicted_total": self._evictions,
                 "kv_mode": self.kv_mode,
-                "resumed_total": 0,
-                "prefill_chunks_total": 0,
+                "resumed_total": self._resumes,
+                "prefill_chunks_total": self._prefill_chunks,
                 "sampled_tokens_total": dict(self._sampled),
                 "kv_pages_allocated_total": self.kv.pages_allocated,
                 "kv_pages_freed_total": self.kv.pages_freed,

@@ -1,0 +1,41 @@
+"""The port's serving launcher (``python -m repro_torch.launch.serve``) on
+the CPU: the reduced gemma2 config serves in dense mode under the default
+``--kv-mode auto``, and the reference's ``--no-incremental`` and
+``--kv-mode`` flags reach the engine."""
+
+import json
+import re
+
+import pytest
+
+from repro_torch.launch.serve import main
+
+
+def _serve(capsys, *flags):
+    main(["--reduced", "--device", "cpu", "--requests", "3",
+          "--new-tokens", "4", *flags])
+    out = capsys.readouterr().out
+    mode = re.search(r"kv_mode: (\w+)", out).group(1)
+    prefills = json.loads(re.search(r"prefills=(\{.*\})", out).group(1))
+    done = re.findall(r"\[serve\] req \d+ \[\w+\]: 4 tokens", out)
+    assert len(done) == 3, out
+    return mode, prefills
+
+
+@pytest.mark.parametrize("flags,mode,full", [
+    (("--arch", "gemma2-9b"), "dense", False),
+    (("--arch", "gemma2-9b", "--no-incremental"), "dense", True),
+    (("--arch", "qwen2.5-32b", "--kv-mode", "dense"), "dense", False),
+    (("--arch", "qwen2.5-32b"), "paged", False),
+])
+def test_launcher_serves_in_the_requested_mode(capsys, flags, mode, full):
+    got, prefills = _serve(capsys, *flags)
+    assert got == mode
+    assert (prefills["full"] > 0) == full
+    assert (prefills["incremental"] > 0) == (not full)
+
+
+def test_launcher_refuses_paged_mode_for_gemma2():
+    with pytest.raises(ValueError, match="does not support paged decode"):
+        main(["--arch", "gemma2-9b", "--reduced", "--device", "cpu",
+              "--kv-mode", "paged"])

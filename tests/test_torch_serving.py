@@ -140,26 +140,34 @@ def tiny_model():
 
 
 @pytest.mark.parametrize("option", [
-    dict(kv_mode="dense"), dict(incremental=False),
-    dict(prefill_chunk_tokens=8), dict(pool_watermark=1), dict(workers=2),
-    dict(heartbeat_timeout_s=1.0),
+    dict(pool_watermark=1), dict(workers=2), dict(heartbeat_timeout_s=1.0),
 ])
-def test_unported_server_options_raise(tiny_model, option):
+def test_unported_server_options_raise(option):
     # the Server options are no ServerConfig fields until Server is ported
-    if set(option) & {"pool_watermark", "workers", "heartbeat_timeout_s"}:
-        with pytest.raises(TypeError, match="unexpected keyword"):
-            ServerConfig(**option)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tiny_model, ServerConfig(**option))
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        ServerConfig(**option)
 
 
-@pytest.mark.parametrize("hook", ["kill_batch", "evacuate", "poison_live",
-                                  "poison_shared", "poison_prefilling"])
-def test_unported_chaos_hooks_raise(tiny_model, hook):
+@pytest.mark.parametrize("option,kv_mode", [
+    (dict(kv_mode="dense"), "dense"), (dict(incremental=False), "dense"),
+    (dict(prefill_chunk_tokens=8), "paged"),
+])
+def test_engine_options_are_accepted(tiny_model, option, kv_mode):
+    """Dense mode, the rebatching baseline and chunked prefill, which the
+    first slice refused, build the engine in the reference's mode."""
+    assert ServingEngine(tiny_model, ServerConfig(**option)).kv_mode == kv_mode
+
+
+@pytest.mark.parametrize("hook,idle", [
+    ("kill_batch", 0), ("evacuate", []), ("poison_live", None),
+    ("poison_shared", None), ("poison_prefilling", None)])
+def test_chaos_hooks_on_an_idle_engine(tiny_model, hook, idle):
+    """With nothing live each hook changes nothing and answers as the
+    reference's does (its effects are pinned against the reference in
+    ``test_torch_serving_chaos.py``)."""
     engine = ServingEngine(tiny_model, ServerConfig(max_seq=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(engine, hook)()
+    assert getattr(engine, hook)() == idle
+    assert engine.kv.pages_allocated == 0
 
 
 def test_unported_mesh_and_postprocess_raise(tiny_model):
@@ -172,11 +180,10 @@ def test_unported_mesh_and_postprocess_raise(tiny_model):
 
 
 def test_unpaged_model_is_refused():
-    """gemma2 (softcap, windows) cannot decode from pages, and the dense
-    engine mode it would need is not ported."""
+    """gemma2 (softcap, windows) cannot decode from pages: ``paged`` is
+    refused with the reference's ValueError, and ``auto`` serves it dense."""
     cfg = fp32_config("gemma2-9b", num_layers=2)
     model = TransformerLM(ArchConfig(**cfg.__dict__), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(model, ServerConfig())
+    assert ServingEngine(model, ServerConfig()).kv_mode == "dense"
     with pytest.raises(ValueError, match="paged"):
         ServingEngine(model, ServerConfig(kv_mode="paged"))

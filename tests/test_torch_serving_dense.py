@@ -2,8 +2,9 @@
 reference engine's.
 
 The reference engine serves its integer ``ToyLM`` in ``kv_mode="dense"``;
-the port's engine serves the torch twin (``helpers/torch_toy.py``), which
-has no paged interface, under ``kv_mode="auto"`` and ``"dense"``.  Both
+the port's engine serves the torch twin (``helpers/torch_toy.py``) with
+its paged interface hidden (``paged=False``), under ``kv_mode="auto"`` and
+``"dense"``.  Both
 take the same seeded multi-tenant workload (``helpers.serving.
 make_requests``: priorities, deadlines, sampled requests) on a
 ``SimExecutor`` of the same seed.  Integer state and integer logits make
@@ -16,12 +17,12 @@ import random
 
 import pytest
 from helpers.serving import make_engine, make_requests
+from helpers.torch_serving import make_port_engine, port_requests
 from helpers.torch_toy import TorchToyLM
 
 from repro.core.tasks import TenantQuota as JaxQuota
 from repro_torch.core.sim import SimExecutor as PortSim
-from repro_torch.core.tasks import TenantQuota
-from repro_torch.runtime import Request, ServerConfig, ServingEngine
+from repro_torch.runtime import ServerConfig, ServingEngine
 
 #: (seed, requests, sampled share, deadline share, alice's slot cap or
 #: None); the last two queue long enough for admit deadlines to expire
@@ -29,28 +30,14 @@ WORKLOADS = [(0, 10, 0.0, 0.15, None), (1, 12, 0.4, 0.15, None),
              (2, 30, 0.3, 0.6, 1), (3, 40, 0.5, 0.5, 2)]
 
 
-def _port_request(r) -> Request:
-    return Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens,
-                   request_id=r.request_id, tenant=r.tenant,
-                   priority=r.priority, deadline_s=r.deadline_s,
-                   temperature=r.temperature, top_k=r.top_k, top_p=r.top_p,
-                   seed=r.seed)
-
-
 def _serve(seed, n, sample_prob, deadline_prob, cap, kv_mode):
     reqs = make_requests(random.Random(seed), n, sample_prob=sample_prob,
                          deadline_prob=deadline_prob)
-    ref, _ = make_engine(seed, kv_mode="dense",
-                         quotas={"alice": JaxQuota(max_tasks_in_flight=cap)}
-                         if cap else None)
-    port = ServingEngine(
-        TorchToyLM(),
-        ServerConfig(max_batch=3, max_seq=48, tokens_per_page=4,
-                     step_time_s=0.01, kv_mode=kv_mode,
-                     quotas={"alice": TenantQuota(max_tasks_in_flight=cap)}
-                     if cap else None),
-        executor=PortSim(seed=seed))
-    port_reqs = [_port_request(r) for r in reqs]
+    quotas = {"alice": JaxQuota(max_tasks_in_flight=cap)} if cap else None
+    ref, _ = make_engine(seed, kv_mode="dense", quotas=quotas)
+    port, _ = make_port_engine(seed, kv_mode=kv_mode, quotas=quotas,
+                               model=TorchToyLM())
+    port_reqs = port_requests(reqs)
     for r in reqs:
         ref.submit(r)
     for r in port_reqs:
