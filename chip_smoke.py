@@ -10,15 +10,18 @@ prints no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: every kernel compiled from ``src/repro_torch/csrc`` by nvcc, with
-   each kernel's registers and spills from ptxas and, where the toolkit has
+   each kernel's registers and spills from ptxas (the flash kernel's bf16
+   route at head dim 256 must not spill) and, where the toolkit has
    ``cuobjdump``, the count of tensor-core instructions (``HGMMA`` from
-   wgmma, ``HMMA`` from mma.sync) in each kernel's SASS (the flash kernel's
-   and the chunked WKV6 kernels' bf16 routes must have some);
+   wgmma, ``HMMA`` from mma.sync) in each kernel's SASS (every head-dim
+   instance of the flash kernel's bf16 route and the chunked WKV6 kernels
+   must have some);
 3. kernels against their plain PyTorch versions at the serving paths'
    shapes, in bf16 and fp32, with times, bounds and the library yardstick:
    paged decode (K1), flash prefill (K2, also at gemma2's head dim 256 with
    its window and softcap, to 6000 tokens), WKV6 (K3), segment zero-fill
-   (K4).  WKV6 also runs on decays that RWKV6's own law gives (w =
+   (K4); K1 and K2 also at the reduced configs' head dims 8, 12 and 16,
+   which the bindings zero-pad to the 64-wide instance.  WKV6 also runs on decays that RWKV6's own law gives (w =
    exp(-exp(dec)), dec over [-8, 5], down to w = 0) and on runs of strong
    decays followed by weak ones inside a chunk, at ragged lengths and head
    sizes 16-128; and on a memory of thousands of tokens, logged against an
@@ -30,9 +33,10 @@ prints no result line):
    qwen2.5-32b (depth cut 64 -> 8 layers, random weights from a seeded
    generator), and the launch counts prove the path went through K1, K2;
 5. card against CPU: the same small fp32 models (a qwen-style transformer,
-   an RWKV6 and a gemma2 with heads of 256, a window and softcaps) serve
-   the same greedy requests on the card (kernels) and on the CPU (plain
-   versions);
+   an RWKV6 and a gemma2 with heads of 256, a window and softcaps, and the
+   reduced qwen2.5, gemma2 and starcoder2 configs at their own head dims
+   of 16 and 12) serve the same greedy requests on the card (kernels) and
+   on the CPU (plain versions);
 6. dense serving: ``ServingEngine`` serves 8 requests on rwkv6-3b at its
    full width and depth (32 layers), and the launch counts prove the path
    went through K3 and not K1 or K2; then the device time of one
@@ -41,7 +45,9 @@ prints no result line):
    gemma2-9b at its full width and depth (42 layers), every prefill layer
    through K2 at head dim 256 with its window and softcap, decode on the
    dense cache; the launch counts prove K2 ran once per prefill and layer
-   and K1, K3, K4 never;
+   and K1, K3, K4 never; then the device time of one 6000-token and one
+   2048-token prefill by kernel (K2, GEMMs, the rest) and its idle share
+   (``[gemma-prefill]`` lines);
 8. the engine's other prefill modes on phase 4's model: a 4000-token
    prompt admitted under three decoding requests with chunked prefill
    (512-token budget; paged, beside monolithic, and dense), and the
@@ -49,8 +55,12 @@ prints no result line):
 
 With all eight, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
-line.  ``--phases 1,2,3`` runs a subset and prints no result line.
-Imports nothing of JAX or of the reference package ``repro``.
+line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
+2, the kernels build at their first launch).  ``--src DIR`` imports
+``repro_torch`` from another checkout's ``src/``, so one call can run the
+same phases on a parent tree and on this one (``--phases 1,7 --src
+checkout/parent/src``).  Imports nothing of JAX or of the reference
+package ``repro``.
 """
 
 from __future__ import annotations
@@ -208,17 +218,61 @@ def phase_build() -> None:
     _build.load()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.build_seconds:.1f}s)")
-    for line in (lib.parent / "build.log").read_text().splitlines():
+    text = (lib.parent / "build.log").read_text()
+    for line in text.splitlines():
         if ("registers" in line or "spill" in line or line.startswith("==")
-                or "Compiling entry" in line or "wgmma" in line):
+                or "Compiling entry" in line or "wgmma" in line
+                or "setmaxnreg" in line or "warning" in line):
             log(f"[build] {line.strip()}")
+    check_register_use(ptxas_usage(text))
     log_tensor_core_instructions(lib)
 
 
-# tensor-core instructions each of these kernels' SASS must hold: the bf16
-# routes of the flash kernel (wgmma) and of the chunked WKV6 (mma.sync)
-TENSOR_CORE_KERNELS = {"flash_prefill_tc": "HGMMA",
+# tensor-core instructions each of these kernels' SASS must hold: every
+# instance of the flash kernel's bf16 route (wgmma; head dims 64, 128 and
+# 256) and the chunked WKV6 (mma.sync)
+TENSOR_CORE_KERNELS = {"flash_prefill_tcILi64E": "HGMMA",
+                       "flash_prefill_tcILi128E": "HGMMA",
+                       "flash_prefill_tcILi256E": "HGMMA",
                        "wkv6_chunk_state": "HMMA", "wkv6_chunk_out": "HMMA"}
+# kernels that must not spill: K2's bf16 route at head dim 256, whose
+# consumers hold O, S and P in the 240 registers `setmaxnreg` gives them
+NO_SPILL_KERNELS = {"flash_prefill_tcILi256E": "K2 bf16 hd 256"}
+
+
+def ptxas_usage(text: str) -> dict:
+    """Registers and spill bytes of each kernel from ``ptxas -v`` output:
+    {mangled name: {"registers", "spill_stores", "spill_loads"}}."""
+    usage = {}
+    name = None
+    for line in text.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("Compiling entry function '")[1].split("'")[0]
+            usage[name] = {}
+        elif name and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            usage[name]["spill_stores"] = int(
+                words[words.index("spill") - 2])
+            usage[name]["spill_loads"] = int(words[-4])
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            usage[name]["registers"] = int(words[words.index("Used") + 1])
+    return usage
+
+
+def check_register_use(usage: dict) -> None:
+    """Logs the registers and spills of ``NO_SPILL_KERNELS``; raises if one
+    is missing from the log or spills."""
+    for key, what in NO_SPILL_KERNELS.items():
+        found = [(n, u) for n, u in usage.items() if key in n]
+        if not found:
+            raise AssertionError(f"{what}: {key} not in the ptxas log")
+        for name, u in found:
+            log(f"[build] {what} ({name[:60]}...): {u.get('registers')} "
+                f"registers at entry, spill stores {u.get('spill_stores')} "
+                f"bytes, spill loads {u.get('spill_loads')} bytes")
+            if u.get("spill_stores") != 0 or u.get("spill_loads") != 0:
+                raise AssertionError(f"{what} spills: {u}")
 
 
 def log_tensor_core_instructions(lib: Path) -> None:
@@ -396,9 +450,65 @@ def check_flash() -> dict:
                     main = row
                 else:
                     hd256 = row
-    # gemma2/3's head dim, on the CUDA-core route: its numbers ride along
+    # gemma2/3's head dim, on the tensor cores: its numbers ride along
     main["hd256"] = hd256
     return main
+
+
+# the reduced configs' head dims under the kernels' smallest instance, which
+# the bindings zero-pad up to 64: (K, G) of qwen2.5-32b-smoke (1, 5) and of
+# starcoder2-7b-smoke (2, 3)
+SMALL_HD_PAGED = [(1, 5, 16), (1, 5, 8), (2, 3, 12), (2, 3, 16)]
+# (S, H, K, hd, window, cap): ragged lengths, gemma2-smoke's window 8 and
+# softcap 50
+SMALL_HD_FLASH = [(300, 5, 1, 16, 0, 0.0), (257, 10, 2, 8, 64, 50.0),
+                  (200, 6, 2, 12, 0, 30.0), (130, 4, 2, 16, 8, 50.0)]
+
+
+def check_small_head_dims() -> None:
+    """K1 and K2 at head dims 8, 12 and 16 (zero-padded to the 64-wide
+    instance and sliced back by the bindings) against their plain versions
+    at the real head dim, in bf16 and fp32."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for K, G, hd in SMALL_HD_PAGED:
+            q, kp, vp, table, lens = _paged_case(4, K, G, hd, 16, dtype,
+                                                 seed=hd + G)
+            scale = hd ** -0.5
+            out = paged_attention(q, kp, vp, table, lens, scale=scale)
+            ref = paged_attention_ref(q, kp, vp, table, lens, scale=scale)
+            what = (f"paged_attention {str(dtype)[6:]} B=4 K={K} G={G} "
+                    f"hd={hd}")
+            if out.shape != q.shape:
+                raise AssertionError(f"{what}: shape {tuple(out.shape)}")
+            err, share = compare(out, ref, dtype, what)
+            if not torch.equal(out[1], torch.zeros_like(out[1])):
+                raise AssertionError(f"{what}: dead row is not 0")
+            log(f"[small-hd] {what} (padded to 64): max|err|={err:.3g} "
+                f"({share:.3f} x {tol_str(dtype)}), dead row 0")
+        for S, H, K, hd, window, cap in SMALL_HD_FLASH:
+            g = torch.Generator("cuda").manual_seed(S + hd)
+            G = H // K
+            q = torch.randn((1, S, K, G, hd), generator=g,
+                            device="cuda").to(dtype)
+            k = torch.randn((1, S, K, hd), generator=g, device="cuda").to(dtype)
+            v = torch.randn((1, S, K, hd), generator=g, device="cuda").to(dtype)
+            scale = hd ** -0.5
+            out = flash_attention(q, k, v, window=window, scale=scale,
+                                  logit_cap=cap, causal=True)
+            ref = flash_attention_ref(q.reshape(1, S, H, hd), k, v, window,
+                                      scale=scale, logit_cap=cap, causal=True)
+            what = (f"flash_attention {str(dtype)[6:]} S={S} H={H} K={K} "
+                    f"hd={hd} window={window} cap={cap}")
+            if out.shape != q.shape:
+                raise AssertionError(f"{what}: shape {tuple(out.shape)}")
+            err, share = compare(out.reshape(1, S, H, hd), ref, dtype, what)
+            log(f"[small-hd] {what} (padded to 64): max|err|={err:.3g} "
+                f"({share:.3f} x {tol_str(dtype)})")
 
 
 # gemma2-9b's attention (16 q / 8 kv heads of 256): global, and its window
@@ -879,6 +989,68 @@ def phase_card_vs_cpu() -> None:
         f"(tol 1e-3), greedy streams equal: {streams['cuda']}")
     _card_vs_cpu_rwkv()
     _card_vs_cpu_gemma2()
+    _card_vs_cpu_reduced()
+
+
+# the reduced configs as the launcher's ``--reduced`` serves them, head dims
+# under the kernels' smallest instance: (arch, engine mode)
+REDUCED_ARMS = [("qwen2.5-32b", "paged"), ("gemma2-9b", "dense"),
+                ("starcoder2-7b", "paged")]
+
+
+def _card_vs_cpu_reduced() -> None:
+    """qwen2.5-32b-smoke (paged: K1 and K2 at head dim 16, 5 q heads over
+    1), gemma2-9b-smoke (dense: K2 at head dim 16 with its window of 8 and
+    softcap of 50) and starcoder2-7b-smoke (paged: K1 and K2 at head dim
+    12, 3 q heads over each of 2) at their own widths, fp32: greedy streams
+    of prompts past the window equal on the card (through the bindings'
+    zero-pad to the 64-wide instances) and on the CPU, and the card's
+    launches counted."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Request, ServerConfig, ServingEngine
+
+    counters = _launch_counters()
+    for arch, mode in REDUCED_ARMS:
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        cpu = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(4))
+        gpu = build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(12)
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+                   for n in (5, 23, 40, 11)]
+        streams = {}
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            eng = ServingEngine(model, ServerConfig(max_batch=2, max_seq=64))
+            if eng.kv_mode != mode:
+                raise AssertionError(f"{arch} served in {eng.kv_mode} mode")
+            reqs = [Request(prompt=p, max_new_tokens=8, request_id=i)
+                    for i, p in enumerate(prompts)]
+            for fn in counters.values():
+                fn.launches = 0
+            for r in reqs:
+                eng.submit(r)
+            eng.drain()
+            launches = {n: fn.launches for n, fn in counters.items()}  # card's last
+            if any(r.error for r in reqs):
+                raise AssertionError(f"{arch} on {name}: "
+                                     f"{[r.error for r in reqs]}")
+            streams[name] = [r.tokens for r in reqs]
+        want_paged = mode == "paged"
+        if not launches["flash_attention"] or \
+                bool(launches["paged_attention"]) != want_paged:
+            raise AssertionError(f"{arch} on the card launched {launches}")
+        if streams["cpu"] != streams["cuda"]:
+            raise AssertionError(
+                f"card vs CPU {arch}-smoke greedy streams differ: {streams}")
+        log(f"[card-vs-cpu] {cfg.arch_id} fp32 at its own widths "
+            f"({cfg.num_layers} layers, hd {cfg.hd}, H={cfg.num_heads} "
+            f"K={cfg.num_kv_heads}, window {cfg.local_window}, softcap "
+            f"{cfg.attn_logit_softcap}), {mode} mode: greedy streams equal "
+            f"{streams['cuda']}; card launches flash_attention "
+            f"{launches['flash_attention']}, paged_attention "
+            f"{launches['paged_attention']}")
 
 
 def _card_vs_cpu_gemma2() -> None:
@@ -1034,7 +1206,8 @@ def phase_rwkv_serving() -> dict:
         f"segment_zero 0")
     _log_timings("rwkv", run, peak, " [full depth]")
     profile_decode(engine, cfg, "rwkv-profile")
-    profile_prefill(model, cfg)
+    profile_prefill(model, cfg, "rwkv-prefill", ("K3 (wkv6)", "wkv6"),
+                    T=2048, max_seq=4096)
     return launches
 
 
@@ -1042,18 +1215,20 @@ def phase_rwkv_serving() -> dict:
 GEMM_KERNEL_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def profile_prefill(model, cfg, T: int = 2048) -> None:
+def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
+                    max_seq: int) -> None:
     """The device time of one T-token prefill (B=1, as the dense engine
-    runs it) by kernel: K3, the GEMMs and the rest, with its idle share.
-    CUDA events and the host clock around one prefill without the
-    profiler, then ``torch.profiler`` around another; after the launch
+    runs it, into a cache of ``max_seq``) by kernel: ``kernel`` = (label,
+    substring of its CUDA kernels' names), the GEMMs and the rest, with its
+    idle share.  CUDA events and the host clock around one prefill without
+    the profiler, then ``torch.profiler`` around another; after the launch
     counts were read."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     rng = np.random.default_rng(11)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (1, T)).astype(np.int32)).cuda()
-    run = lambda: model.prefill(tokens, max_seq=4096)
+    run = lambda: model.prefill(tokens, max_seq=max_seq)
     run()                                      # same shapes: warm
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1082,28 +1257,29 @@ def profile_prefill(model, cfg, T: int = 2048) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0
             and not e.key.startswith("ProfilerStep")]
-    log(f"[rwkv-prefill] one {T}-token prefill, B=1, {cfg.num_layers} "
-        f"layers: wall {wall_ms:.2f} ms, CUDA events first launch to last "
-        f"end {span_ms:.2f} ms (no profiler)")
+    log(f"[{tag}] one {T}-token prefill, B=1, {cfg.num_layers} layers: "
+        f"wall {wall_ms:.2f} ms, CUDA events first launch to last end "
+        f"{span_ms:.2f} ms (no profiler)")
     if not rows:
-        log("[rwkv-prefill] the profiler saw no device time: breakdown not "
+        log(f"[{tag}] the profiler saw no device time: breakdown not "
             "measured")
         return
-    groups = {"K3 (wkv6)": [0.0, 0], "GEMMs": [0.0, 0], "the rest": [0.0, 0]}
-    for ms, key, count in rows:
-        name = ("K3 (wkv6)" if "wkv6" in key else
-                "GEMMs" if any(x in key.lower() for x in GEMM_KERNEL_KEYS)
-                else "the rest")
-        groups[name][0] += ms
-        groups[name][1] += count
+    label, key = kernel
+    groups = {label: [0.0, 0], "GEMMs": [0.0, 0], "the rest": [0.0, 0]}
+    for ms, name, count in rows:
+        group = (label if key in name else
+                 "GEMMs" if any(x in name.lower() for x in GEMM_KERNEL_KEYS)
+                 else "the rest")
+        groups[group][0] += ms
+        groups[group][1] += count
     busy_ms = sum(r[0] for r in rows)
-    log(f"[rwkv-prefill] profiler on: wall {prof_wall_ms:.2f} ms, device "
+    log(f"[{tag}] T={T} profiler on: wall {prof_wall_ms:.2f} ms, device "
         f"busy {busy_ms:.3f} ms ({100 * busy_ms / prof_wall_ms:.1f}% of "
         f"wall), idle {100 * (1 - busy_ms / prof_wall_ms):.1f}%; "
         + ", ".join(f"{name} {ms:.3f} ms x{n} ({100 * ms / busy_ms:.1f}%)"
                     for name, (ms, n) in groups.items()))
-    for ms, key, count in sorted(rows, reverse=True)[:10]:
-        log(f"[rwkv-prefill]   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    for ms, name, count in sorted(rows, reverse=True)[:10]:
+        log(f"[{tag}]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
 
 
 # --------------------------------------------------------------- phase 7
@@ -1165,6 +1341,10 @@ def phase_gemma_serving() -> dict:
         f"paged_attention 0, wkv6 0, segment_zero 0")
     _log_timings("gemma", run, peak, " [full depth]")
     profile_decode(engine, cfg, "gemma-profile")
+    # K2's share of a prefill: the longest prompt of the run and a shorter one
+    for T in (6000, 2048):
+        profile_prefill(model, cfg, "gemma-prefill",
+                        ("K2 (flash)", "flash_prefill"), T=T, max_seq=8192)
     return launches
 
 
@@ -1309,21 +1489,28 @@ def phase_chunked_and_rebatching() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="where to import repro_torch from (another "
+                         "checkout's src/, to run its kernels and models "
+                         "under these phases)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    log(f"[smoke] repro_torch from {Path(repro_torch.__file__).parent}")
     phase_device()
-    phase_build()
+    if 2 in phases:          # otherwise the kernels build at first launch
+        phase_build()
     results = {}
     if 3 in phases:
         results["paged_attention"] = check_paged()
         results["flash_attention"] = check_flash()
+        check_small_head_dims()
         results["wkv6"] = check_wkv6()
         results["segment_zero"] = check_segment_zero()
     # each kernel's launches, summed over the paths that run it (K1:

@@ -25,12 +25,13 @@
 //   * Q, K and V come in by TMA through 4-D tensor maps over the model's
 //     own layout (HD, heads, S, B): kv head h / G is a coordinate, a ragged
 //     tail is zero-filled by the hardware and then masked.  A 128-byte
-//     swizzled box is at most 64 bf16 wide, so a 128-wide head is two boxes
-//     and the wgmma descriptors step over them as consecutive K-blocks;
-//   * K/V tiles of 64 rows run through a ring of 3 stages: one producer
-//     warp issues the loads as stages come free (a "full" and an "empty"
-//     mbarrier per stage), so the two warpgroups never meet at a block
-//     barrier and drift apart, one's softmax overlapping the other's wgmma;
+//     swizzled box is at most 64 bf16 wide, so a row of HD is HD / 64
+//     boxes and the wgmma descriptors step over them as consecutive
+//     K-blocks (Q K^T) or N-blocks (P V);
+//   * K/V tiles of 64 rows run through a ring of stages: a producer issues
+//     the loads as stages come free (a "full" and an "empty" mbarrier per
+//     stage), so the two warpgroups never meet at a block barrier and
+//     drift apart, one's softmax overlapping the other's wgmma;
 //   * S = Q K^T by wgmma (bf16 in, fp32 accumulate; products of bf16 are
 //     exact in fp32).  `scale` multiplies the fp32 S, never bf16 q: hd^-0.5
 //     is not a power of two, and rounding q * scale to bf16 would change the
@@ -47,7 +48,19 @@
 //     loaded, and a warpgroup skips the tiles none of its rows can see;
 //     masks are applied only on tiles that straddle a boundary;
 //   * the output, acc / max(l, 1e-30) rounded once to bf16, is staged in
-//     shared memory and stored as 16-byte vectors.
+//     the warpgroup's own Q region (free once its last wgmma is done; 16-byte
+//     chunks XOR-swizzled by row, so neither side conflicts on banks) and
+//     stored as 16-byte vectors.
+// Two plans of the same kernel (`Plan<HD>`):
+//   * head dims 64 and 128: a 3-stage ring fed by one producer warp;
+//   * head dim 256 (gemma2/3): a consumer thread holds O (64 x 256 fp32 over
+//     a warpgroup: 128 registers), S (32) and P_hi/P_lo (32), past the ~170
+//     registers a thread of 384 gets at launch.  So the producer is a whole
+//     warpgroup that gives its registers away (`setmaxnreg.dec` to 24) and
+//     the consumers take them (`setmaxnreg.inc` to 240: 2 x 128 x 240 +
+//     128 x 24 = 64,512 of the SM's 65,536).  A 64 x 256 bf16 tile is 32
+//     KB, so Q (2 x 32 KB) and a 2-stage K/V ring (4 x 32 KB) fill 192 KB
+//     of the 227 KB a block may have; P V is one m64n256k16 per K-step.
 //
 // fp32 (`flash_prefill_kernel`): the tensor cores would reach fp32 only
 // through TF32, a different function, so this route runs both contractions
@@ -55,25 +68,23 @@
 //   * one block per (q tile of 32 rows, q head, batch); the TPU grid's
 //     sequential KV axis, which carried the softmax state in VMEM scratch,
 //     becomes a loop inside the block that carries (m, l, acc) in registers;
-//   * each KV tile is staged once in shared memory as fp32 and serves all 32
-//     query rows of the block;
+//   * each KV tile is staged once in shared memory and serves all 32 query
+//     rows of the block;
 //   * 8 threads share one query row, each owning dims d = c + 8*i, so the
 //     shared-memory reads of a KV row hit 8 distinct banks and broadcast
 //     across the 4 rows of a warp; the 8 partial dot products reduce with 3
-//     shuffles.
-//   * head dim 256 (gemma2/3), in fp32 and in bf16: the same kernel with KV
-//     tiles of 16 rows, so the fp32 K/V tiles stay at 32 KB of static shared
-//     memory (32 rows would need 64 KB, past the 48 KB static limit) and a
-//     thread holds 32 dims of q and of the accumulator.  bf16 inputs are
-//     converted to fp32 as they are staged and the output rounded once.  The
-//     tensor-core route is built for head dims 64 and 128 only.
+//     shuffles;
+//   * KV tiles of 32 rows, and of 16 at head dim 256 (gemma2/3), so the K/V
+//     tiles stay at 32 KB of static shared memory (32 rows would need 64
+//     KB, past the 48 KB static limit).
 //
 // Both routes: softcap is applied before the mask, masked scores are the
 // finite -2e38 of the reference, masked probabilities are exactly 0, and
 // the output is acc / max(l, 1e-30).  A ragged tail (Sq or Sk not a
 // multiple of the tiles) is masked, so prompts of any length prefill; the
 // TPU version asserts divisibility instead, and both compute the same
-// function wherever both are defined.
+// function wherever both are defined.  Head dims 64, 128 and 256 have
+// instances; the Python binding zero-pads a smaller head dim up to one.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -91,24 +102,11 @@ constexpr int kBQ = 32;            // query rows per block
 constexpr int kSplit = 8;          // threads per query row
 constexpr int kThreads = kBQ * kSplit;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // kBK: kv rows per tile (32, and 16 at head dim 256)
-template <typename T, int HD, int kBK>
+template <int HD, int kBK>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int Sq,
+flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out, int Sq,
                      int Sk, int K, int G, int window, float scale,
                      float logit_cap, int causal) {
   constexpr int kDims = HD / kSplit;  // dims owned by one thread
@@ -133,7 +131,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_off = (((size_t)b * Sq + qi) * H + h) * HD;
 #pragma unroll
   for (int i = 0; i < kDims; ++i) {
-    qv[i] = q_valid ? to_float(q[q_off + c + kSplit * i]) * scale : 0.f;
+    qv[i] = q_valid ? q[q_off + c + kSplit * i] * scale : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf;
@@ -144,8 +142,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const size_t kv_row = (size_t)K * HD;
-  const T* kb = k + (size_t)b * Sk * kv_row + (size_t)kh * HD;
-  const T* vb = v + (size_t)b * Sk * kv_row + (size_t)kh * HD;
+  const float* kb = k + (size_t)b * Sk * kv_row + (size_t)kh * HD;
+  const float* vb = v + (size_t)b * Sk * kv_row + (size_t)kh * HD;
 
   for (int j0 = (k_lo / kBK) * kBK; j0 < k_hi; j0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
@@ -153,8 +151,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = idx / HD;
       const int d = idx % HD;
       const bool in = j0 + j < Sk;
-      k_s[j][d] = in ? to_float(kb[(size_t)(j0 + j) * kv_row + d]) : 0.f;
-      v_s[j][d] = in ? to_float(vb[(size_t)(j0 + j) * kv_row + d]) : 0.f;
+      k_s[j][d] = in ? kb[(size_t)(j0 + j) * kv_row + d] : 0.f;
+      v_s[j][d] = in ? vb[(size_t)(j0 + j) * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -199,7 +197,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < kDims; ++i) {
-      out[q_off + c + kSplit * i] = from_float<T>(acc[i] / denom);
+      out[q_off + c + kSplit * i] = acc[i] / denom;
     }
   }
 }
@@ -212,26 +210,31 @@ constexpr int kRows = 64;                  // query rows of a warpgroup
 constexpr int kGroups = 2;                 // consumer warpgroups
 constexpr int kBQ = kRows * kGroups;       // query rows of a block
 constexpr int kBK = 64;                    // kv rows of a tile
-constexpr int kStages = 3;                 // K/V tiles in flight
 constexpr int kConsumers = 128 * kGroups;  // threads of the warpgroups
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kBoxBytes = 64 * 128;        // one TMA box: 64 rows x 128 bytes
 constexpr float kLog2e = 1.4426950408889634f;
+// registers a thread keeps after `setmaxnreg` where the producer is a whole
+// warpgroup: 2 x 128 x 240 + 128 x 24 = 64,512 <= 65,536
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
-// Dynamic shared memory of the block, in bytes from a 1024-aligned base
-// (the 128-byte swizzle repeats every 1024 bytes).
+// The plan of the block at head dim HD, and its dynamic shared memory in
+// bytes from a 1024-aligned base (the 128-byte swizzle repeats every 1024
+// bytes).  Each warpgroup's Q region later stages its output.
 template <int HD>
-struct Smem {
+struct Plan {
+  static constexpr bool kProducerGroup = HD == 256;  // a warpgroup, not a warp
+  static constexpr int kStages = kProducerGroup ? 2 : 3;  // K/V tiles in flight
+  static constexpr int kThreads = kConsumers + (kProducerGroup ? 128 : 32);
   static constexpr int kHalves = HD / 64;            // boxes across a row
   static constexpr int kTile = kHalves * kBoxBytes;  // 64 rows of one tensor
-  static constexpr int kOStride = HD + 8;            // staged output row, bf16
   static constexpr int q = 0;                        // [group][half] boxes
   static constexpr int k = q + kGroups * kTile;      // [stage][half]
   static constexpr int v = k + kStages * kTile;      // [stage][half]
-  static constexpr int o = v + kStages * kTile;      // [group][row][kOStride]
   // mbarriers: Q loaded, K/V stage full, K/V stage empty
-  static constexpr int bar = o + kGroups * kRows * kOStride * 2;
+  static constexpr int bar = v + kStages * kTile;
   static constexpr int bytes = bar + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(bytes <= 232448, "past the shared memory of a block");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -314,6 +317,17 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// hand registers back to the SM's pool, or take them from it, for the
+// whole warpgroup (every thread of it executes the instruction)
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // Keep the compiler from moving register reads or writes of a wgmma
@@ -417,6 +431,66 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "r"(1));
 }
 
+// D (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, smem, N-major)
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
+}
+
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
                                          const uint32_t (&a)[4],
@@ -433,6 +507,12 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               uint64_t desc_v) {
   wgmma_m64n128k16_rs(o, a, desc_v);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_v) {
+  wgmma_m64n256k16_rs(o, a, desc_v);
+}
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
@@ -442,15 +522,16 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 // for each 8-column chunk i, elements 4i + r at row 16 * (t / 32) +
 // (t % 32) / 4 + 8 * (r >> 1) and column 8i + 2 * (t % 4) + (r & 1).
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Plan<HD>::kThreads, 1)
 flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tk,
                  __grid_constant__ const CUtensorMap tv,
                  __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
                  int G, int window, float scale, float logit_cap,
                  int causal) {
-  using L = Smem<HD>;
+  using L = Plan<HD>;
   constexpr int kHalves = L::kHalves;
+  constexpr int kStages = L::kStages;
   constexpr int kSteps = HD / 16;          // K-steps of Q K^T
   constexpr int kPSteps = kBK / 16;        // K-steps of P V
   extern __shared__ uint8_t smem_raw[];
@@ -494,8 +575,11 @@ flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
   }
   __syncthreads();
 
+  // two roles that never meet again: `setmaxnreg` needs each warpgroup's
+  // path to be known from here to the end
   if (tid >= kConsumers) {
-    // producer warp: Q, then every K/V tile as soon as its stage is empty
+    if constexpr (L::kProducerGroup) regs_dec<kProducerRegs>();
+    // producer: Q, then every K/V tile as soon as its stage is empty
     if (tid == kConsumers) {
       const int groups = q0 + kRows < Sq ? 2 : 1;  // a group past Sq loads none
       mbar_expect_tx(bar_q, groups * L::kTile);
@@ -517,6 +601,7 @@ flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
     }
     return;
   }
+  if constexpr (L::kProducerGroup) regs_inc<kConsumerRegs>();
 
   float o[HD / 2];
 #pragma unroll
@@ -658,14 +743,17 @@ flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
+  // the output through the group's Q region, which its last wgmma has
+  // read: row r's 16-byte chunk c at chunk c ^ (r % 8), so the fragment's
+  // 8 rows of a store and the vector reads of a row hit distinct banks
   __nv_bfloat16* stage_o =
-      reinterpret_cast<__nv_bfloat16*>(gbase + L::o) + grp * kRows * L::kOStride;
+      reinterpret_cast<__nv_bfloat16*>(gbase + L::q + grp * L::kTile);
 #pragma unroll
   for (int e = 0; e < HD / 2; e += 2) {
     const int r = (e >> 1) & 1;
     const int row = warp * 16 + lane / 4 + 8 * r;
-    const int col = 8 * (e >> 2) + 2 * quad;
-    *reinterpret_cast<__nv_bfloat162*>(stage_o + row * L::kOStride + col) =
+    const int col = 8 * ((e >> 2) ^ (row & 7)) + 2 * quad;
+    *reinterpret_cast<__nv_bfloat162*>(stage_o + row * HD + col) =
         __floats2bfloat162_rn(o[e] / l[r], o[e + 1] / l[r]);
   }
   asm volatile("bar.sync %0, 128;\n" :: "r"(grp + 1) : "memory");
@@ -677,7 +765,8 @@ flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
     if (qi < Sq) {
       *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * H + h) * HD +
                                 c * 8) =
-          *reinterpret_cast<const uint4*>(stage_o + row * L::kOStride + c * 8);
+          *reinterpret_cast<const uint4*>(stage_o + row * HD +
+                                          8 * (c ^ (row & 7)));
     }
   }
 }
@@ -732,11 +821,12 @@ template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int K, int G, int window, float scale,
            float logit_cap, int causal, cudaStream_t stream) {
+  using L = Plan<HD>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_prefill_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Smem<HD>::bytes);
+        L::bytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
@@ -746,7 +836,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid(K * G, B, (Sq + kBQ - 1) / kBQ);
-  flash_prefill_tc<HD><<<grid, kThreads, Smem<HD>::bytes, stream>>>(
+  flash_prefill_tc<HD><<<grid, L::kThreads, L::bytes, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, Sq, Sk, K * G, G, window, scale,
       logit_cap, causal);
   return (int)cudaGetLastError();
@@ -754,21 +844,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace tc
 
-template <typename T, int HD, int kBK>
+template <int HD, int kBK>
 void launch_cc(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int K, int G, int window, float scale,
                float logit_cap, int causal, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, K * G, B);
-  flash_prefill_kernel<T, HD, kBK><<<grid, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, K, G, window,
-      scale, logit_cap, causal);
+  flash_prefill_kernel<HD, kBK><<<grid, kThreads, 0, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
+      K, G, window, scale, logit_cap, causal);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (every pointer 16-byte
-// aligned; the tensor-core route at hd 64 and 128, the CUDA-core route at
-// 256); hd in {64, 128, 256} (the Python wrapper checks all three).  Returns
+// dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core route;
+// every pointer 16-byte aligned); hd in {64, 128, 256} (the Python wrapper
+// pads a smaller head dim up to one of them and checks the rest).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
@@ -780,14 +870,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     if (hd == 64) {
-      launch_cc<float, 64, 32>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                               logit_cap, causal, s);
+      launch_cc<64, 32>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                        logit_cap, causal, s);
     } else if (hd == 128) {
-      launch_cc<float, 128, 32>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                                logit_cap, causal, s);
+      launch_cc<128, 32>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                         logit_cap, causal, s);
     } else {
-      launch_cc<float, 256, 16>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                                logit_cap, causal, s);
+      launch_cc<256, 16>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                         logit_cap, causal, s);
     }
     return (int)cudaGetLastError();
   }
@@ -795,13 +885,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   const uintptr_t align = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                           (uintptr_t)out;
   if (align % 16) return (int)cudaErrorMisalignedAddress;
-  if (hd == 256) {
-    launch_cc<__nv_bfloat16, 256, 16>(q, k, v, out, B, Sq, Sk, K, G, window,
-                                      scale, logit_cap, causal, s);
-    return (int)cudaGetLastError();
+  if (hd == 64) {
+    return tc::launch<64>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                          logit_cap, causal, s);
   }
-  return hd == 64 ? tc::launch<64>(q, k, v, out, B, Sq, Sk, K, G, window,
-                                   scale, logit_cap, causal, s)
-                  : tc::launch<128>(q, k, v, out, B, Sq, Sk, K, G, window,
-                                    scale, logit_cap, causal, s);
+  if (hd == 128) {
+    return tc::launch<128>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                           logit_cap, causal, s);
+  }
+  return tc::launch<256>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
+                         logit_cap, causal, s);
 }

@@ -4,7 +4,9 @@ The kernel itself is ``src/repro_torch/csrc/paged_attention.cu``; it
 replaces the reference's Pallas TPU kernel ``paged_attention_pallas``.
 This module checks what the kernel takes, allocates the output and the
 split-KV scratch and launches on PyTorch's current stream; it never falls
-back to the plain version.
+back to the plain version.  The kernel has instances at head dims 64 and
+128; a smaller head dim is zero-padded up to the next one and the output
+sliced back (``head_dim_instance`` of the flash binding).
 """
 
 from __future__ import annotations
@@ -12,8 +14,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
+from ..flash_attention.flash_attention import head_dim_instance
 
 __all__ = ["paged_attention_cuda", "scratch_shape", "split_pages"]
 
@@ -27,6 +31,8 @@ SPLIT_ROWS = 256
 #: device type the kernel runs on (a module constant, so a test can point
 #: the dispatch at another device type with the loader mocked)
 KERNEL_DEVICE = "cuda"
+#: head dims the kernel has an instance for
+INSTANCES = (64, 128)
 
 
 def split_pages(page_size: int) -> int:
@@ -57,10 +63,11 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lens, *, scale):
         raise ValueError(
             "paged_attention kernel takes float32 or bfloat16 q/k/v of one "
             f"dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    if hd not in (64, 128) or hd_k != hd or v_pages.shape != k_pages.shape:
+    if hd > INSTANCES[-1] or hd_k != hd or v_pages.shape != k_pages.shape:
         raise ValueError(
-            f"paged_attention kernel takes head dim 64 or 128 with matching "
-            f"pages, got q {tuple(q.shape)}, pages {tuple(k_pages.shape)}")
+            f"paged_attention kernel takes head dims up to {INSTANCES[-1]} "
+            f"with matching pages, got q {tuple(q.shape)}, pages "
+            f"{tuple(k_pages.shape)}")
     if KG % K or not 1 <= KG // K <= MAX_G:
         raise ValueError(
             f"paged_attention kernel takes 1..{MAX_G} query heads per kv "
@@ -75,16 +82,22 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lens, *, scale):
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         # the kernel reads each lane's slice of a row as one vector load
         raise ValueError("paged_attention kernel takes 16-byte aligned pages")
+    inst = head_dim_instance(hd, INSTANCES)
+    if inst != hd:
+        # only the reduced configs reach this (no published config has a
+        # head dim under 64): the whole page pool is copied on every call
+        q, k_pages, v_pages = (F.pad(t, (0, inst - hd))
+                               for t in (q, k_pages, v_pages))
     W = page_table.shape[1]
     out = torch.empty_like(q)
-    part = torch.empty(scratch_shape(B, K, KG // K, hd, page_size, W),
+    part = torch.empty(scratch_shape(B, K, KG // K, inst, page_size, W),
                        dtype=torch.float32, device=dev)
     fn = _build.kernel("repro_paged_attention", _ARGS)
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 page_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                part.data_ptr(), B, K, KG // K, hd, page_size, W,
+                part.data_ptr(), B, K, KG // K, inst, page_size, W,
                 part.shape[2], float(scale), _DTYPES[q.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "repro_paged_attention")
-    return out
+    return out if inst == hd else out[..., :hd].contiguous()

@@ -6,7 +6,8 @@ run.  They are not a second plain version of any kernel; the package's
 plain versions are the ``ref.py`` modules.
 
 * :func:`flash_tc_emul` follows the bf16 tensor-core route of
-  ``csrc/flash_attention.cu``: 64-row KV tiles in order, S = Q K^T of bf16
+  ``csrc/flash_attention.cu``: KV tiles of ``BK`` = 64 rows in order (the
+  route's tile rows at every head dim, 256 included), S = Q K^T of bf16
   values summed in fp32, the scale applied to fp32 S (inside the exponent
   when there is no softcap), masks, an online softmax in fp32 in base 2,
   and P V as P_hi V + P_lo V with P_hi = bf16(p), P_lo = bf16(p - P_hi)
@@ -38,7 +39,7 @@ import torch
 
 NEG_INF = -2.0e38
 LOG2E = 1.4426950408889634
-BK = 64                 # kv rows of a tile (flash)
+BK = 64                 # kv rows of a tile (flash, every head dim)
 SPLIT_ROWS = 256        # rows of logical pages of a split (paged)
 WARPS = 8               # warps of a block (paged)
 WKV_CHUNK = 64          # tokens of a chunk (wkv6)
@@ -286,7 +287,8 @@ def _tol_shares():
 
     atol, rtol = TOL[torch.bfloat16]
     for S, hd, window, cap in ((64, 64, 0, 0.0), (200, 128, 0, 0.0),
-                               (200, 64, 32, 30.0), (2048, 128, 0, 0.0)):
+                               (200, 64, 32, 30.0), (2048, 128, 0, 0.0),
+                               (200, 256, 48, 50.0)):
         rng = np.random.default_rng(S + hd)
         mk = lambda *shape: torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).bfloat16()

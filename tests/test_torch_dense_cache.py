@@ -219,7 +219,8 @@ def test_flash_plain_hd256_matches_reference_kernel(window, cap):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_binding_takes_head_dim_256(dtype, monkeypatch):
     """The binding passes head dim 256 on to the kernel (it refused it
-    before: gemma2/3 could not prefill on the card); 96 is still refused."""
+    before: gemma2/3 could not prefill on the card); past 256, the largest
+    instance, it refuses."""
     def loader(*_a, **_k):
         raise RuntimeError("kernel loader called")
 
@@ -230,10 +231,10 @@ def test_flash_binding_takes_head_dim_256(dtype, monkeypatch):
     with pytest.raises(RuntimeError, match="kernel loader called"):
         fa_bind.flash_attention_cuda(q, k, k, 64, scale=0.0625,
                                      logit_cap=50.0)
+    wide_q = torch.zeros((1, 8, 4, 320), dtype=dtype)
+    wide_k = torch.zeros((1, 8, 2, 320), dtype=dtype)
     with pytest.raises(ValueError, match="head dim"):
-        fa_bind.flash_attention_cuda(q[..., :96].contiguous(),
-                                     k[..., :96].contiguous(),
-                                     k[..., :96].contiguous(), 0, scale=0.1)
+        fa_bind.flash_attention_cuda(wide_q, wide_k, wide_k, 0, scale=0.1)
 
 
 # ---------------------------------------------------- the dense engine mode

@@ -73,9 +73,14 @@ def _within_tol(out, ref, dtype=torch.bfloat16):
     (200, 64, 0, 30.0),
     (200, 128, 0, 0.0),
     (200, 128, 48, 50.0),
+    (200, 256, 0, 0.0),
+    (200, 256, 48, 50.0),
+    (197, 256, 130, 30.0),
 ])
 def test_flash_tensor_core_arithmetic_matches_reference(S, hd, window, cap):
-    """Tiles of 64 rows (S=200 leaves a ragged tail), bf16 in and out."""
+    """Tiles of 64 rows at every head dim, gemma's 256 included (S=200 and
+    197 leave a ragged tail; a window of 130 spans three tiles), bf16 in
+    and out."""
     rng = np.random.default_rng(S * hd + window)
     K, G = 2, 3
     q = rng.standard_normal((1, S, K * G, hd)).astype(np.float32)
