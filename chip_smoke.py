@@ -11,21 +11,26 @@ prints no result line):
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: every kernel compiled from ``src/repro_torch/csrc`` by nvcc, with
    each kernel's registers and spills from ptxas (the flash kernel's bf16
-   route at head dim 256 must not spill) and, where the toolkit has
+   route at head dim 256 and the paged kernel's bf16 16-head instance at
+   head dim 128 must not spill; its fp32 one is logged) and, where the
+   toolkit has
    ``cuobjdump``, the count of tensor-core instructions (``HGMMA`` from
    wgmma, ``HMMA`` from mma.sync) in each kernel's SASS (every head-dim
    instance of the flash kernel's bf16 route and the chunked WKV6 kernels
    must have some);
 3. kernels against their plain PyTorch versions at the serving paths'
    shapes, in bf16 and fp32, with times, bounds and the library yardstick:
-   paged decode (K1), flash prefill (K2, also at gemma2's head dim 256 with
-   its window and softcap, to 6000 tokens), WKV6 (K3), segment zero-fill
-   (K4); K1 and K2 also at the reduced configs' head dims 8, 12 and 16,
-   which the bindings zero-pad to the 64-wide instance.  WKV6 also runs on decays that RWKV6's own law gives (w =
-   exp(-exp(dec)), dec over [-8, 5], down to w = 0) and on runs of strong
-   decays followed by weak ones inside a chunk, at ragged lengths and head
-   sizes 16-128; and on a memory of thousands of tokens, logged against an
-   fp64 run of the recurrence.
+   paged decode (K1; also at qwen3-moe's 16 q heads per kv head, the
+   ``kMaxG`` instance, and starcoder2's 9), flash prefill (K2; also at
+   qwen3-moe's 64 q / 4 kv heads, at head dim 128 with a window of 512
+   and with llama4's window of 8192 at 10000 tokens, and at gemma2's head
+   dim 256 with its window and softcap, to 6000 tokens), WKV6 (K3), segment zero-fill (K4); K1 and K2 also at the
+   reduced configs' head dims 8, 12 and 16, which the bindings zero-pad to
+   the 64-wide instance.  WKV6 also runs on decays that RWKV6's own law
+   gives (w = exp(-exp(dec)), dec over [-8, 5], down to w = 0) and on runs
+   of strong decays followed by weak ones inside a chunk, at ragged
+   lengths and head sizes 16-128; and on a memory of thousands of tokens,
+   logged against an fp64 run of the recurrence.
    Timed launches queue behind a sleep of the card, so the events time the
    card and not the host's enqueue; K1 is timed with the L2 cache flushed
    before each call (a decode step finds each layer's pages cold) and warm;
@@ -34,9 +39,11 @@ prints no result line):
    generator), and the launch counts prove the path went through K1, K2;
 5. card against CPU: the same small fp32 models (a qwen-style transformer,
    an RWKV6 and a gemma2 with heads of 256, a window and softcaps, and the
-   reduced qwen2.5, gemma2 and starcoder2 configs at their own head dims
-   of 16 and 12) serve the same greedy requests on the card (kernels) and
-   on the CPU (plain versions);
+   reduced qwen2.5, gemma2, starcoder2, qwen3-moe and llama4-scout configs
+   at their own head dims of 16 and 12) serve the same greedy requests on
+   the card (kernels) and on the CPU (plain versions); a MoE stream may
+   fork only where a routing row that the two choose otherwise, or the
+   logits at the fork, are near a tie;
 6. dense serving: ``ServingEngine`` serves 8 requests on rwkv6-3b at its
    full width and depth (32 layers), and the launch counts prove the path
    went through K3 and not K1 or K2; then the device time of one
@@ -51,9 +58,26 @@ prints no result line):
 8. the engine's other prefill modes on phase 4's model: a 4000-token
    prompt admitted under three decoding requests with chunked prefill
    (512-token budget; paged, beside monolithic, and dense), and the
-   rebatching baseline beside incremental prefill in dense mode.
+   rebatching baseline beside incremental prefill in dense mode;
+9. paged serving of a mixture of experts: phase 4's 8 requests on
+   qwen3-moe-235b-a22b at its published widths (128 experts, top-8, 64 q
+   / 4 kv heads of 128; depth cut 94 -> 8 layers), every decode step
+   through K1 at 16 q heads per kv head and every full prefill through
+   K2, with the copies each prefill dropped past the experts' capacity
+   logged beside how far the router's input rows share one direction;
+   layer 0's routing of 256 tokens in fp32 on the card and on the CPU
+   (equal top-k where the margin is clear, equal drops); then the device
+   time of one 2048-token prefill by kernel (K2,
+   the expert GEMMs, routing with dispatch and combine, the other GEMMs,
+   the rest; ``[moe-prefill]`` lines) and phase 4's decode window;
+10. dense serving of a mixture of experts with windows: 8 requests
+   (prompts to 10000 tokens) on llama4-scout-17b-a16e at its published
+   widths (16 experts, sigmoid top-1, a shared expert, window 8192 on 3
+   layers of 4; depth cut 48 -> 8 layers), every prefill layer through K2
+   at head dim 128 (the 10000-token prompt past the window); K1, K3, K4
+   never.
 
-With all eight, a summary follows: one ``{"kernels": [...]}`` line (each
+With all ten, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
 line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
 2, the kernels build at their first launch).  ``--src DIR`` imports
@@ -66,7 +90,9 @@ package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -236,8 +262,18 @@ TENSOR_CORE_KERNELS = {"flash_prefill_tcILi64E": "HGMMA",
                        "flash_prefill_tcILi256E": "HGMMA",
                        "wkv6_chunk_state": "HMMA", "wkv6_chunk_out": "HMMA"}
 # kernels that must not spill: K2's bf16 route at head dim 256, whose
-# consumers hold O, S and P in the 240 registers `setmaxnreg` gives them
-NO_SPILL_KERNELS = {"flash_prefill_tcILi256E": "K2 bf16 hd 256"}
+# consumers hold O, S and P in the 240 registers `setmaxnreg` gives them,
+# and K1's bf16 kMaxG instance at head dim 128 (qwen3-moe's 16 q heads per
+# kv head, starcoder2's 9), which holds 16 heads' q and accumulators
+NO_SPILL_KERNELS = {
+    "flash_prefill_tcILi256E": "K2 bf16 hd 256",
+    "paged_split_kernelI13__nv_bfloat16Li128ELi16E": "K1 bf16 hd 128 kMaxG"}
+# kernels whose registers and spills are logged, not held: K1's fp32 kMaxG
+# instance spills 16 bytes at head dim 128 and is faster so than with the
+# spill removed by loading 2 rows a step (0.1103 against 0.1476 ms on
+# an H100 80GB HBM3 at 700 W)
+LOGGED_SPILL_KERNELS = {
+    "paged_split_kernelIfLi128ELi16E": "K1 fp32 hd 128 kMaxG"}
 
 
 def ptxas_usage(text: str) -> dict:
@@ -261,9 +297,10 @@ def ptxas_usage(text: str) -> dict:
 
 
 def check_register_use(usage: dict) -> None:
-    """Logs the registers and spills of ``NO_SPILL_KERNELS``; raises if one
-    is missing from the log or spills."""
-    for key, what in NO_SPILL_KERNELS.items():
+    """Logs the registers and spills of ``NO_SPILL_KERNELS`` and
+    ``LOGGED_SPILL_KERNELS``; raises if one is missing from the log or one
+    of the first spills."""
+    for key, what in {**NO_SPILL_KERNELS, **LOGGED_SPILL_KERNELS}.items():
         found = [(n, u) for n, u in usage.items() if key in n]
         if not found:
             raise AssertionError(f"{what}: {key} not in the ptxas log")
@@ -271,7 +308,8 @@ def check_register_use(usage: dict) -> None:
             log(f"[build] {what} ({name[:60]}...): {u.get('registers')} "
                 f"registers at entry, spill stores {u.get('spill_stores')} "
                 f"bytes, spill loads {u.get('spill_loads')} bytes")
-            if u.get("spill_stores") != 0 or u.get("spill_loads") != 0:
+            if key in NO_SPILL_KERNELS and (u.get("spill_stores") != 0
+                                            or u.get("spill_loads") != 0):
                 raise AssertionError(f"{what} spills: {u}")
 
 
@@ -331,16 +369,22 @@ def _paged_case(B, K, G, hd, page, dtype, seed):
         torch.from_numpy(lens).to(dev)
 
 
+# (B, K, G): qwen2.5-32b's grouping at two batches (the main case first);
+# qwen3-moe-235b's 16 q heads over each of 4 (the kMaxG instance at every
+# head) and starcoder2-7b's 9 (kMaxG, the heads past 9 skipped)
+PAGED_CASES = [(4, 8, 5), (8, 8, 5), (4, 4, 16), (4, 4, 9)]
+
+
 def check_paged() -> dict:
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-    K, G, hd, page = 8, 5, 128, 16
-    main = None
+    hd, page = 128, 16
+    rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for B in (4, 8):
-            q, kp, vp, table, lens = _paged_case(B, K, G, hd, page, dtype,
-                                                 seed=B)
+        for B, K, G in PAGED_CASES:
+            q, kp, vp, table, lens = _paged_case(
+                B, K, G, hd, page, dtype, seed=B if G == 5 else 1000 + G)
             scale = hd ** -0.5
             wide = torch.cat([table, torch.full_like(table, -1)], dim=1)
             run = lambda t=table: paged_attention(q, kp, vp, t, lens,
@@ -348,14 +392,14 @@ def check_paged() -> dict:
             out = run()
             out2 = run(wide)
             ref = paged_attention_ref(q, kp, vp, table, lens, scale=scale)
-            err, share = compare(out, ref, dtype,
-                                 f"paged_attention {dtype} B={B}")
+            what = f"paged_attention {dtype} B={B} K={K} G={G}"
+            err, share = compare(out, ref, dtype, what)
             if not torch.equal(out, out2):
                 raise AssertionError(
-                    f"paged_attention {dtype} B={B}: widths {table.shape[1]}"
-                    f" and {wide.shape[1]} differ")
+                    f"{what}: widths {table.shape[1]} and {wide.shape[1]} "
+                    "differ")
             if not torch.equal(out[1], torch.zeros_like(out[1])):
-                raise AssertionError("paged_attention: dead row is not 0")
+                raise AssertionError(f"{what}: dead row is not 0")
             warm_ms = time_ms(run)
             ms = time_cold_ms(run)
             plain_ms = time_ms(
@@ -373,16 +417,19 @@ def check_paged() -> dict:
                 f"width W==2W bitwise, "
                 f"dead row 0 | {ms:.4f} ms L2 flushed, {warm_ms:.4f} ms "
                 f"warm, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-            if dtype == torch.bfloat16 and B == 4:
-                main = {"max_abs_err": err, "ms": ms, "warm_ms": warm_ms,
-                        "plain_ms": plain_ms,
-                        "bound_ms": bms, "bound_by": by,
-                        "shape": f"B={B} KG={K * G} K={K} hd={hd} page={page}"
-                                 f" W={table.shape[1]} live_rows={live} bf16",
-                        "tol": tol_str(dtype)}
+            if dtype == torch.bfloat16:
+                rows[(B, K, G)] = {
+                    "max_abs_err": err, "ms": ms, "warm_ms": warm_ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "shape": f"B={B} KG={K * G} K={K} hd={hd} page={page}"
+                             f" W={table.shape[1]} live_rows={live} bf16",
+                    "tol": tol_str(dtype)}
     log("[paged_attention] library: no single PyTorch call computes paged "
         "decode attention -> library_ms null")
+    main = rows[PAGED_CASES[0]]
     main["library_ms"] = None
+    # qwen3-moe's grouping, the kMaxG instance: its numbers ride along
+    main["g16"] = rows[(4, 4, 16)]
     return main
 
 
@@ -390,15 +437,14 @@ def check_flash() -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     cases = [  # (S, H, K, hd, window, cap)
         (2048, 40, 8, 128, 0, 0.0),
         (1000, 40, 8, 128, 0, 0.0),
         (512, 8, 4, 64, 128, 50.0),
-    ] + FLASH_HD256_CASES
+    ] + FLASH_MOE_CASES + FLASH_HD256_CASES
     main = None
-    hd256 = None
+    extra = {}
     for dtype in (torch.bfloat16, torch.float32):
         for S, H, K, hd, window, cap in cases:
             g = torch.Generator("cuda").manual_seed(S + H)
@@ -410,17 +456,14 @@ def check_flash() -> dict:
             run = lambda: flash_attention(q, k, v, window=window, scale=scale,
                                           logit_cap=cap, causal=True)
             out = run()
-            ref = flash_attention_ref(q.reshape(1, S, H, hd), k, v, window,
-                                      scale=scale, logit_cap=cap, causal=True)
+            plain = lambda: flash_plain(q, k, v, window, scale=scale,
+                                        logit_cap=cap)
+            ref = plain()
             err, share = compare(
                 out.reshape(1, S, H, hd), ref, dtype,
                 f"flash_attention {dtype} S={S} window={window} cap={cap}")
             ms = time_ms(run)
-            plain_ms = time_ms(
-                lambda: flash_attention_ref(q.reshape(1, S, H, hd), k, v,
-                                            window, scale=scale,
-                                            logit_cap=cap, causal=True),
-                iters=3)
+            plain_ms = time_ms(plain, iters=3)
             pairs = S * (S + 1) // 2 if not window else sum(
                 min(i + 1, window) for i in range(S))
             isz = q.element_size()
@@ -443,15 +486,24 @@ def check_flash() -> dict:
                 + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"))
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                   "shape": f"B=1 S={S} H={H} K={K} hd={hd} causal bf16",
+                   "shape": f"B=1 S={S} H={H} K={K} hd={hd} causal"
+                            + (f" window {window}" if window else "")
+                            + " bf16",
                    "tol": tol_str(dtype)}
-            if dtype == torch.bfloat16 and S == 2048 and not window:
-                if hd == 128:
+            if dtype == torch.bfloat16 and S == 10000:
+                extra["w8192"] = row              # llama4's own window
+            elif dtype == torch.bfloat16 and S == 2048:
+                if (H, hd, window) == (40, 128, 0):
                     main = row
-                else:
-                    hd256 = row
-    # gemma2/3's head dim, on the tensor cores: its numbers ride along
-    main["hd256"] = hd256
+                elif (H, hd, window) == (64, 128, 0):
+                    extra["h64"] = row            # qwen3-moe's heads
+                elif (hd, window) == (256, 0):
+                    extra["hd256"] = row
+                elif (H, hd, window) == (40, 128, 512):
+                    extra["w512"] = row           # llama4's kind of window
+    # qwen3-moe's heads, llama4's windows and gemma2/3's head dim: their
+    # numbers ride along
+    main.update(extra)
     return main
 
 
@@ -511,6 +563,31 @@ def check_small_head_dims() -> None:
                 f"({share:.3f} x {tol_str(dtype)})")
 
 
+# qwen3-moe-235b's attention (64 q / 4 kv heads of 128), global, and
+# llama4-scout's heads (40 q / 8 kv of 128) on the head-dim-128 route with
+# a window of 512 at 2048 tokens and with its own window of 8192 at the
+# 10000 tokens phase 10 serves (tiles skipped below the window)
+FLASH_MOE_CASES = [(2048, 64, 4, 128, 0, 0.0), (2048, 40, 8, 128, 512, 0.0),
+                   (10000, 40, 8, 128, 8192, 0.0)]
+# the plain version's score matrix is formed one kv head at a time past
+# this many bytes (40 heads at 10000 tokens take 16 GB in fp32)
+PLAIN_SCORE_BYTES = 2 ** 32
+
+
+def flash_plain(q, k, v, window, *, scale, logit_cap):
+    """``flash_attention_ref`` on q (1, S, K, G, hd), causal, one kv head
+    at a time where the whole score matrix would pass
+    ``PLAIN_SCORE_BYTES``: (1, S, K·G, hd)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, S, K, G, hd = q.shape
+    run = lambda q, k, v: flash_attention_ref(
+        q.reshape(B, S, -1, hd), k, v, window, scale=scale,
+        logit_cap=logit_cap, causal=True)
+    if B * S * S * K * G * 4 <= PLAIN_SCORE_BYTES:
+        return run(q, k, v)
+    return torch.cat([run(q[:, :, h], k[:, :, h:h + 1], v[:, :, h:h + 1])
+                      for h in range(K)], dim=2)
 # gemma2-9b's attention (16 q / 8 kv heads of 256): global, and its window
 # of 4096 with the softcap of 50, at 2048 tokens, at 6000 (where the window
 # bites) and at 512 with a short window
@@ -818,31 +895,45 @@ def _drive_counted(engine, reqs) -> tuple:
     return run, launches, torch.cuda.max_memory_allocated()
 
 
-def phase_serving() -> dict:
-    from repro_torch.configs import get_config
+def _model_on_card(cfg, tag: str, note: str):
+    """``cfg``'s model on the card with random weights (seed 0), logged."""
     from repro_torch.models import build_model
-    from repro_torch.runtime import ServerConfig, ServingEngine
 
-    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
-                              num_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
     model.init(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[serve] qwen2.5-32b d_model={cfg.d_model} H={cfg.num_heads} "
-        f"K={cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
-        f"layers={cfg.num_layers} (of 64) bf16: "
-        f"{cfg.param_count() / 1e9:.2f}B params, init "
-        f"{time.perf_counter() - t0:.1f}s")
-    # parked prefix donors let the 1500-token request share the 2048-token
-    # request's first 512 tokens after that one retired
+    n_params = sum(t.numel() for t in model.parameters())
+    n_bytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    log(f"[{tag}] {cfg.arch_id} d_model={cfg.d_model} H={cfg.num_heads} "
+        f"K={cfg.num_kv_heads} hd={cfg.hd} vocab={cfg.vocab_size} "
+        f"layers={cfg.num_layers}{note} {cfg.dtype}: {n_params / 1e9:.2f}B "
+        f"params, {n_bytes / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    return model
+
+
+def _serve_paged(model, cfg, tag: str, note: str, during=None) -> tuple:
+    """Phase 4's run on ``model``: 8 requests (the 1500-token one sharing
+    the 2048-token one's first 512 tokens through a parked prefix donor)
+    in paged mode, after a warm-up request, under the context ``during``;
+    holds the outputs, the ledgers and the launch counts (K1 = decode
+    steps x layers, K2 = full prefills x layers, K3 = K4 = 0).  Returns
+    (engine, launches)."""
+    from repro_torch.runtime import ServerConfig, ServingEngine
+
     engine = ServingEngine(model, ServerConfig(
         max_batch=4, max_seq=4096, prefix_cache_seqs=4))
+    if engine.kv_mode != "paged":
+        raise AssertionError(f"{cfg.arch_id} served in {engine.kv_mode} "
+                             "mode, not paged")
     reqs = _serving_requests(cfg.vocab_size,
                              [2048, 1000, 513, 300, 128, 64, 17, 1500])
     reqs[7].prompt[:512] = reqs[0].prompt[:512]   # a shared 512-token prefix
     base = _warm_up(engine)
-    run, launches, peak = _drive_counted(engine, reqs)
+    with during or contextlib.nullcontext():
+        run, launches, peak = _drive_counted(engine, reqs)
     paged_n = launches["paged_attention"]
     flash_n = launches["flash_attention"]
     stats = engine.serving_stats()
@@ -871,15 +962,71 @@ def phase_serving() -> dict:
         raise AssertionError("the shared 512-token prefix was not shared")
     pages = {k: stats_after[k] - base[k] for k in
              ("kv_pages_allocated_total", "kv_pages_freed_total")}
-    log(f"[serve] 8 requests done, no error: decode steps {steps}, "
-        f"full prefills {full_prefills}, prefix hits {shared} "
+    log(f"[{tag}] 8 requests done, no error, kv_mode paged: decode steps "
+        f"{steps}, full prefills {full_prefills}, prefix hits {shared} "
         f"({saved} tokens saved), "
         f"pages allocated {pages['kv_pages_allocated_total']} == freed "
         f"{pages['kv_pages_freed_total']} (the warm-up request's excluded)")
-    log(f"[serve] launches: paged_attention {paged_n} = {steps} x "
-        f"{cfg.num_layers}, flash_attention {flash_n} = {full_prefills} x "
-        f"{cfg.num_layers}, wkv6 0, segment_zero 0")
-    _log_timings("serve", run, peak, f" [{SERVE_LAYERS}-layer depth cut]")
+    log(f"[{tag}] launches: paged_attention {paged_n} = {steps} x "
+        f"{cfg.num_layers} (G={cfg.num_heads // cfg.num_kv_heads}), "
+        f"flash_attention {flash_n} = {full_prefills} x {cfg.num_layers}, "
+        f"wkv6 0, segment_zero 0")
+    _log_timings(tag, run, peak, note)
+    return engine, launches
+
+
+def _serve_dense(model, cfg, tag: str, kernel: str, max_seq: int, lengths,
+                 note: str) -> tuple:
+    """8 requests of ``lengths`` on ``model`` in dense mode after a
+    warm-up request; holds the outputs, the ledgers and the launch counts
+    (``kernel`` = full prefills x layers, every other kernel 0).  Returns
+    (engine, launches)."""
+    from repro_torch.runtime import ServerConfig, ServingEngine
+
+    engine = ServingEngine(model, ServerConfig(max_batch=4, max_seq=max_seq))
+    if engine.kv_mode != "dense":
+        raise AssertionError(f"{cfg.arch_id} served in {engine.kv_mode} "
+                             "mode, not dense")
+    state = sum(t.numel() * t.element_size() for t in engine._state.values())
+    log(f"[{tag}] kv_mode dense, decode state (max_batch 4, max_seq "
+        f"{max_seq}) {state / 1e9:.2f} GB")
+    reqs = _serving_requests(cfg.vocab_size, lengths)
+    base = _warm_up(engine)
+    run, launches, peak = _drive_counted(engine, reqs)
+    stats = engine.serving_stats()
+
+    _check_outputs(reqs, cfg.vocab_size)
+    steps = stats["decode_steps_total"] - base["decode_steps_total"]
+    full_prefills = (stats["prefill_sequences_total"]["incremental"]
+                     - base["prefill_sequences_total"]["incremental"])
+    pages = {k: stats[k] - base[k] for k in
+             ("kv_pages_allocated_total", "kv_pages_freed_total")}
+    _check_ledgers(engine, stats)
+    want = dict.fromkeys(launches, 0)
+    want[kernel] = full_prefills * cfg.num_layers
+    if launches != want:
+        raise AssertionError(
+            f"the dense path launched {launches}, not {want} ({full_prefills}"
+            f" full prefills x {cfg.num_layers} layers of {kernel})")
+    log(f"[{tag}] 8 requests done, no error, kv_mode dense: decode steps "
+        f"{steps}, full prefills {full_prefills}, pages allocated "
+        f"{pages['kv_pages_allocated_total']} == freed "
+        f"{pages['kv_pages_freed_total']} (the warm-up request's excluded)")
+    log(f"[{tag}] launches: {kernel} {launches[kernel]} = {full_prefills} x "
+        f"{cfg.num_layers}, " + ", ".join(
+            f"{name} 0" for name in launches if name != kernel))
+    _log_timings(tag, run, peak, note)
+    return engine, launches
+
+
+def phase_serving() -> dict:
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=SERVE_LAYERS)
+    model = _model_on_card(cfg, "serve", " (of 64)")
+    engine, launches = _serve_paged(model, cfg, "serve",
+                                    f" [{SERVE_LAYERS}-layer depth cut]")
     profile_decode(engine, cfg, "profile")
     return launches
 
@@ -995,16 +1142,92 @@ def phase_card_vs_cpu() -> None:
 # the reduced configs as the launcher's ``--reduced`` serves them, head dims
 # under the kernels' smallest instance: (arch, engine mode)
 REDUCED_ARMS = [("qwen2.5-32b", "paged"), ("gemma2-9b", "dense"),
-                ("starcoder2-7b", "paged")]
+                ("starcoder2-7b", "paged"), ("qwen3-moe-235b-a22b", "paged"),
+                ("llama4-scout-17b-a16e", "dense")]
+# a logit margin the card and the CPU cannot swap: the 1e-3 their fp32
+# logits are held to
+CLEAR_MARGIN = 1e-3
+
+
+def _row_margins(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Each row's smallest gap between adjacent values of its k + 1
+    largest router logits: how near its top-k choice, or the order within
+    it, is to a tie."""
+    top = torch.topk(logits.float(), min(k + 1, logits.shape[-1]),
+                     dim=-1).values
+    return (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+
+
+@contextlib.contextmanager
+def _spy_routing(record):
+    """``record(x, routing, cfg, lossless)`` after every ``moe.route`` call
+    inside the block (the engine and the model call it through the
+    module)."""
+    import repro_torch.models.moe as moe
+
+    real = moe.route
+
+    def spy(x, router_w, cfg, *, lossless=False):
+        r = real(x, router_w, cfg, lossless=lossless)
+        record(x, r, cfg, lossless)
+        return r
+
+    moe.route = spy
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def _replay(model, prompt, tokens, fork: int) -> tuple:
+    """Replays a greedy stream on ``model`` (prefill, then a decode step per
+    token) up to its token ``fork``: every routing on the way as (router
+    logits, top_idx) on the CPU, and the logits at the fork."""
+    routings = []
+    dev = model.device
+    record = lambda x, r, cfg, lossless: routings.append(
+        (r.logits.float().cpu(), r.top_idx.cpu()))
+    with _spy_routing(record):
+        state, logits = model.prefill(
+            torch.from_numpy(prompt[None]).to(dev),
+            max_seq=len(prompt) + fork + 1)
+        for t in tokens[:fork]:
+            state, logits = model.decode_step(
+                state, torch.tensor([t], dtype=torch.int32, device=dev))
+    return routings, logits[0].float().cpu()
+
+
+def _fork_margins(cpu, gpu, cfg, prompt, tokens, fork: int) -> tuple:
+    """Replays the common prefix of a forked greedy stream on the CPU and
+    on the card: (the routing rows whose top-k differ between them, the
+    largest CPU router margin over those rows or None, the CPU's top-2
+    logit margin at the fork)."""
+    k = cfg.experts_per_token
+    cpu_routes, logits = _replay(cpu, prompt, tokens, fork)
+    gpu_routes, _ = _replay(gpu, prompt, tokens, fork)
+    if len(cpu_routes) != len(gpu_routes):
+        raise AssertionError(f"{cfg.arch_id}: {len(cpu_routes)} routings on "
+                             f"the CPU, {len(gpu_routes)} on the card")
+    rows, margins = 0, []
+    for (lc, ic), (_, ig) in zip(cpu_routes, gpu_routes):
+        differ = (ic != ig).any(dim=-1)
+        if differ.any():
+            rows += int(differ.sum())
+            margins.append(_row_margins(lc[differ], k).max().item())
+    top2 = torch.topk(logits, 2).values
+    return rows, max(margins) if margins else None, (top2[0] - top2[1]).item()
 
 
 def _card_vs_cpu_reduced() -> None:
     """qwen2.5-32b-smoke (paged: K1 and K2 at head dim 16, 5 q heads over
     1), gemma2-9b-smoke (dense: K2 at head dim 16 with its window of 8 and
-    softcap of 50) and starcoder2-7b-smoke (paged: K1 and K2 at head dim
-    12, 3 q heads over each of 2) at their own widths, fp32: greedy streams
-    of prompts past the window equal on the card (through the bindings'
-    zero-pad to the 64-wide instances) and on the CPU, and the card's
+    softcap of 50), starcoder2-7b-smoke (paged: K1 and K2 at head dim 12,
+    3 q heads over each of 2), qwen3-moe-smoke (paged, 8 experts, top-2)
+    and llama4-scout-smoke (dense, 4 experts, sigmoid top-1, a shared
+    expert, window 16) at their own widths, fp32: greedy streams of prompts
+    past the window equal on the card (through the bindings' zero-pad to
+    the 64-wide instances) and on the CPU, or forking only at a near tie
+    of the MoE routing or the logits (``_judge_fork``), and the card's
     launches counted."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import build_model
@@ -1041,16 +1264,51 @@ def _card_vs_cpu_reduced() -> None:
         if not launches["flash_attention"] or \
                 bool(launches["paged_attention"]) != want_paged:
             raise AssertionError(f"{arch} on the card launched {launches}")
-        if streams["cpu"] != streams["cuda"]:
-            raise AssertionError(
-                f"card vs CPU {arch}-smoke greedy streams differ: {streams}")
+        equal = streams["cpu"] == streams["cuda"]
+        if not equal:
+            _judge_fork(cpu, gpu, cfg, prompts, streams)
         log(f"[card-vs-cpu] {cfg.arch_id} fp32 at its own widths "
             f"({cfg.num_layers} layers, hd {cfg.hd}, H={cfg.num_heads} "
             f"K={cfg.num_kv_heads}, window {cfg.local_window}, softcap "
-            f"{cfg.attn_logit_softcap}), {mode} mode: greedy streams equal "
-            f"{streams['cuda']}; card launches flash_attention "
+            f"{cfg.attn_logit_softcap}), {mode} mode: greedy streams "
+            + ("equal " if equal else "fork at near ties only, card ")
+            + f"{streams['cuda']}; card launches flash_attention "
             f"{launches['flash_attention']}, paged_attention "
             f"{launches['paged_attention']}")
+
+
+def _judge_fork(cpu, gpu, cfg, prompts, streams) -> None:
+    """Card and CPU streams differ: raises unless the model routes experts
+    and, replaying each forked stream up to its first diverging token on
+    both, every routing row whose top-k differs between them has a CPU
+    router margin below ``CLEAR_MARGIN``, or no row differs and the CPU's
+    top-2 logit margin at the fork is below it (a near tie that fp32 sums
+    in another order can swap, as ROADMAP's parity rule allows for float
+    models); logs every fork."""
+    clear = []
+    for i, (a, b) in enumerate(zip(streams["cpu"], streams["cuda"])):
+        fork = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        if fork is None:
+            continue
+        if not cfg.is_moe:
+            clear.append(i)
+            continue
+        rows, router, top2 = _fork_margins(cpu, gpu, cfg, prompts[i], a,
+                                           fork)
+        log(f"[card-vs-cpu] {cfg.arch_id} request {i} forks at token "
+            f"{fork} (cpu {a[fork]}, card {b[fork]}): {rows} routing rows "
+            f"choose other experts on the card, largest CPU router margin "
+            f"among them {router}, top-2 logit margin {top2:.3g} (near a "
+            f"tie below {CLEAR_MARGIN})")
+        near = router < CLEAR_MARGIN if router is not None else \
+            top2 < CLEAR_MARGIN
+        if not near:
+            clear.append(i)
+    if clear:
+        raise AssertionError(
+            f"card vs CPU {cfg.arch_id} greedy streams differ at clear "
+            f"margins (requests {clear}): {streams}")
 
 
 def _card_vs_cpu_gemma2() -> None:
@@ -1161,50 +1419,13 @@ def _card_vs_cpu_rwkv() -> None:
 
 def phase_rwkv_serving() -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.runtime import ServerConfig, ServingEngine
 
     cfg = get_config("rwkv6-3b")
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda")
-    model.init(torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in model.parameters())
-    log(f"[rwkv] rwkv6-3b d_model={cfg.d_model} heads={model.H}x{model.hd} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.num_layers} "
-        f"(all) bf16: {n_params / 1e9:.2f}B params, init "
-        f"{time.perf_counter() - t0:.1f}s")
-    engine = ServingEngine(model, ServerConfig(max_batch=4, max_seq=4096))
-    if engine.kv_mode != "dense":
-        raise AssertionError(f"rwkv6-3b served in {engine.kv_mode} mode")
-    reqs = _serving_requests(cfg.vocab_size,
-                             [2048, 1024, 512, 300, 128, 64, 17, 1500])
-    base = _warm_up(engine)
-    run, launches, peak = _drive_counted(engine, reqs)
-    stats = engine.serving_stats()
-
-    _check_outputs(reqs, cfg.vocab_size)
-    steps = stats["decode_steps_total"] - base["decode_steps_total"]
-    full_prefills = (stats["prefill_sequences_total"]["incremental"]
-                     - base["prefill_sequences_total"]["incremental"])
-    pages = {k: stats[k] - base[k] for k in
-             ("kv_pages_allocated_total", "kv_pages_freed_total")}
-    _check_ledgers(engine, stats)
-    if launches["wkv6"] != full_prefills * cfg.num_layers:
-        raise AssertionError(
-            f"wkv6 launches {launches['wkv6']} != {full_prefills} full "
-            f"prefills x {cfg.num_layers} layers")
-    if launches["paged_attention"] or launches["flash_attention"] or \
-            launches["segment_zero"]:
-        raise AssertionError(f"the dense RWKV path launched {launches}")
-    log(f"[rwkv] 8 requests done, no error, kv_mode dense: decode steps "
-        f"{steps}, full prefills {full_prefills}, pages allocated "
-        f"{pages['kv_pages_allocated_total']} == freed "
-        f"{pages['kv_pages_freed_total']} (the warm-up request's excluded)")
-    log(f"[rwkv] launches: wkv6 {launches['wkv6']} = {full_prefills} x "
-        f"{cfg.num_layers}, paged_attention 0, flash_attention 0, "
-        f"segment_zero 0")
-    _log_timings("rwkv", run, peak, " [full depth]")
+    model = _model_on_card(cfg, "rwkv", f" (all), head size "
+                           f"{cfg.rwkv_head_size}")
+    engine, launches = _serve_dense(
+        model, cfg, "rwkv", "wkv6", 4096,
+        [2048, 1024, 512, 300, 128, 64, 17, 1500], " [full depth]")
     profile_decode(engine, cfg, "rwkv-profile")
     profile_prefill(model, cfg, "rwkv-prefill", ("K3 (wkv6)", "wkv6"),
                     T=2048, max_seq=4096)
@@ -1215,14 +1436,80 @@ def phase_rwkv_serving() -> dict:
 GEMM_KERNEL_KEYS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
+def _is_gemm(name: str) -> bool:
+    return any(x in name.lower() for x in GEMM_KERNEL_KEYS)
+
+
+# the MoE block's steps (functions of ``repro_torch.models.moe``) and the
+# ``[moe-prefill]`` group their kernels' device time goes to
+MOE_STEPS = {"route": "routing, dispatch, combine",
+             "dispatch": "routing, dispatch, combine",
+             "expert_ffn": "expert FFN", "combine": "routing, dispatch, combine"}
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """A ``record_function`` range ``moe.<step>`` around every call of the
+    MoE block's steps, so the profiler can tell their kernels apart."""
+    import repro_torch.models.moe as moe
+    from torch.profiler import record_function
+
+    real = {name: getattr(moe, name) for name in MOE_STEPS}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(f"moe.{name}"):
+                return fn(*args, **kwargs)
+        return call
+
+    for name, fn in real.items():
+        setattr(moe, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(moe, name, fn)
+
+
+def _range_kernels(event) -> list:
+    """(name, µs) of every kernel launched under a host event."""
+    out = [(k.name, k.duration) for k in event.kernels]
+    for child in event.cpu_children:
+        out += _range_kernels(child)
+    return out
+
+
+def _moe_groups(prof) -> dict:
+    """{group: [ms, kernels]} of the kernels under the ``moe.<step>``
+    ranges: the expert FFN's GEMMs (``expert GEMMs``) apart from its
+    elementwise kernels."""
+    groups = {}
+    for event in prof.events():
+        step = event.name[4:] if event.name.startswith("moe.") else None
+        if step not in MOE_STEPS or \
+                event.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for name, us in _range_kernels(event):
+            group = MOE_STEPS[step]
+            if group == "expert FFN":
+                group = "expert GEMMs" if _is_gemm(name) else \
+                    "expert FFN elementwise"
+            acc = groups.setdefault(group, [0.0, 0])
+            acc[0] += us / 1e3
+            acc[1] += 1
+    return groups
+
+
 def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
-                    max_seq: int) -> None:
-    """The device time of one T-token prefill (B=1, as the dense engine
-    runs it, into a cache of ``max_seq``) by kernel: ``kernel`` = (label,
-    substring of its CUDA kernels' names), the GEMMs and the rest, with its
-    idle share.  CUDA events and the host clock around one prefill without
-    the profiler, then ``torch.profiler`` around another; after the launch
-    counts were read."""
+                    max_seq: int, moe: bool = False) -> None:
+    """The device time of one T-token prefill (B=1, as the engines run it,
+    into a cache of ``max_seq``) by kernel: ``kernel`` = (label, substring
+    of its CUDA kernels' names), the GEMMs and the rest, with its idle
+    share; with ``moe``, the MoE block's kernels (the expert GEMMs, its
+    routing, dispatch and combine, the expert FFN's elementwise kernels)
+    apart from the other GEMMs and the rest.  CUDA events and the host
+    clock around one prefill without the profiler, then ``torch.profiler``
+    around another; after the launch counts were read."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     rng = np.random.default_rng(11)
@@ -1243,7 +1530,8 @@ def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
     # a warm-up step inside the profiler, then the recorded one: a window
     # that opens with the prefill can lose its first kernels
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof, \
+            (_moe_ranges() if moe else contextlib.nullcontext()):
         run()
         torch.cuda.synchronize()
         prof.step()                            # the recorded step from here
@@ -1251,12 +1539,13 @@ def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
         run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels and copies only: the step's own range spans the device too
+    # kernels and copies only: the step's own range and the moe.<step>
+    # ranges span the device too
     rows = [(e.self_device_time_total / 1e3, e.key, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
+            and not e.key.startswith(("ProfilerStep", "moe."))]
     log(f"[{tag}] one {T}-token prefill, B=1, {cfg.num_layers} layers: "
         f"wall {wall_ms:.2f} ms, CUDA events first launch to last end "
         f"{span_ms:.2f} ms (no profiler)")
@@ -1267,12 +1556,26 @@ def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
     label, key = kernel
     groups = {label: [0.0, 0], "GEMMs": [0.0, 0], "the rest": [0.0, 0]}
     for ms, name, count in rows:
-        group = (label if key in name else
-                 "GEMMs" if any(x in name.lower() for x in GEMM_KERNEL_KEYS)
+        group = (label if key in name else "GEMMs" if _is_gemm(name)
                  else "the rest")
         groups[group][0] += ms
         groups[group][1] += count
     busy_ms = sum(r[0] for r in rows)
+    if moe:
+        inner = _moe_groups(prof)
+        if not inner:
+            raise AssertionError(
+                f"[{tag}] no kernel was attributed to the moe.<step> "
+                f"ranges ({', '.join(MOE_STEPS)} of models/moe.py)")
+        # the expert GEMMs come out of the GEMMs, the block's other kernels
+        # out of the rest
+        for name, (ms, n) in inner.items():
+            out = "GEMMs" if name == "expert GEMMs" else "the rest"
+            groups[out][0] -= ms
+            groups[out][1] -= n
+        groups = {label: groups[label], **inner,
+                  "other GEMMs": groups["GEMMs"],
+                  "the rest": groups["the rest"]}
     log(f"[{tag}] T={T} profiler on: wall {prof_wall_ms:.2f} ms, device "
         f"busy {busy_ms:.3f} ms ({100 * busy_ms / prof_wall_ms:.1f}% of "
         f"wall), idle {100 * (1 - busy_ms / prof_wall_ms):.1f}%; "
@@ -1291,55 +1594,16 @@ def phase_gemma_serving() -> dict:
     with its window (4096, on alternate layers) and softcap (50); decode
     on the dense cache, in plain PyTorch as the reference's XLA."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.runtime import ServerConfig, ServingEngine
+    from repro_torch.models.common import layer_windows
 
     cfg = get_config("gemma2-9b")
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda")
-    model.init(torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in model.parameters())
-    log(f"[gemma] gemma2-9b d_model={cfg.d_model} H={cfg.num_heads} "
-        f"K={cfg.num_kv_heads} hd={cfg.hd} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab_size} layers={cfg.num_layers} (all), window "
-        f"{cfg.local_window} on {int((model.windows > 0).sum())} layers, "
-        f"softcaps {cfg.attn_logit_softcap}/{cfg.final_logit_softcap} bf16: "
-        f"{n_params / 1e9:.2f}B params, init {time.perf_counter() - t0:.1f}s")
-    engine = ServingEngine(model, ServerConfig(max_batch=4, max_seq=8192))
-    if engine.kv_mode != "dense":
-        raise AssertionError(f"gemma2-9b served in {engine.kv_mode} mode")
-    cache = sum(t.numel() * t.element_size() for t in engine._state.values())
-    log(f"[gemma] kv_mode dense, cache (max_batch 4, max_seq 8192) "
-        f"{cache / 1e9:.2f} GB")
-    reqs = _serving_requests(cfg.vocab_size,
-                             [6000, 2048, 1000, 513, 300, 128, 17, 4500])
-    base = _warm_up(engine)
-    run, launches, peak = _drive_counted(engine, reqs)
-    stats = engine.serving_stats()
-
-    _check_outputs(reqs, cfg.vocab_size)
-    steps = stats["decode_steps_total"] - base["decode_steps_total"]
-    full_prefills = (stats["prefill_sequences_total"]["incremental"]
-                     - base["prefill_sequences_total"]["incremental"])
-    pages = {k: stats[k] - base[k] for k in
-             ("kv_pages_allocated_total", "kv_pages_freed_total")}
-    _check_ledgers(engine, stats)
-    if launches["flash_attention"] != full_prefills * cfg.num_layers:
-        raise AssertionError(
-            f"flash_attention launches {launches['flash_attention']} != "
-            f"{full_prefills} full prefills x {cfg.num_layers} layers")
-    if launches["paged_attention"] or launches["wkv6"] or \
-            launches["segment_zero"]:
-        raise AssertionError(f"the dense gemma2 path launched {launches}")
-    log(f"[gemma] 8 requests done, no error, kv_mode dense: decode steps "
-        f"{steps}, full prefills {full_prefills}, pages allocated "
-        f"{pages['kv_pages_allocated_total']} == freed "
-        f"{pages['kv_pages_freed_total']} (the warm-up request's excluded)")
-    log(f"[gemma] launches: flash_attention {launches['flash_attention']} = "
-        f"{full_prefills} x {cfg.num_layers} (hd {cfg.hd}), "
-        f"paged_attention 0, wkv6 0, segment_zero 0")
-    _log_timings("gemma", run, peak, " [full depth]")
+    model = _model_on_card(
+        cfg, "gemma", f" (all), window {cfg.local_window} on "
+        f"{int((layer_windows(cfg) > 0).sum())} layers, softcaps "
+        f"{cfg.attn_logit_softcap}/{cfg.final_logit_softcap}")
+    engine, launches = _serve_dense(
+        model, cfg, "gemma", "flash_attention", 8192,
+        [6000, 2048, 1000, 513, 300, 128, 17, 4500], " [full depth]")
     profile_decode(engine, cfg, "gemma-profile")
     # K2's share of a prefill: the longest prompt of the run and a shorter one
     for T in (6000, 2048):
@@ -1483,12 +1747,173 @@ def phase_chunked_and_rebatching() -> dict:
     return total
 
 
+# ------------------------------------------------------------ phases 9, 10
+
+MOE_LAYERS = 8
+
+
+def _cos_to_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean cosine of x's rows (T, D) to their mean direction: near 0
+    for independent random rows, 1 when every row points the same way."""
+    import torch.nn.functional as F
+
+    rows = F.normalize(x.float(), dim=-1)
+    return (rows @ F.normalize(rows.mean(dim=0), dim=0)).mean()
+
+
+@contextlib.contextmanager
+def _drop_log(out: list):
+    """Appends (copies routed, copies dropped by capacity, the router
+    input's mean cosine to its mean row, the share of copies on the k
+    busiest experts) of every capacity-bounded routing (one layer of a
+    prefill) to ``out``; all but the first stay device tensors until they
+    are read after the run."""
+    def record(x, r, cfg, lossless):
+        if not lossless:
+            k = cfg.experts_per_token
+            busiest = torch.topk(r.counts, k).values.sum() / r.keep.numel()
+            out.append((r.keep.numel(), (~r.keep).sum(), _cos_to_mean(x),
+                        busiest))
+
+    with _spy_routing(record):
+        yield
+
+
+def _moe_layer0_check(model, cfg, T: int = 256) -> None:
+    """Layer 0 of the full-width MoE model on T random tokens, up to its
+    routing, in fp32 on the card (K2's fp32 route) and on the CPU (the
+    plain attention): every row's top-k equal wherever the CPU's router
+    margin is clear, and then the copies dropped equal.  Logs how far the
+    rows share one direction (mean cosine to their mean row) in the
+    embeddings, the attention output and the router's input, and the
+    attention output's RMS against the embeddings'."""
+    import repro_torch.models.moe as moe
+    from repro_torch.models.attention import attention_block
+    from repro_torch.models.common import rms_norm
+
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, T)).astype(np.int32))
+    p = model._layer_params(0)
+    h0 = model._embed_inputs(tokens.to(model.device)).float()
+    got = {}
+    for dev in (model.device, "cpu"):
+        f32 = lambda t: t.detach().to(dev, torch.float32)
+        p32 = {n: f32(t) for n, t in p.items() if torch.is_tensor(t)}
+        p32["attn"] = {n: f32(t) for n, t in p["attn"].items()}
+        h = f32(h0)
+        a = rms_norm(h, p32["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+        a = attention_block(a, p32["attn"], cfg, window=int(model.windows[0]),
+                            rope_base=model._rope_base(0),
+                            positions=torch.arange(T, device=dev))
+        x = rms_norm(model._attn_residual(h, a, p32), p32["ln2"],
+                     cfg.norm_eps, plus_one=cfg.post_norms)[0]
+        r = moe.route(x, f32(p["moe"]["router"]), cfg)
+        got[dev] = (h[0].cpu(), a[0].cpu(), x.cpu(), r.top_idx.cpu(),
+                    r.keep.cpu(), r.logits.cpu())
+    h, a, x, idx, keep, logits = got["cpu"]
+    _, _, xg, idx_g, keep_g, _ = got[model.device]
+    differ = (idx != idx_g).any(dim=-1)
+    margin = (_row_margins(logits[differ], cfg.experts_per_token).max()
+              .item() if differ.any() else None)
+    rms = lambda t: t.pow(2).mean().sqrt().item()
+    log(f"[moe] layer 0 of {T} tokens in fp32, card vs CPU: router input "
+        f"max|diff| {(x - xg).abs().max().item():.3g}, {int(differ.sum())} "
+        f"rows route otherwise (largest CPU router margin among them "
+        f"{margin}; near a tie below {CLEAR_MARGIN}), copies dropped "
+        f"{int((~keep).sum())} on the CPU, {int((~keep_g).sum())} on the "
+        f"card, of {keep.numel()}; mean cosine to the mean row: embeddings "
+        f"{_cos_to_mean(h):.3f}, attention output {_cos_to_mean(a):.3f}, "
+        f"router input {_cos_to_mean(x):.3f}; RMS attention output "
+        f"{rms(a):.4g} against embeddings {rms(h):.4g}")
+    if margin is not None and margin >= CLEAR_MARGIN:
+        raise AssertionError(f"layer 0 routes {int(differ.sum())} rows "
+                             "otherwise on the card at a clear margin")
+    if margin is None and not torch.equal(keep, keep_g):
+        raise AssertionError("layer 0 drops other copies on the card")
+
+
+def phase_moe_paged() -> dict:
+    """qwen3-moe-235b-a22b at its published widths (128 experts, top-8,
+    expert d_ff 1536, 64 q / 4 kv heads of 128), depth cut 94 -> 8
+    layers, in paged mode on phase 4's requests: every decode step through
+    K1 at 16 q heads per kv head (the kMaxG instance), every full prefill
+    through K2, the expert products in ``torch.bmm`` over the reference's
+    (E, C, D) layout (decode reads every expert, lossless); the copies
+    each prefill dropped past capacity logged; then one 2048-token
+    prefill's device time by kernel and phase 4's decode window."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                              num_layers=MOE_LAYERS)
+    k, L = cfg.experts_per_token, cfg.num_layers
+    model = _model_on_card(
+        cfg, "moe", f" (of 94), {cfg.num_experts} experts top-{k}, expert "
+        f"d_ff {cfg.expert_d_ff}, capacity factor {cfg.capacity_factor}")
+    drops = []
+    engine, launches = _serve_paged(model, cfg, "moe",
+                                    f" [{MOE_LAYERS}-layer depth cut]",
+                                    during=_drop_log(drops))
+    if len(drops) % L:
+        raise AssertionError(f"{len(drops)} prefill routings, not a "
+                             f"multiple of {L} layers")
+    for i in range(0, len(drops), L):
+        routed = drops[i][0]
+        dropped = [int(d[1]) for d in drops[i:i + L]]
+        log(f"[moe] prefill {i // L}: {routed // k} tokens, {routed} copies "
+            f"routed in each of {L} layers, {sum(dropped)} dropped by "
+            f"capacity ({100 * sum(dropped) / (routed * L):.2f}%), by layer "
+            f"{dropped}; router input's mean cosine to its mean row by "
+            f"layer {[round(d[2].item(), 3) for d in drops[i:i + L]]}, "
+            f"share of copies on the {k} busiest experts "
+            f"{[round(d[3].item(), 3) for d in drops[i:i + L]]}")
+    _moe_layer0_check(model, cfg)
+    profile_prefill(model, cfg, "moe-prefill", ("K2 (flash)", "flash_prefill"),
+                    T=2048, max_seq=2048, moe=True)
+    profile_decode(engine, cfg, "moe-profile")
+    return launches
+
+
+def phase_moe_dense() -> dict:
+    """llama4-scout-17b-a16e at its published widths (16 experts, sigmoid
+    top-1, a shared expert, expert d_ff 8192, 40 q / 8 kv heads of 128,
+    window 8192 on layers 0-2 of each 4; text only), depth cut 48 -> 8
+    layers, in dense mode: 8 requests, one of 10000 tokens so the window
+    masks on the local layers, every prefill layer through K2 at head dim
+    128; decode on the dense cache (plain PyTorch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import layer_windows
+
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              num_layers=MOE_LAYERS)
+    model = _model_on_card(
+        cfg, "llama4", f" (of 48), {cfg.num_experts} experts sigmoid "
+        f"top-{cfg.experts_per_token} + {cfg.num_shared_experts} shared, "
+        f"expert d_ff {cfg.expert_d_ff}, window {cfg.local_window} on "
+        f"{int((layer_windows(cfg) > 0).sum())} layers")
+    engine, launches = _serve_dense(
+        model, cfg, "llama4", "flash_attention", 12288,
+        [10000, 2048, 1000, 513, 300, 128, 17, 4500],
+        f" [{MOE_LAYERS}-layer depth cut]")
+    profile_decode(engine, cfg, "llama4-profile")
+    return launches
+
+
+def _free_card() -> None:
+    """Frees what a serving phase left behind (its model and engine are
+    garbage once it returns) and logs what stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[smoke] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        "after the phase")
+
+
 # --------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
@@ -1513,26 +1938,19 @@ def main(argv=None) -> int:
         check_small_head_dims()
         results["wkv6"] = check_wkv6()
         results["segment_zero"] = check_segment_zero()
-    # each kernel's launches, summed over the paths that run it (K1:
-    # phases 4 and 8; K2: 4, 7 and 8; K3: 6); K4 is on no path
-    launches = {"segment_zero": 0}
-    if 4 in phases:
-        qwen = phase_serving()
-        launches.update(paged_attention=qwen["paged_attention"],
-                        flash_attention=qwen["flash_attention"])
-    if 5 in phases:
-        phase_card_vs_cpu()
-    if 6 in phases:
-        launches["wkv6"] = phase_rwkv_serving()["wkv6"]
-    if 7 in phases:
-        gemma = phase_gemma_serving()
-        launches["flash_attention"] = (launches.get("flash_attention", 0)
-                                       + gemma["flash_attention"])
-    if 8 in phases:
-        qwen8 = phase_chunked_and_rebatching()
-        for name in ("paged_attention", "flash_attention"):
-            launches[name] = launches.get(name, 0) + qwen8[name]
-    if not {3, 4, 5, 6, 7, 8} <= phases:
+    # each kernel's launches on the serving paths, by phase (K1: phases 4, 8
+    # and 9; K2: 4, 7, 8, 9 and 10; K3: 6); K4 is on no path
+    runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
+            7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
+            9: phase_moe_paged, 10: phase_moe_dense}
+    by_phase = {name: {} for name in _launch_counters()}
+    for n, phase in runs.items():
+        if n in phases:
+            for name, count in (phase() or {}).items():
+                if count:
+                    by_phase[name][n] = count
+            _free_card()
+    if not set(range(3, 11)) <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {
@@ -1554,16 +1972,20 @@ def main(argv=None) -> int:
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_phase[name].values()),
+            "launches_by_phase": by_phase[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "tol": r["tol"],
         })
-        if "warm_ms" in r:         # K1: "ms" is with the L2 cache flushed
-            kernels[-1]["warm_ms"] = r["warm_ms"]
-        if "hd256" in r:           # K2 at gemma2's head dim, CUDA cores
-            kernels[-1]["hd256"] = r["hd256"]
+        # K1: "ms" is with the L2 cache flushed, "warm_ms" warm, "g16" at
+        # qwen3-moe's grouping; K2: "h64" at qwen3-moe's heads, "w512"
+        # with a window at head dim 128, "w8192" at llama4's window and
+        # 10000 tokens, "hd256" at gemma2's head dim
+        for key in ("warm_ms", "g16", "h64", "w512", "w8192", "hd256"):
+            if key in r:
+                kernels[-1][key] = r[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,11 @@ ported engine honours, plus ``--device`` (default ``cuda``; CUDA asked
 for and absent is an error, never a silent CPU run).  Weights are random,
 drawn on the device from ``torch.Generator(device).manual_seed(0)``.  By
 default (``--kv-mode auto``) the engine picks its mode: paged for the
-dense transformers that can decode from pages, dense per-slot state for
-those with sliding windows or a softcap (``--arch gemma2-9b``) and for
-RWKV (``--arch rwkv6-3b``); ``--no-incremental`` runs the rebatching
-baseline (dense).
+dense and MoE transformers that can decode from pages (``--arch
+qwen3-moe-235b-a22b``), dense per-slot state for those with sliding
+windows or a softcap (``--arch gemma2-9b``, ``--arch
+llama4-scout-17b-a16e``) and for RWKV (``--arch rwkv6-3b``);
+``--no-incremental`` runs the rebatching baseline (dense).
 
 Examples (full size on the card; ``--reduced --device cpu`` for the smoke
 config on the CPU)::

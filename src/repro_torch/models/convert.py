@@ -5,8 +5,9 @@ dict of numpy arrays — layers stacked on axis 0 (``layers.attn.wq`` is
 ``(L, D, H, hd)``) — and returns the flat state dict that the port's
 model's ``load_state_dict`` takes.  Every leaf is cast to ``cfg.dtype``,
 except the ones the model keeps in float32 whatever its dtype (RWKV's
-``w0`` and ``u``, as the reference initialises them).  No jax import is needed: the
-caller converts the leaves with ``np.asarray``.
+``w0`` and ``u`` and the MoE router, as the reference initialises them).
+No jax import is needed: the caller converts the leaves with
+``np.asarray``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from .common import ArchConfig, torch_dtype
-from .rwkv import FP32_PARAMS
+from .moe import FP32_PARAMS as MOE_FP32_PARAMS
+from .rwkv import FP32_PARAMS as RWKV_FP32_PARAMS
 
 __all__ = ["params_from_numpy"]
 
@@ -35,9 +37,11 @@ def _tensor(leaf: Any, dtype: torch.dtype) -> torch.Tensor:
 def params_from_numpy(cfg: ArchConfig,
                       tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flatten ``tree`` to ``{"layers.attn.wq": tensor, ...}`` in
-    ``cfg.dtype`` (RWKV's float32 leaves stay float32)."""
+    ``cfg.dtype`` (RWKV's and the MoE router's float32 leaves stay
+    float32)."""
     dtype = torch_dtype(cfg.dtype)
-    keep_fp32 = FP32_PARAMS if cfg.family == "ssm" else ()
+    keep_fp32 = (RWKV_FP32_PARAMS if cfg.family == "ssm" else
+                 MOE_FP32_PARAMS if cfg.is_moe else ())
     out: Dict[str, torch.Tensor] = {}
 
     def visit(prefix: str, node: Mapping[str, Any]) -> None:

@@ -1,8 +1,8 @@
 """Model factory: family → implementation dispatch.
 
-The dense family (``TransformerLM``) and RWKV6 (``RwkvLM``, family
-``"ssm"``) are ported; the others raise and are queued in ROADMAP.md
-(queue 1, item 7).
+The dense and MoE families (``TransformerLM``) and RWKV6 (``RwkvLM``,
+family ``"ssm"``) are ported; the others raise and are queued in
+ROADMAP.md (queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from .transformer import TransformerLM
 
 __all__ = ["build_model"]
 
-_FAMILIES = {"dense": TransformerLM, "ssm": RwkvLM}
+_FAMILIES = {"dense": TransformerLM, "moe": TransformerLM, "ssm": RwkvLM}
 _KNOWN = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 

@@ -1,11 +1,19 @@
-"""Decoder-only transformer, dense family, as a PyTorch ``nn.Module``.
+"""Decoder-only transformer, dense and MoE families, as a PyTorch
+``nn.Module``.
 
 The counterpart of ``repro/models/transformer.py`` for the dense family
-(gemma2/3, starcoder2, qwen2.5): the same stacked-parameter layout
-(layer ``l``'s ``wq`` is ``layers.attn.wq[l]`` of shape ``(D, H, hd)``),
-the same public functions, and a Python loop over layers where the
-reference scanned.  Weights live on the module; the serving functions take
-no ``params`` argument.
+(gemma2/3, starcoder2, qwen2.5) and the MoE family (qwen3-moe,
+llama4-scout as text only, the reference's ``patch_embeds=None`` path):
+the same stacked-parameter layout (layer ``l``'s ``wq`` is
+``layers.attn.wq[l]`` of shape ``(D, H, hd)``; an MoE layer holds
+``layers.moe.*`` in place of ``layers.mlp.*``), the same public functions,
+and a Python loop over layers where the reference scanned.  Weights live
+on the module; the serving functions take no ``params`` argument.
+
+An MoE layer routes with the capacity counted over the rows the call sees
+(the B·S rows of ``forward``, ``prefill``, ``prefill_chunk`` and
+``paged_prefill_at``: a padded batch, one chunk, one suffix), as the
+reference counts it, and losslessly over the B lanes of a decode step.
 
 Paged serving interface (``ServingEngine`` in paged mode):
   ``supports_paged_decode``                       → bool
@@ -60,6 +68,8 @@ from .common import (
     take_embedding,
     torch_dtype,
 )
+from .moe import FP32_PARAMS as MOE_FP32_PARAMS
+from .moe import moe_block, moe_params_shape
 
 __all__ = ["TransformerLM"]
 
@@ -70,12 +80,12 @@ def _frozen(shape, dtype, device) -> nn.Parameter:
 
 
 class TransformerLM(nn.Module):
-    """Dense decoder-only LM; parameters are allocated, not initialised —
-    call :meth:`init` or ``load_state_dict``."""
+    """Decoder-only LM (dense or MoE); parameters are allocated, not
+    initialised — call :meth:`init` or ``load_state_dict``."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
         super().__init__()
-        if cfg.is_moe or cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.arch_id}: family {cfg.family!r} is not ported yet "
                 "(ROADMAP.md queue 1, item 7: other model families)"
@@ -99,25 +109,35 @@ class TransformerLM(nn.Module):
         self.layers.attn = nn.Module()
         for name, shape in attn_params_shape(cfg).items():
             setattr(self.layers.attn, name, _frozen((L, *shape), dt, dev))
-        self.layers.mlp = nn.Module()
-        self.layers.mlp.wu = _frozen((L, D, F), dt, dev)
-        self.layers.mlp.wd = _frozen((L, F, D), dt, dev)
-        if cfg.gated:
-            self.layers.mlp.wg = _frozen((L, D, F), dt, dev)
+        if cfg.is_moe:
+            self.layers.moe = nn.Module()
+            for name, shape in moe_params_shape(cfg).items():
+                leaf_dt = (torch.float32 if f"layers.moe.{name}" in
+                           MOE_FP32_PARAMS else dt)
+                setattr(self.layers.moe, name,
+                        _frozen((L, *shape), leaf_dt, dev))
+        else:
+            self.layers.mlp = nn.Module()
+            self.layers.mlp.wu = _frozen((L, D, F), dt, dev)
+            self.layers.mlp.wd = _frozen((L, F, D), dt, dev)
+            if cfg.gated:
+                self.layers.mlp.wg = _frozen((L, D, F), dt, dev)
 
     # ------------------------------------------------------------- params
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "TransformerLM":
         """Random weights with the reference's distributions, drawn from
-        ``generator`` (which must live on the model's device)."""
+        ``generator`` (which must live on the model's device).  Experts
+        are drawn one at a time, so the fp32 draw of a full-width MoE
+        layer never lies on the device whole."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
         D, F = cfg.d_model, cfg.d_ff
 
-        def normal(shape, std):
+        def normal(shape, std, dtype=dt):
             x = torch.randn(shape, generator=generator, device=dev,
                             dtype=torch.float32)
-            return (x * std).to(dt)
+            return (x * std).to(dtype)
 
         self.embed.copy_(normal(self.embed.shape, 1 / math.sqrt(D)))
         for name, t in self.layers.named_parameters():
@@ -132,6 +152,18 @@ class TransformerLM(nn.Module):
                     t.fill_(1)
                 else:
                     t.copy_(normal(shape, 1 / math.sqrt(D)))
+            if cfg.is_moe:
+                # the reference's N(0, 1) / sqrt(fan_in), fan_in = shape[-2]
+                for t in self.layers.moe.parameters():
+                    t = t[l]
+                    if t.dim() == 3:                  # (E, ·, ·): by expert
+                        for e in range(t.shape[0]):
+                            t[e].copy_(normal(t.shape[1:],
+                                              t.shape[-2] ** -0.5))
+                    else:
+                        t.copy_(normal(t.shape, t.shape[-2] ** -0.5,
+                                       t.dtype))
+                continue
             mlp = self.layers.mlp
             mlp.wu[l].copy_(normal((D, F), 1 / math.sqrt(D)))
             mlp.wd[l].copy_(normal((F, D), 1 / math.sqrt(F)))
@@ -148,7 +180,9 @@ class TransformerLM(nn.Module):
             if "." not in name
         }
         p["attn"] = {n: t[l] for n, t in self.layers.attn.named_parameters()}
-        p["mlp"] = {n: t[l] for n, t in self.layers.mlp.named_parameters()}
+        ffn = "moe" if self.cfg.is_moe else "mlp"
+        p[ffn] = {n: t[l] for n, t in
+                  getattr(self.layers, ffn).named_parameters()}
         return p
 
     def _rope_base(self, l: int) -> float:
@@ -159,14 +193,21 @@ class TransformerLM(nn.Module):
     def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
         return scale_embedding(take_embedding(self.embed, tokens), self.cfg)
 
-    def _mlp_residual(self, h: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
+    def _mlp_residual(self, h: torch.Tensor, p: Dict[str, Any], *,
+                      lossless: bool = False):
+        """h + the layer's MLP (or MoE block) → (h, the MoE aux loss or
+        None).  ``lossless``: a decode step's routing, no copy dropped."""
         cfg = self.cfg
         m = rms_norm(h, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norms)
-        m = gated_mlp(m, p["mlp"]["wu"], p["mlp"].get("wg"), p["mlp"]["wd"],
-                      cfg.activation)
+        aux = None
+        if cfg.is_moe:
+            m, aux = moe_block(m, p["moe"], cfg, lossless=lossless)
+        else:
+            m = gated_mlp(m, p["mlp"]["wu"], p["mlp"].get("wg"),
+                          p["mlp"]["wd"], cfg.activation)
         if cfg.post_norms:
             m = rms_norm(m, p["ln2_post"], cfg.norm_eps, plus_one=True)
-        return h + m
+        return h + m, aux
 
     def _attn_residual(self, h: torch.Tensor, a: torch.Tensor,
                        p: Dict[str, Any]) -> torch.Tensor:
@@ -185,8 +226,8 @@ class TransformerLM(nn.Module):
                 rope_base=self._rope_base(l), positions=positions,
                 return_kv=True,
             )
-            h = self._mlp_residual(self._attn_residual(h, a, p), p)
-            yield h, kv
+            h, aux = self._mlp_residual(self._attn_residual(h, a, p), p)
+            yield h, kv, aux
 
     def _unembed(self, h: torch.Tensor) -> torch.Tensor:
         table = self.unembed if not self.cfg.tie_embeddings else self.embed
@@ -202,12 +243,14 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, S) tokens → (B, S, V) logits (+ the aux loss, 0 for dense)."""
+        """(B, S) tokens → (B, S, V) logits (+ the aux loss summed over
+        layers, 0 for dense)."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         h = self._embed_inputs(tokens)
-        for h, _ in self._layers(h, positions):
-            pass
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for h, _, layer_aux in self._layers(h, positions):
+            if layer_aux is not None:
+                aux = aux + layer_aux
         return self._final(h), aux
 
     @torch.no_grad()
@@ -218,7 +261,7 @@ class TransformerLM(nn.Module):
         positions = torch.arange(S, device=tokens.device)
         h = self._embed_inputs(tokens)
         ks, vs = [], []
-        for h, (k, v) in self._layers(h, positions):
+        for h, (k, v), _ in self._layers(h, positions):
             if max_seq > S:
                 pad = (0, 0, 0, 0, 0, max_seq - S)
                 k = torch.nn.functional.pad(k, pad)
@@ -294,7 +337,7 @@ class TransformerLM(nn.Module):
             o = torch.einsum("bskgp,bpkh->bskgh", w[..., :max_seq], cv.float()) \
                 + torch.einsum("bskgt,btkh->bskgh", w[..., max_seq:], v.float())
             o = o.reshape(B, S, H * hd).to(h.dtype) @ p["attn"]["wo"]
-            h = self._mlp_residual(self._attn_residual(h, o, p), p)
+            h, _ = self._mlp_residual(self._attn_residual(h, o, p), p)
             # this layer's rows < start are all it read: write the chunk now
             ck[:, at:at + S] = k.to(ck.dtype)
             cv[:, at:at + S] = v.to(cv.dtype)
@@ -320,7 +363,8 @@ class TransformerLM(nn.Module):
             update_cache(ck, cv, k, v, pos)
             o = decode_attn(q, ck, cv, pos, cfg, window=int(self.windows[l]))
             o = o.to(h.dtype) @ p["attn"]["wo"]
-            h = self._mlp_residual(self._attn_residual(h, o, p), p)
+            h, _ = self._mlp_residual(self._attn_residual(h, o, p), p,
+                                      lossless=True)
         new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
                      "pos": pos + 1}
         return new_state, self._final(h)
@@ -407,7 +451,7 @@ class TransformerLM(nn.Module):
             o = torch.einsum("bskgp,pkh->bskgh", w[..., :P], pv.float()) \
                 + torch.einsum("bskgt,btkh->bskgh", w[..., P:], v.float())
             o = o.reshape(B, S, H * hd).to(h.dtype) @ p["attn"]["wo"]
-            h = self._mlp_residual(self._attn_residual(h, o, p), p)
+            h, _ = self._mlp_residual(self._attn_residual(h, o, p), p)
             ks.append(k)
             vs.append(v)
         logits = self._final(h[:, -1])
@@ -471,5 +515,6 @@ class TransformerLM(nn.Module):
             o = paged_attention(q.contiguous(), kp, vp, page_table, lens,
                                 scale=scale)
             o = o.reshape(B, -1).to(h.dtype) @ p["attn"]["wo"]
-            h = self._mlp_residual(self._attn_residual(h, o, p), p)
+            h, _ = self._mlp_residual(self._attn_residual(h, o, p), p,
+                                      lossless=True)
         return pool, self._final(h)

@@ -1,6 +1,7 @@
 """The port's serving launcher (``python -m repro_torch.launch.serve``) on
-the CPU: the reduced gemma2 config serves in dense mode under the default
-``--kv-mode auto``, and the reference's ``--no-incremental`` and
+the CPU: the reduced gemma2 and llama4-scout configs serve in dense mode
+under the default ``--kv-mode auto`` and the reduced qwen2.5 and qwen3-moe
+ones in paged mode, and the reference's ``--no-incremental`` and
 ``--kv-mode`` flags reach the engine."""
 
 import json
@@ -27,6 +28,8 @@ def _serve(capsys, *flags):
     (("--arch", "gemma2-9b", "--no-incremental"), "dense", True),
     (("--arch", "qwen2.5-32b", "--kv-mode", "dense"), "dense", False),
     (("--arch", "qwen2.5-32b"), "paged", False),
+    (("--arch", "qwen3-moe-235b-a22b"), "paged", False),
+    (("--arch", "llama4-scout-17b-a16e"), "dense", False),
 ])
 def test_launcher_serves_in_the_requested_mode(capsys, flags, mode, full):
     got, prefills = _serve(capsys, *flags)

@@ -262,7 +262,7 @@ def test_init_uses_the_reference_distributions():
 
 def test_unported_families_and_absent_cuda_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("qwen3-moe-235b-a22b"), device="cpu")
+        build_model(get_config("llava-next-34b"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config("hymba-1.5b"), device="cpu")
     if not torch.cuda.is_available():
