@@ -75,9 +75,21 @@ prints no result line):
    widths (16 experts, sigmoid top-1, a shared expert, window 8192 on 3
    layers of 4; depth cut 48 -> 8 layers), every prefill layer through K2
    at head dim 128 (the 10000-token prompt past the window); K1, K3, K4
-   never.
+   never;
+11. ``Server`` with user post-processors on phase 4's model and requests:
+   once without post-processors (the plain streams), then inline and on
+   the concurrent plane (2 workers, warm-pool watermark 2, heartbeats at
+   30 s) with a sort on five requests, a flip on one, a custom op the
+   Sentry must deny on one and one that raises.  Each run holds the good
+   streams to the UDF applied to the plain ones, the bad requests to their
+   errors, the UDFs to CUDA tensors, admission misses to the distinct
+   (program, shape) pairs, the ledgers, K1 = decode steps x layers and
+   K2 = full prefills x layers, and ``/metrics`` (127.0.0.1, ephemeral
+   port) to the engine's, the controller's and the pool's counters; then
+   cold against warm admission and verify against interpret mode for a
+   sort on a 4096-token CUDA tensor (``[admission]`` line).
 
-With all ten, a summary follows: one ``{"kernels": [...]}`` line (each
+With all eleven, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
 line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
 2, the kernels build at their first launch).  ``--src DIR`` imports
@@ -786,6 +798,9 @@ def check_segment_zero() -> dict:
 
 # --------------------------------------------------------------- phase 4
 
+#: phase 4's prompt lengths (the last shares the first's 512-token prefix)
+SERVE_LENGTHS = [2048, 1000, 513, 300, 128, 64, 17, 1500]
+
 
 def _serving_requests(vocab: int, lengths, seed: int = 0):
     """32 new tokens each; even requests greedy, odd ones temperature 0.8
@@ -825,23 +840,26 @@ def _drive(engine, reqs) -> dict:
         engine.submit(r)
     ttft = {}
     decode_steps_ms = []
+    retire_steps_ms = []
     decode_tokens = 0
     while engine.has_work():
         before = sum(engine.prefill_counts().values())
         n_tok = sum(len(r.tokens) for r in reqs)
         t = time.perf_counter()
-        engine.step()
+        retired = engine.step()
         dt = time.perf_counter() - t
         now = time.perf_counter()
         for r in reqs:
             if r.tokens and r.request_id not in ttft:
                 ttft[r.request_id] = now - t_submit
+        if retired:
+            retire_steps_ms.append(dt * 1e3)
         if sum(engine.prefill_counts().values()) == before:
             decode_steps_ms.append(dt * 1e3)
             decode_tokens += sum(len(r.tokens) for r in reqs) - n_tok
     return {"wall": time.perf_counter() - t_submit,
             "ttft": sorted(ttft.values()), "steps_ms": decode_steps_ms,
-            "tokens": decode_tokens}
+            "tokens": decode_tokens, "retire_ms": retire_steps_ms}
 
 
 def _check_outputs(reqs, vocab: int) -> None:
@@ -928,8 +946,7 @@ def _serve_paged(model, cfg, tag: str, note: str, during=None) -> tuple:
     if engine.kv_mode != "paged":
         raise AssertionError(f"{cfg.arch_id} served in {engine.kv_mode} "
                              "mode, not paged")
-    reqs = _serving_requests(cfg.vocab_size,
-                             [2048, 1000, 513, 300, 128, 64, 17, 1500])
+    reqs = _serving_requests(cfg.vocab_size, SERVE_LENGTHS)
     reqs[7].prompt[:512] = reqs[0].prompt[:512]   # a shared 512-token prefix
     base = _warm_up(engine)
     with during or contextlib.nullcontext():
@@ -1721,8 +1738,7 @@ def phase_chunked_and_rebatching() -> dict:
         engine = ServingEngine(model, ServerConfig(
             max_batch=4, max_seq=4096, kv_mode="dense",
             incremental=incremental))
-        reqs = _serving_requests(cfg.vocab_size,
-                                 [2048, 1000, 513, 300, 128, 64, 17, 1500])
+        reqs = _serving_requests(cfg.vocab_size, SERVE_LENGTHS)
         base = _warm_up(engine)
         run, launches, peak = _drive_counted(engine, reqs)
         stats = engine.serving_stats()
@@ -1899,6 +1915,298 @@ def phase_moe_dense() -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 11
+
+#: the device of every tensor the sort post-processor received, trace
+#: included (a module global: a closure cell would enter the admission
+#: cache key)
+_UDF_DEVICES: list = []
+
+
+def _sort_udf(t):
+    _UDF_DEVICES.append(t.device.type)
+    return torch.sort(t).values
+
+
+def _flip_udf(t):
+    return torch.flip(t, (0,))
+
+
+def _leak_udf(t):
+    return torch.ops.seepp_smoke.leak(t)
+
+
+def _raise_udf(t):
+    raise ValueError("bad post-code")
+
+
+def _register_leak() -> None:
+    """A custom op with a fake registration: host code that the Sentry
+    must deny (the counterpart of the reference's ``pure_callback``)."""
+    @torch.library.custom_op("seepp_smoke::leak", mutates_args=())
+    def leak(x: torch.Tensor) -> torch.Tensor:
+        return x.clone()
+
+    @leak.register_fake
+    def _(x):
+        return torch.empty_like(x)
+
+
+def _scrape(url: str) -> dict:
+    """``/metrics`` as {series: value}."""
+    import urllib.request
+
+    body = urllib.request.urlopen(url, timeout=10).read().decode()
+    out = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def _check_metrics(srv, tag: str) -> None:
+    """``/metrics`` on 127.0.0.1 (ephemeral port) against the engine's,
+    the controller's and the pool's own counters."""
+    pool = srv.pool
+    tenant = "serving"
+    t0 = time.perf_counter()      # let the refiller reach its watermark
+    while (pool.idle_count(tenant) < pool.refill_target(tenant)
+           and time.perf_counter() - t0 < 5):
+        time.sleep(0.01)
+    endpoint = srv.serve_metrics(port=0, host="127.0.0.1")
+    got = _scrape(endpoint.url)
+    stats = srv.engine.serving_stats()
+    adm = srv.admission.stats()
+    ps = pool.stats.as_dict()
+    lab = '{tenant="serving"}'
+    want = {
+        "seepp_serving_decode_steps_total": stats["decode_steps_total"],
+        "seepp_serving_tokens_total" + lab: stats["tokens_total"][tenant],
+        "seepp_serving_admitted_total" + lab: stats["admitted_total"][tenant],
+        "seepp_serving_completed_total" + lab:
+            stats["completed_total"][tenant],
+        "seepp_serving_kv_pages_allocated_total":
+            stats["kv_pages_allocated_total"],
+        "seepp_serving_kv_pages_freed_total": stats["kv_pages_freed_total"],
+        "seepp_serving_prefix_hits_total": stats["prefix_hits_total"],
+        "seepp_admission_cache_hit_total": adm["hits"],
+        "seepp_admission_cache_miss_total": adm["misses"],
+        "seepp_admission_denied_total": adm["denials"],
+        "seepp_admission_cache_entries": adm["entries"],
+        "seepp_pool_hit_total": ps["hits"],
+        "seepp_pool_miss_total": ps["misses"],
+        "seepp_pool_discard_total": ps["discards"],
+        "seepp_pool_prewarm_total": ps["prewarmed"],
+        "seepp_pool_refill_total": ps["refills"],
+    }
+    bad = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if bad:
+        raise AssertionError(f"[{tag}] /metrics against the stats: {bad}")
+    log(f"[{tag}] /metrics at {endpoint.url}: {len(got)} series; "
+        f"{len(want)} serving/admission/pool counters equal the stats")
+
+
+def _server_run(model, cfg, tag: str, posts, **server_kw) -> tuple:
+    """Phase 4's requests (``posts[i]`` the i-th one's post-processor)
+    through ``Server`` after a warm-up request; holds the ledgers and the
+    launch counts (K1 = decode steps x layers, K2 = full prefills x
+    layers, K3 = K4 = 0).  Returns (requests, run, launches, server
+    counters, host ms spent in the engine's postprocess hook)."""
+    from repro_torch.runtime import Server, ServerConfig
+
+    gc.collect()               # the previous run's server and its pages
+    srv = Server(model, ServerConfig(
+        max_batch=4, max_seq=4096, prefix_cache_seqs=4, **server_kw))
+    try:
+        engine = srv.engine
+        if engine.kv_mode != "paged":
+            raise AssertionError(f"{tag}: kv_mode {engine.kv_mode}")
+        reqs = _serving_requests(cfg.vocab_size, SERVE_LENGTHS)
+        reqs[7].prompt[:512] = reqs[0].prompt[:512]
+        for r, post in zip(reqs, posts):
+            r.postprocess = post
+        base = _warm_up(engine)
+        hook = engine._postprocess
+        post_s = [0.0]
+
+        def timed_postprocess(r):
+            t = time.perf_counter()
+            hook(r)
+            post_s[0] += time.perf_counter() - t
+
+        engine._postprocess = timed_postprocess
+        run, launches, peak = _drive_counted(engine, reqs)
+        srv.drain()                      # joins the concurrent plane
+        engine._postprocess = hook
+        stats = engine.serving_stats()
+        steps = stats["decode_steps_total"] - base["decode_steps_total"]
+        shared = stats["prefix_hits_total"] - base["prefix_hits_total"]
+        full_prefills = (stats["prefill_sequences_total"]["incremental"]
+                         - base["prefill_sequences_total"]["incremental"]
+                         - shared)
+        if launches["paged_attention"] != steps * cfg.num_layers:
+            raise AssertionError(
+                f"{tag}: paged_attention launches "
+                f"{launches['paged_attention']} != {steps} x "
+                f"{cfg.num_layers}")
+        if launches["flash_attention"] != full_prefills * cfg.num_layers:
+            raise AssertionError(
+                f"{tag}: flash_attention launches "
+                f"{launches['flash_attention']} != {full_prefills} x "
+                f"{cfg.num_layers}")
+        if launches["wkv6"] or launches["segment_zero"]:
+            raise AssertionError(f"{tag}: the paged path launched {launches}")
+        _check_metrics(srv, tag)
+        engine.flush_prefix_cache()
+        _check_ledgers(engine, engine.serving_stats())
+        counters = {"admission": srv.admission.stats(),
+                    "pool": srv.pool.stats.as_dict(),
+                    "cold": _mean_ms(srv, "admission.cold_seconds"),
+                    "warm": _mean_ms(srv, "admission.warm_seconds")}
+    finally:
+        srv.close()
+    log(f"[{tag}] decode steps {steps}, full prefills {full_prefills}, "
+        f"prefix hits {shared}; launches: paged_attention "
+        f"{launches['paged_attention']} = {steps} x {cfg.num_layers}, "
+        f"flash_attention {launches['flash_attention']} = {full_prefills} "
+        f"x {cfg.num_layers}, wkv6 0, segment_zero 0; pages allocated = "
+        f"freed, slot ledger balanced")
+    _log_timings(tag, run, peak, f" [{SERVE_LAYERS}-layer depth cut]")
+    retire = run["retire_ms"]
+    log(f"[{tag}] {len(retire)} retire steps: {[round(t, 2) for t in retire]}"
+        f" ms; the postprocess hook {post_s[0] * 1e3:.2f} ms in all "
+        f"({100 * post_s[0] * 1e3 / sum(retire):.1f}% of the retire steps' "
+        f"host time)")
+    return reqs, run, launches, counters
+
+
+def _mean_ms(srv, name: str) -> tuple:
+    """(count, mean ms) of a telemetry histogram over its tenants."""
+    n = total = 0.0
+    for (hist_name, _), hist in srv.telemetry.histograms().items():
+        if hist_name == name:
+            n += hist.count
+            total += hist.sum
+    return int(n), (1e3 * total / n if n else float("nan"))
+
+
+def _check_postprocessed(tag: str, reqs, plain, counters, workers: bool):
+    """Good requests: the UDF on the plain run's stream; the callback
+    denied and the raise failed on their own requests; admission misses =
+    the distinct (program, shape) pairs (+1 with workers: the scheduler
+    retries the raising program once, and its trace fails again)."""
+    for r, p in zip(reqs, plain):
+        want = torch.tensor(p.tokens, dtype=torch.int32)
+        if r.postprocess is _sort_udf:
+            want = torch.sort(want).values
+        elif r.postprocess is _flip_udf:
+            want = torch.flip(want, (0,))
+        elif r.postprocess is _leak_udf:
+            if not (r.error or "").startswith("postprocess denied") \
+                    or "seepp_smoke.leak" not in r.error:
+                raise AssertionError(f"{tag}: the callback was not denied: "
+                                     f"{r.error}")
+            continue
+        elif r.postprocess is _raise_udf:
+            if not (r.error or "").startswith("postprocess failed") \
+                    or "bad post-code" not in r.error:
+                raise AssertionError(f"{tag}: the raise did not fail its "
+                                     f"request: {r.error}")
+            continue
+        if r.error or r.tokens != want.tolist():
+            raise AssertionError(
+                f"{tag}: request {r.request_id} {r.error} {r.tokens} != "
+                f"{want.tolist()}")
+    adm = counters["admission"]
+    distinct = 4                          # sort, flip, callback, raise at (32,)
+    want = {"misses": distinct + (1 if workers else 0), "denials": 1,
+            "hits": len(reqs) - distinct}
+    if {k: adm[k] for k in want} != want:
+        raise AssertionError(f"{tag}: admission {adm}, expected {want}")
+    if not _UDF_DEVICES or set(_UDF_DEVICES) != {"cuda"}:
+        raise AssertionError(f"{tag}: the UDF saw {set(_UDF_DEVICES)}")
+    log(f"[{tag}] 6 post-processed streams equal the UDF on the plain run's"
+        f" streams; callback denied, raise failed, the rest served; "
+        f"admission {adm}; pool {counters['pool']}; the sort UDF saw only "
+        f"CUDA tensors ({len(_UDF_DEVICES)} calls, traces included); "
+        f"admission cold {counters['cold'][0]} x {counters['cold'][1]:.3f} "
+        f"ms, warm {counters['warm'][0]} x {counters['warm'][1]:.4f} ms")
+
+
+def _admission_costs() -> None:
+    """Cold against warm admission of a sort UDF, and the sandbox's verify
+    against interpret mode, on a 4096-token int32 CUDA tensor (host clock
+    around a synchronized call, medians)."""
+    from repro_torch.core import (
+        AdmissionController, ModernEmulationPolicy, Sandbox)
+
+    x = torch.randint(0, 152064, (4096,), dtype=torch.int32, device="cuda")
+    pol = ModernEmulationPolicy()
+    ctl = AdmissionController()
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(out))
+
+    fns = [(lambda: lambda t: torch.sort(t).values)() for _ in range(6)]
+    it = iter(fns)
+    cold = timed(lambda: ctl.admit(next(it), (x,), policy=pol), 5)
+    warm = timed(lambda: ctl.admit(fns[0], (x,), policy=pol), 50)
+    sort = fns[0]
+    verify = Sandbox(policy=pol, admission=ctl, mode="verify")
+    interp = Sandbox(policy=pol, admission=ctl, mode="interpret")
+    if not torch.equal(verify.run(sort, x).value, interp.run(sort, x).value):
+        raise AssertionError("interpret and verify disagree on the sort")
+    v_ms = timed(lambda: verify.run(sort, x), 20)
+    i_ms = timed(lambda: interp.run(sort, x), 20)
+    plain_ms = timed(lambda: torch.sort(x), 20)
+    log(f"[admission] sort UDF on a 4096-token int32 CUDA tensor: cold "
+        f"admission {cold:.3f} ms, warm {warm * 1e3:.1f} us "
+        f"({cold / warm:.0f} x); Sandbox.run verify {v_ms:.3f} ms, "
+        f"interpret {i_ms:.3f} ms, torch.sort alone {plain_ms:.3f} ms "
+        "(host clock, medians, synchronized)")
+
+
+def phase_server() -> dict:
+    """qwen2.5-32b at phase 4's 8-layer cut, paged, served through
+    ``Server`` three times: without post-processors (the plain streams),
+    with them inline, and on the concurrent plane (2 workers, warm pool
+    watermark 2, heartbeats at 30 s).  Returns the launches summed."""
+    from repro_torch.configs import get_config
+
+    _register_leak()
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=SERVE_LAYERS)
+    model = _model_on_card(cfg, "server", " (of 64)")
+    total = {}
+    plain, _, launches, _ = _server_run(model, cfg, "server-plain",
+                                        [None] * 8)
+    _check_outputs(plain, cfg.vocab_size)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    # each retiring group of 4 has distinct programs, so no two cold
+    # admissions of one program race on the workers
+    posts = [_sort_udf, _flip_udf, _leak_udf, _raise_udf] + [_sort_udf] * 4
+    for tag, kw in (("server-inline", {}),
+                    ("server-workers", dict(workers=2, pool_watermark=2,
+                                            heartbeat_timeout_s=30.0))):
+        _UDF_DEVICES.clear()
+        reqs, _, launches, counters = _server_run(model, cfg, tag, posts,
+                                                  **kw)
+        _check_postprocessed(tag, reqs, plain, counters, bool(kw))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    _admission_costs()
+    return total
+
+
 def _free_card() -> None:
     """Frees what a serving phase left behind (its model and engine are
     garbage once it returns) and logs what stays allocated."""
@@ -1913,7 +2221,7 @@ def _free_card() -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
@@ -1938,11 +2246,11 @@ def main(argv=None) -> int:
         check_small_head_dims()
         results["wkv6"] = check_wkv6()
         results["segment_zero"] = check_segment_zero()
-    # each kernel's launches on the serving paths, by phase (K1: phases 4, 8
-    # and 9; K2: 4, 7, 8, 9 and 10; K3: 6); K4 is on no path
+    # each kernel's launches on the serving paths, by phase (K1: phases 4,
+    # 8, 9 and 11; K2: 4, 7, 8, 9, 10 and 11; K3: 6); K4 is on no path
     runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
             7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
-            9: phase_moe_paged, 10: phase_moe_dense}
+            9: phase_moe_paged, 10: phase_moe_dense, 11: phase_server}
     by_phase = {name: {} for name in _launch_counters()}
     for n, phase in runs.items():
         if n in phases:
@@ -1950,7 +2258,7 @@ def main(argv=None) -> int:
                 if count:
                     by_phase[name][n] = count
             _free_card()
-    if not set(range(3, 11)) <= phases:
+    if not set(range(3, 12)) <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {

@@ -1,23 +1,96 @@
-"""Host substrate of the port: the arena, executors, telemetry and the
-admission slot ledger the serving engine needs.
+"""SEE++ core of the port — the paper's contribution on PyTorch.
 
-``vma``, ``mm``, ``arena``, ``sim`` and ``telemetry`` are verbatim copies
-of the reference's numpy-only modules (importing ``repro.core`` would pull
-in jax through ``sentry``).  ``tasks`` and ``admission`` hold only the
-pieces the serving engine uses; the rest waits for the control-plane
-slice (see ROADMAP.md).
+=================  =========================================================
+``policy``         legacy allowlist vs modern Sentry-emulation policies over
+                   aten-graph operator names
+``sentry``         aten-graph interception, emulation, resource metering
+``admission``      unified admission control plane: policy verification +
+                   budget pre-check + image-digest check behind a
+                   program-fingerprint verification cache (pay interception
+                   cost once at load time), and the quota-slot ledger
+``pool``           warm sandbox pool: per-tenant checkout/checkin,
+                   pre-warming, background refill, LRU eviction
+``telemetry``      structured audit/metrics events; one sink for every
+                   admission layer (counters + latency histograms)
+``metrics``        Prometheus text exposition of the whole control plane
+``vma`` / ``mm``   §IV.A virtual-memory management
+``arena``          device-memory arena / paged-KV allocator built on ``mm``
+``image``          §III.B standardized base image
+``gofer``          mediated (capability-checked) I/O
+``sandbox``        per-tenant facade combining all of the above
+``sim``            execution substrate: real threads + wall clock in
+                   production, seeded cooperative interleaving + virtual
+                   clock under test
+``tasks``          §V.A serverless multi-tenant scheduler
+=================  =========================================================
+
+``vma``, ``mm``, ``arena``, ``sim``, ``telemetry``, ``metrics`` and
+``gofer`` are copies of the reference's modules, and ``pool`` and
+``tasks`` are the reference's files with their imports pointed here: the
+port imports nothing of ``repro``.  ``artifacts``, ``elf`` and ``loader``
+are not ported yet (ROADMAP.md, queue 1, item 8).
 """
 
-from .admission import AdmissionController
+from .admission import (
+    AdmissionController,
+    AdmissionTicket,
+    ImageDigestError,
+    default_controller,
+)
 from .arena import DeviceArena, PagedKVAllocator, PrefixIndex, SequencePages
+from .gofer import Capability, CapabilityError, Gofer
+from .image import DEFAULT_IMAGE, BaseImage, DtypePolicy, ImageSpec
+from .metrics import MetricsHTTPServer, MetricsRegistry
 from .mm import MemoryManager, MMConfig
-from .sim import Executor, SimExecutor, ThreadExecutor
-from .tasks import TenantQuota
-from .telemetry import TelemetrySink, resolve_sink
+from .policy import (
+    DANGEROUS_PRIMITIVES,
+    LEGACY_ALLOWLIST,
+    LegacyFilterPolicy,
+    ModernEmulationPolicy,
+    SandboxPolicy,
+    SandboxViolation,
+)
+from .pool import PoolStats, SandboxPool
+from .sandbox import Sandbox, SandboxResult
+from .sentry import (
+    BudgetExceeded,
+    ResourceMeter,
+    SentryInterpreter,
+    sandboxed,
+    static_verify,
+)
+from .sim import (
+    Clock,
+    Executor,
+    RealClock,
+    SimDeadlock,
+    SimExecutor,
+    ThreadExecutor,
+    VirtualClock,
+    WorkerKilled,
+)
+from .tasks import (
+    CancelToken,
+    ServerlessScheduler,
+    TaskPreempted,
+    TaskRecord,
+    TaskSpec,
+    TaskState,
+    TenantQuota,
+    checkpoint,
+    current_cancel_token,
+)
+from .telemetry import Histogram, TelemetryEvent, TelemetrySink, resolve_sink
+from .vma import (
+    MAX_MAP_COUNT,
+    AddrRange,
+    Direction,
+    FileRangeAllocator,
+    HostMapping,
+    VMA,
+    VMAExhaustedError,
+    VMASet,
+    coalesce_host_mappings,
+)
 
-__all__ = [
-    "AdmissionController", "DeviceArena", "Executor", "MMConfig",
-    "MemoryManager", "PagedKVAllocator", "PrefixIndex", "SequencePages",
-    "SimExecutor", "TelemetrySink", "TenantQuota", "ThreadExecutor",
-    "resolve_sink",
-]
+__all__ = [n for n in dir() if not n.startswith("_")]

@@ -1,8 +1,10 @@
 """Serving launcher: continuous batching over the KV arena, in PyTorch.
 
-The counterpart of ``repro.launch.serve``, limited to the flags the
-ported engine honours, plus ``--device`` (default ``cuda``; CUDA asked
-for and absent is an error, never a silent CPU run).  Weights are random,
+The counterpart of ``repro.launch.serve``: it serves through
+:class:`~repro_torch.runtime.Server` (warm postprocess sandbox pool,
+optional concurrent postprocess workers, ``/metrics``), with the
+reference's flags plus ``--device`` (default ``cuda``; CUDA asked for and
+absent is an error, never a silent CPU run).  Weights are random,
 drawn on the device from ``torch.Generator(device).manual_seed(0)``.  By
 default (``--kv-mode auto``) the engine picks its mode: paged for the
 dense and MoE transformers that can decode from pages (``--arch
@@ -12,7 +14,9 @@ llama4-scout-17b-a16e``) and for RWKV (``--arch rwkv6-3b``);
 ``--no-incremental`` runs the rebatching baseline (dense).
 
 Examples (full size on the card; ``--reduced --device cpu`` for the smoke
-config on the CPU)::
+config on the CPU; ``--workers 2 --pool-watermark 1 --metrics-port 0``
+for the concurrent postprocess plane, its warm pool and an ephemeral
+``/metrics`` endpoint)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2.5-32b --requests 8 --max-seq 256 --device cuda
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
@@ -34,7 +39,7 @@ from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.core.tasks import TenantQuota
 from repro_torch.models import build_model
 from repro_torch.models.common import resolve_device
-from repro_torch.runtime import Request, ServerConfig, ServingEngine
+from repro_torch.runtime import Request, Server, ServerConfig
 
 
 def main(argv=None) -> None:
@@ -48,6 +53,24 @@ def main(argv=None) -> None:
     ap.add_argument("--legacy-arena", action="store_true",
                     help="A/B: run the KV arena under the paper's buggy "
                          "legacy allocator")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve Prometheus text metrics on "
+                         "http://127.0.0.1:PORT/metrics (0 = ephemeral)")
+    ap.add_argument("--pool-watermark", type=int, default=0,
+                    help="keep this many warm postprocess sandboxes via "
+                         "the background refiller (0 = off)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="run request post-processors on this many "
+                         "concurrent scheduler workers (0 = inline)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="reap postprocess workers silent this long "
+                         "mid-task; their task requeues exactly once and "
+                         "a replacement worker is spawned (0 = off; "
+                         "needs --workers > 0)")
+    ap.add_argument("--hold", type=float, default=0.0, metavar="SECONDS",
+                    help="keep the process (and /metrics) alive after the "
+                         "batch completes, e.g. to scrape it")
     ap.add_argument("--tenant", default="serving", metavar="NAMES",
                     help="comma-separated tenant names assigned to the "
                          "requests round-robin")
@@ -90,12 +113,17 @@ def main(argv=None) -> None:
         {t: TenantQuota(max_tasks_in_flight=args.quota) for t in tenants}
         if args.quota > 0 else None
     )
-    engine = ServingEngine(model, ServerConfig(
+    srv = Server(model, ServerConfig(
         max_batch=args.max_batch, max_seq=args.max_seq,
-        mm_legacy=args.legacy_arena, quotas=quotas,
-        incremental=not args.no_incremental, kv_mode=args.kv_mode,
+        mm_legacy=args.legacy_arena, pool_watermark=args.pool_watermark,
+        workers=args.workers, heartbeat_timeout_s=args.heartbeat_timeout,
+        incremental=not args.no_incremental, quotas=quotas,
+        kv_mode=args.kv_mode,
     ))
-    print(f"[serve] device: {device} kv_mode: {engine.kv_mode}")
+    print(f"[serve] device: {device} kv_mode: {srv.engine.kv_mode}")
+    if args.metrics_port is not None:
+        endpoint = srv.serve_metrics(port=args.metrics_port)
+        print(f"[serve] metrics: {endpoint.url}")
     rng = np.random.default_rng(0)
     reqs = [
         Request(
@@ -108,9 +136,7 @@ def main(argv=None) -> None:
         )
         for i in range(args.requests)
     ]
-    for r in reqs:
-        engine.submit(r)
-    done = engine.drain()
+    done = srv.run(reqs)
     for r in sorted(done, key=lambda r: r.request_id):
         status = f"ERROR: {r.error}" if r.error else (
             f"{len(r.tokens)} tokens "
@@ -119,12 +145,20 @@ def main(argv=None) -> None:
         print(f"[serve] req {r.request_id} [{r.tenant}]: {status} "
               f"latency {r.latency_s*1e3:.0f}ms")
     print(f"[serve] arena ({'legacy' if args.legacy_arena else 'modern'}): "
-          f"{json.dumps(engine.arena_report()['mm_stats'])}")
-    stats = engine.serving_stats()
+          f"{json.dumps(srv.arena_report()['mm_stats'])}")
+    stats = srv.engine.serving_stats()
     print(f"[serve] kv pages: allocated={stats['kv_pages_allocated_total']} "
           f"freed={stats['kv_pages_freed_total']} "
           f"sampled={json.dumps(stats['sampled_tokens_total'])} "
           f"prefills={json.dumps(stats['prefill_sequences_total'])}")
+    if args.metrics_port is not None:
+        pool = {k: v for k, v in srv.dump_metrics().items()
+                if k.startswith("seepp_pool")}
+        print(f"[serve] pool metrics: {json.dumps(pool)}")
+        if args.hold > 0:
+            print(f"[serve] holding /metrics open for {args.hold:.0f}s ...")
+            time.sleep(args.hold)
+    srv.close()
 
 
 if __name__ == "__main__":

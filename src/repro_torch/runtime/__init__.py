@@ -1,5 +1,5 @@
 from .sampling import sample_token, sampler_method
-from .serve_loop import Request, ServerConfig, ServingEngine
+from .serve_loop import Request, Server, ServerConfig, ServingEngine
 
-__all__ = ["Request", "ServerConfig", "ServingEngine", "sample_token",
-           "sampler_method"]
+__all__ = ["Request", "Server", "ServerConfig", "ServingEngine",
+           "sample_token", "sampler_method"]

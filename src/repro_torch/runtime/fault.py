@@ -6,16 +6,19 @@ package.  The classes are unchanged:
 
 * :class:`HeartbeatMonitor` — per-worker liveness with a miss threshold,
   on any clock (``clock=executor.now`` judges by virtual time under
-  :class:`~repro_torch.core.sim.SimExecutor`).
+  :class:`~repro_torch.core.sim.SimExecutor`); the scheduler's
+  ``enable_heartbeats`` uses it.
 * :class:`StragglerDetector` — robust (median/MAD) per-worker step-time
   z-scores; persistent outliers are flagged for eviction.
 * :class:`FailureInjector` — deterministic chaos plans.  Its serving plane
   (:meth:`FailureInjector.arm_serving`) schedules batch kills and arena,
   shared-prefix and mid-prefill poisonings onto a ``SimExecutor`` against
-  :class:`~repro_torch.runtime.serve_loop.ServingEngine`.  The scheduler,
-  replica and autoscaler planes it can also arm (:meth:`arm`,
-  :meth:`arm_replicas`, :meth:`arm_orchestrator`) are duck-typed and have
-  no counterpart in the port yet (ROADMAP.md queue 1, items 6 and 9).
+  :class:`~repro_torch.runtime.serve_loop.ServingEngine`, and :meth:`arm`
+  schedules node kills and slowdowns against
+  :class:`~repro_torch.core.tasks.ServerlessScheduler` workers.  The
+  replica and autoscaler planes (:meth:`arm_replicas`,
+  :meth:`arm_orchestrator`) are duck-typed and have no counterpart in the
+  port yet (ROADMAP.md queue 1, item 9).
 """
 
 from __future__ import annotations

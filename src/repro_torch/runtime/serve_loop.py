@@ -31,15 +31,22 @@ pages: re-admission resumes), ``evacuate``, ``poison_live`` /
 ``poison_shared`` / ``poison_prefilling`` and arena-poison eviction;
 ``serving_stats`` and the decision trace.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item (queue 1, item 4): ``Request.postprocess`` (4d) and a
-``mesh`` (4e).  :class:`ServerConfig` has no fields for the ``Server``
-options (``pool_watermark``, ``workers``, ``heartbeat_timeout_s``): they
-come with ``Server`` (4d), and passing one fails as an unknown keyword.
+A retired request's ``Request.postprocess`` runs on its token tensor
+(int32, on the engine's device: on the card, user post-code runs on the
+card) after its pages and slot are released: inline, through a sandbox
+from the warm pool, or on the scheduler's workers (the concurrent plane,
+joined in ``drain()``).  A denied or failing post-processor marks its own
+request's ``error`` and never takes down the batch.  :class:`Server` is
+the production wrapper that owns that pool, the scheduler and the
+metrics, as in the reference.
 
-The model owns its weights (an ``nn.Module``), so the engine takes no
-``params`` argument; the reference's jitted, donating wrappers become
-direct calls that update the page pool and the slot state in place.
+Not ported yet: a ``mesh`` (ROADMAP.md queue 1, item 4e) raises
+``NotImplementedError`` that names its item.
+
+The model owns its weights (an ``nn.Module``), so the engine and
+``Server`` take no ``params`` argument; the reference's jitted, donating
+wrappers become direct calls that update the page pool and the slot state
+in place.
 """
 
 from __future__ import annotations
@@ -57,13 +64,20 @@ import torch
 
 from repro_torch.core.admission import AdmissionController
 from repro_torch.core.arena import PagedKVAllocator
+from repro_torch.core.metrics import MetricsHTTPServer, MetricsRegistry
 from repro_torch.core.mm import MMConfig
+from repro_torch.core.policy import SandboxViolation
+from repro_torch.core.pool import SandboxPool
+from repro_torch.core.sandbox import Sandbox
+from repro_torch.core.sentry import BudgetExceeded
 from repro_torch.core.sim import Executor, ThreadExecutor
-from repro_torch.core.tasks import TenantQuota
+from repro_torch.core.tasks import (
+    ServerlessScheduler, TaskSpec, TaskState, TenantQuota,
+)
 from repro_torch.core.telemetry import TelemetrySink, resolve_sink
 from repro_torch.runtime.sampling import sample_token
 
-__all__ = ["Request", "ServerConfig", "ServingEngine"]
+__all__ = ["Request", "ServerConfig", "Server", "ServingEngine"]
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -77,7 +91,7 @@ class Request:
     prompt: np.ndarray                   # (S,) int32
     max_new_tokens: int = 16
     request_id: int = 0
-    postprocess: Optional[Callable] = None   # not ported yet (item 4d)
+    postprocess: Optional[Callable] = None
     tenant: str = "serving"              # admission identity
     priority: int = 10                   # lower = admitted sooner
     #: seconds after arrival by which the request must be *admitted*;
@@ -94,7 +108,7 @@ class Request:
     tokens: List[int] = field(default_factory=list)
     done: bool = False
     latency_s: float = 0.0               # from *arrival*, not server start
-    error: Optional[str] = None          # denial/expiry failure
+    error: Optional[str] = None          # denial/expiry/postprocess failure
     arrived_at: Optional[float] = None   # executor clock, stamped at submit
     admitted_at: Optional[float] = None  # first admission
 
@@ -105,6 +119,14 @@ class ServerConfig:
     max_seq: int = 256
     tokens_per_page: int = 16
     mm_legacy: bool = False              # paper A/B: legacy vs modern arena
+    pool_watermark: int = 0              # >0: refill postprocess pool async
+    workers: int = 0                     # >0: concurrent postprocess plane
+    #: >0: reap postprocess workers silent this long mid-task (their task
+    #: requeues exactly once, a replacement worker is spawned).  Post-
+    #: processors legitimately running longer than this must call
+    #: ``repro_torch.core.checkpoint()`` periodically — it heartbeats the
+    #: worker (and honors preemption), so live progress is never reaped
+    heartbeat_timeout_s: float = 0.0
     #: per-slot incremental prefill; False = the rebatching baseline (every
     #: admission re-prefills the whole dense batch), for A/B
     incremental: bool = True
@@ -157,6 +179,9 @@ class ServingEngine:
         kv: Optional[PagedKVAllocator] = None,
         admission: Optional[AdmissionController] = None,
         telemetry: Optional[TelemetrySink] = None,
+        pool: Optional[SandboxPool] = None,
+        scheduler: Optional[ServerlessScheduler] = None,
+        postprocess_tenant: str = "serving",
         mesh=None,
     ) -> None:
         if mesh is not None:
@@ -167,6 +192,9 @@ class ServingEngine:
         self._exec = executor or ThreadExecutor()
         self.telemetry = resolve_sink(admission, telemetry)
         self.admission = admission or AdmissionController(sink=self.telemetry)
+        self.pool = pool
+        self.scheduler = scheduler
+        self._post_tenant = postprocess_tenant
         self.kv = kv if kv is not None else self._build_kv(model, cfg)
         self._lock = threading.RLock()
         self._chunked = cfg.prefill_chunk_tokens > 0
@@ -186,6 +214,8 @@ class ServingEngine:
         self._deadlines: List[Tuple[float, int, Request]] = []
         self._live_ids: set = set()        # queued or slotted request ids
         self._seq = itertools.count()
+        #: (task_id, request) pairs awaiting the concurrent postprocess join
+        self._post_tasks: Deque[Tuple[int, Request]] = deque()
         self.completed: List[Request] = []
         self._trace: Deque[str] = deque(maxlen=cfg.trace_limit or None)
 
@@ -393,8 +423,6 @@ class ServingEngine:
         Denied on the spot when the tenant's quota allows zero slots, the
         prompt is empty, the request can never fit, or its id is live.
         """
-        if r.postprocess is not None:
-            raise _unported("Request.postprocess", "4d")
         with self._lock:
             if r.arrived_at is None:
                 r.arrived_at = self._exec.now()
@@ -912,6 +940,9 @@ class ServingEngine:
                     self.kv.append_tokens(self._seq_id(r), 1)
                 self._tokens_n[r.tenant] = self._tokens_n.get(r.tenant, 0) + 1
                 if len(r.tokens) >= r.max_new_tokens:
+                    # release the KV pages and the slot *before* any user
+                    # post-code runs: a failing post-processor can never
+                    # leak them, and the slot is immediately reusable
                     r.done = True
                     if not self._park_locked(r):
                         self.kv.drop_sequence(self._seq_id(r))
@@ -920,7 +951,11 @@ class ServingEngine:
                     self._last_tok_t.pop(r.request_id, None)
                     self._note("retire", r, f"slot={i}")
                     retiring.append(r)
-            for r in retiring:
+        for r in retiring:
+            # postprocess outside the engine lock: user code must never
+            # gate submit(), metrics scrapes or the chaos hooks
+            self._postprocess(r)
+            with self._lock:
                 self._finish_locked(r)
         if retiring:
             self._exec.notify()
@@ -962,6 +997,71 @@ class ServingEngine:
                     n += 1
             return n
 
+    def _post_input(self, r: Request) -> torch.Tensor:
+        """The token stream user post-code receives, on the engine's
+        device."""
+        return torch.tensor(r.tokens, dtype=torch.int32, device=self.device)
+
+    def _postprocess(self, r: Request) -> None:
+        """Dispatch or run the user post-processor for a retired request.
+
+        A sandbox denial marks ``r.error`` (tenant isolation) instead of
+        taking down the batch.
+        """
+        if r.postprocess is None:
+            return
+        if self.scheduler is not None:
+            # concurrent plane: decode never blocks on user code;
+            # results are joined in drain()
+            self._post_tasks.append((
+                self.scheduler.submit(TaskSpec(
+                    self._post_tenant,
+                    r.postprocess,
+                    (self._post_input(r),),
+                    name=f"post-req{r.request_id}",
+                )),
+                r,
+            ))
+        else:
+            self._postprocess_inline(r)
+
+    def _postprocess_inline(self, r: Request) -> None:
+        if self.pool is None:
+            try:
+                out = r.postprocess(self._post_input(r))
+                r.tokens = [int(t) for t in out.tolist()]
+            except Exception as e:
+                r.error = f"postprocess failed: {e}"
+                self.telemetry.emit(
+                    "serving", "postprocess_failed", tenant=r.tenant,
+                    detail=r.error,
+                )
+            return
+        sb = self.pool.checkout(self._post_tenant)
+        discard = False
+        try:
+            out = sb.run(r.postprocess, self._post_input(r))
+            r.tokens = [int(t) for t in out.value.tolist()]
+        except Exception as e:
+            # the serial plane isolates user post-code exactly like the
+            # concurrent plane: the request carries the error, the
+            # tainted sandbox is discarded, the engine keeps serving.
+            # Sandbox.run re-raises arbitrary user exceptions, so this
+            # must catch everything, not just SandboxViolation/Budget
+            discard = True
+            kind = (
+                "denied"
+                if isinstance(e, (SandboxViolation, BudgetExceeded))
+                else "failed"
+            )
+            r.error = f"postprocess {kind}: {e}"
+            self.telemetry.emit(
+                "serving", "postprocess_failed", tenant=r.tenant,
+                detail=r.error,
+            )
+        finally:
+            self.pool.checkin(sb, discard=discard)
+
     def _finish_locked(self, r: Request, *, release_id: bool = True) -> None:
         r.done = True
         if release_id:
@@ -987,7 +1087,7 @@ class ServingEngine:
             )
 
     def drain(self, timeout: float = 300.0) -> List[Request]:
-        """Run steps until queue and slots are empty."""
+        """Run steps until queue and slots are empty; join postprocessors."""
         deadline = time.monotonic() + timeout
         while self.has_work():
             self.step()
@@ -997,7 +1097,27 @@ class ServingEngine:
                 raise TimeoutError(
                     f"drain: work remaining after {timeout}s wall time"
                 )
+        self._join_post_tasks()
         return self.completed
+
+    def _join_post_tasks(self) -> None:
+        if not self._post_tasks:
+            return
+        # join the concurrent postprocess plane: a denied/failed
+        # post-processor marks its own request and never takes down
+        # the batch (tenant isolation extends to user post-code)
+        self.scheduler.drain()
+        while self._post_tasks:
+            task_id, r = self._post_tasks.popleft()
+            rec = self.scheduler.record(task_id)
+            if rec.state is TaskState.SUCCEEDED:
+                r.tokens = [int(t) for t in rec.result.value.tolist()]
+            else:
+                r.error = f"postprocess {rec.state.value}: {rec.error}"
+                self.telemetry.emit(
+                    "serving", "postprocess_failed", tenant=r.tenant,
+                    detail=r.error,
+                )
 
     # --------------------------------------------------------------- chaos
 
@@ -1206,6 +1326,21 @@ class ServingEngine:
                 "prefix_prefill_tokens_saved_total": self._prefix_tokens_saved,
             }
 
+    def admit_wait_snapshot(self) -> Tuple[float, float]:
+        """(count, sum) of ``serving.admit_wait_seconds`` across tenants.
+
+        An autoscaler differentiates this between ticks to get the mean
+        admit wait over its window; the histogram is fed from executor
+        timestamps, so the snapshot is deterministic under sim.
+        """
+        n = 0.0
+        s = 0.0
+        for (name, _tenant), hist in self.telemetry.histograms().items():
+            if name == "serving.admit_wait_seconds":
+                n += hist.count
+                s += hist.sum
+        return (n, s)
+
     def prefill_counts(self) -> Dict[int, int]:
         """Times each request was prefilled (regression probe for tests)."""
         with self._lock:
@@ -1225,3 +1360,143 @@ class ServingEngine:
             "host_vma_high_water": self.kv.arena.mm.host_vma_high_water,
             "mm_stats": self.kv.arena.mm.stats(),
         }
+
+
+class Server:
+    """Production wrapper: pool + scheduler + metrics around the engine."""
+
+    def __init__(self, model, cfg: ServerConfig,
+                 sandbox: Optional[Sandbox] = None,
+                 *,
+                 pool: Optional[SandboxPool] = None,
+                 admission: Optional[AdmissionController] = None,
+                 telemetry: Optional[TelemetrySink] = None,
+                 executor: Optional[Executor] = None):
+        self.model = model
+        self.cfg = cfg
+        self.telemetry = resolve_sink(admission, telemetry)
+        self.admission = admission or AdmissionController(sink=self.telemetry)
+        # postprocess sandboxes come from a warm pool; an explicit sandbox
+        # is adopted as the pool's first warm entry
+        self.pool = pool or SandboxPool(
+            admission=self.admission,
+            telemetry=self.telemetry,
+            refill_watermark=cfg.pool_watermark,
+        )
+        self.sandbox = sandbox
+        if sandbox is not None:
+            self._postprocess_tenant = sandbox.tenant
+            self.pool.seed(sandbox)
+        else:
+            self._postprocess_tenant = "serving"
+            self.pool.prewarm("serving", 1)
+        if cfg.pool_watermark > 0:
+            self.pool.set_watermark(self._postprocess_tenant, cfg.pool_watermark)
+            self.pool.start_refiller()
+        # concurrent postprocess plane: user post-processors dispatch to N
+        # scheduler workers instead of running inline on the decode loop
+        self.scheduler: Optional[ServerlessScheduler] = None
+        if cfg.workers > 0:
+            self.scheduler = ServerlessScheduler(
+                quotas={
+                    self._postprocess_tenant: TenantQuota(
+                        max_tasks_in_flight=cfg.workers
+                    )
+                },
+                admission=self.admission,
+                pool=self.pool,
+                workers=cfg.workers,
+            ).start()
+            if cfg.heartbeat_timeout_s > 0:
+                # node-fault tolerance for user post-code: a worker hung
+                # inside a post-processor is reaped, its request's task
+                # requeued once, and a fresh worker keeps the plane full
+                self.scheduler.enable_heartbeats(
+                    cfg.heartbeat_timeout_s, replace_dead=True,
+                )
+                self.scheduler.start_heartbeat_watchdog(
+                    interval_s=max(1e-3, cfg.heartbeat_timeout_s / 4),
+                )
+        self.engine = ServingEngine(
+            model, cfg,
+            executor=executor,
+            admission=self.admission,
+            telemetry=self.telemetry,
+            pool=self.pool,
+            scheduler=self.scheduler,
+            postprocess_tenant=self._postprocess_tenant,
+        )
+        self.metrics = (
+            MetricsRegistry()
+            .register_sink(self.telemetry)
+            .register_admission(self.admission)
+            .register_pool(self.pool)
+            .register_serving(self.engine)
+        )
+        if self.scheduler is not None:
+            self.metrics.register_scheduler(self.scheduler)
+        self._metrics_server: Optional[MetricsHTTPServer] = None
+        self.metrics.register_arena(self.kv)   # §IV.A occupancy gauges
+
+    # ------------------------------------------------------------- engine
+
+    @property
+    def kv(self) -> PagedKVAllocator:
+        return self.engine.kv
+
+    @property
+    def completed(self) -> List[Request]:
+        return self.engine.completed
+
+    def submit(self, r: Request) -> int:
+        return self.engine.submit(r)
+
+    def step(self) -> int:
+        return self.engine.step()
+
+    def drain(self, timeout: float = 300.0) -> List[Request]:
+        return self.engine.drain(timeout=timeout)
+
+    def run(self, requests: List[Request]) -> List[Request]:
+        """Process all requests to completion with continuous batching."""
+        for r in requests:
+            self.engine.submit(r)
+        return self.engine.drain()
+
+    # ------------------------------------------------------------ metrics
+
+    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1") -> MetricsHTTPServer:
+        """Expose ``GET /metrics`` (Prometheus text format) over HTTP.
+
+        Idempotent: returns the already-running endpoint if one exists.
+        ``port=0`` binds an ephemeral port; read it from ``.port``.
+        """
+        if self._metrics_server is None:
+            self._metrics_server = MetricsHTTPServer(
+                self.metrics, port=port, host=host
+            )
+        return self._metrics_server
+
+    def dump_metrics(self) -> Dict[str, Any]:
+        """Snapshot of every exported sample (tests/tooling; no HTTP)."""
+        return self.metrics.dump()
+
+    def close(self) -> None:
+        """Stop metrics, the postprocess workers and the pool refiller."""
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
+        if self.scheduler is not None:
+            self.scheduler.shutdown()
+        self.pool.stop_refiller()
+
+    # ------------------------------------------------------------- report
+
+    def admission_report(self) -> Dict[str, Any]:
+        return {
+            "admission": self.admission.stats(),
+            "pool": self.pool.stats.as_dict(),
+        }
+
+    def arena_report(self) -> Dict[str, Any]:
+        return self.engine.arena_report()

@@ -42,3 +42,20 @@ def test_launcher_refuses_paged_mode_for_gemma2():
     with pytest.raises(ValueError, match="does not support paged decode"):
         main(["--arch", "gemma2-9b", "--reduced", "--device", "cpu",
               "--kv-mode", "paged"])
+
+
+def test_launcher_serves_through_server_with_its_flags(capsys):
+    """``--workers``, ``--pool-watermark``, ``--heartbeat-timeout``,
+    ``--metrics-port`` and ``--hold`` reach the port's ``Server``."""
+    main(["--reduced", "--device", "cpu", "--requests", "3",
+          "--new-tokens", "4", "--workers", "2", "--pool-watermark", "1",
+          "--heartbeat-timeout", "30", "--metrics-port", "0",
+          "--hold", "0.05"])
+    out = capsys.readouterr().out
+    assert re.search(r"\[serve\] metrics: http://127\.0\.0\.1:\d+/metrics",
+                     out), out
+    assert len(re.findall(r"\[serve\] req \d+ \[\w+\]: 4 tokens", out)) == 3
+    pool = json.loads(re.search(r"pool metrics: (\{.*\})", out).group(1))
+    assert pool["seepp_pool_prewarm_total"][""] == 1
+    assert pool["seepp_pool_idle_sandboxes"]['{tenant="serving"}'] >= 1
+    assert "holding /metrics open" in out

@@ -15,11 +15,13 @@ that no such tie occurs, and any other difference fails.
 
 import numpy as np
 import pytest
+import torch
 from helpers.torch_port import fp32_config, model_pair
 
 import repro.runtime.serve_loop as jax_loop
 import repro_torch.runtime.serve_loop as port_loop
 from repro.core.sim import SimExecutor as JaxSim
+from repro.runtime import ServerConfig as JaxServerConfig
 from repro_torch.core.sim import SimExecutor as PortSim
 from repro_torch.models import TransformerLM
 from repro_torch.models.common import ArchConfig
@@ -143,9 +145,11 @@ def tiny_model():
     dict(pool_watermark=1), dict(workers=2), dict(heartbeat_timeout_s=1.0),
 ])
 def test_unported_server_options_raise(option):
-    # the Server options are no ServerConfig fields until Server is ported
-    with pytest.raises(TypeError, match="unexpected keyword"):
-        ServerConfig(**option)
+    # the Server options are ServerConfig fields since Server is ported,
+    # with the reference's defaults
+    (name, value), = option.items()
+    assert getattr(ServerConfig(**option), name) == value
+    assert getattr(ServerConfig(), name) == getattr(JaxServerConfig(), name)
 
 
 @pytest.mark.parametrize("option,kv_mode", [
@@ -171,12 +175,20 @@ def test_chaos_hooks_on_an_idle_engine(tiny_model, hook, idle):
 
 
 def test_unported_mesh_and_postprocess_raise(tiny_model):
+    """A mesh still raises (item 4e); ``Request.postprocess`` is ported:
+    the retired stream goes through it, here reversed."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(tiny_model, ServerConfig(), mesh=object())
-    engine = ServingEngine(tiny_model, ServerConfig(max_seq=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.submit(Request(prompt=np.ones(3, np.int32),
-                              postprocess=lambda t: t))
+    streams = []
+    for post in (None, lambda t: torch.flip(t, (0,))):
+        engine = ServingEngine(tiny_model, ServerConfig(max_seq=32))
+        r = Request(prompt=np.ones(3, np.int32), max_new_tokens=4,
+                    postprocess=post)
+        engine.submit(r)
+        engine.drain()
+        assert r.error is None
+        streams.append(r.tokens)
+    assert streams[1] == streams[0][::-1]
 
 
 def test_unpaged_model_is_refused():
