@@ -24,7 +24,10 @@ prints no result line):
    ``kMaxG`` instance, and starcoder2's 9), flash prefill (K2; also at
    qwen3-moe's 64 q / 4 kv heads, at head dim 128 with a window of 512
    and with llama4's window of 8192 at 10000 tokens, and at gemma2's head
-   dim 256 with its window and softcap, to 6000 tokens), WKV6 (K3), segment zero-fill (K4); K1 and K2 also at the
+   dim 256 with its window and softcap, to 6000 tokens, and at the
+   hybrid's and the VLM's heads: hymba's 25 q / 5 kv heads of 64 with a
+   window of 1024, llava's 56 q / 8 kv heads of 128; K1 also at llava's 7
+   q heads per kv head), WKV6 (K3), segment zero-fill (K4); K1 and K2 also at the
    reduced configs' head dims 8, 12 and 16, which the bindings zero-pad to
    the 64-wide instance.  WKV6 also runs on decays that RWKV6's own law
    gives (w = exp(-exp(dec)), dec over [-8, 5], down to w = 0) and on runs
@@ -39,11 +42,13 @@ prints no result line):
    generator), and the launch counts prove the path went through K1, K2;
 5. card against CPU: the same small fp32 models (a qwen-style transformer,
    an RWKV6 and a gemma2 with heads of 256, a window and softcaps, and the
-   reduced qwen2.5, gemma2, starcoder2, qwen3-moe and llama4-scout configs
-   at their own head dims of 16 and 12) serve the same greedy requests on
-   the card (kernels) and on the CPU (plain versions); a MoE stream may
-   fork only where a routing row that the two choose otherwise, or the
-   logits at the fork, are near a tie;
+   reduced qwen2.5, gemma2, starcoder2, qwen3-moe, llama4-scout, hymba and
+   llava configs at their own head dims of 16, 12 and 8) serve the same
+   greedy requests on the card (kernels) and on the CPU (plain versions);
+   a MoE stream may fork only where a routing row that the two choose
+   otherwise, or the logits at the fork, are near a tie; then the reduced
+   llava with a 4-patch prefix and the reduced whisper with its frames
+   through the model-level prefill and decode steps, streams equal;
 6. dense serving: ``ServingEngine`` serves 8 requests on rwkv6-3b at its
    full width and depth (32 layers), and the launch counts prove the path
    went through K3 and not K1 or K2; then the device time of one
@@ -87,9 +92,26 @@ prints no result line):
    K2 = full prefills x layers, and ``/metrics`` (127.0.0.1, ephemeral
    port) to the engine's, the controller's and the pool's counters; then
    cold against warm admission and verify against interpret mode for a
-   sort on a 4096-token CUDA tensor (``[admission]`` line).
+   sort on a 4096-token CUDA tensor (``[admission]`` line);
+12. dense serving of the hybrid: phase 4's 8 requests on hymba-1.5b at its
+   full width and depth (32 layers; attention and SSM heads in every
+   layer), every prefill layer through K2 at head dim 64 with the window
+   of 1024 on 29 layers, the SSM scan in plain PyTorch (any prompt
+   length, where the reference's needs 64 to divide it); K1, K3, K4
+   never; then one 2048-token prefill's device time split into K2, the
+   SSM scan, the other GEMMs and the rest (``[hybrid-prefill]`` lines);
+13. the VLM: llava-next-34b at its published widths (depth cut 60 -> 8
+   layers) serves phase 4's 8 text requests in paged mode (K1 at 7 q
+   heads per kv head, K2 at 56 / 8); then one model-level prefill of 576
+   patch embeddings and 1472 text tokens, timed, and 32 greedy decode
+   steps held to a teacher-forced forward over the same prefix;
+14. the enc-dec model: whisper-tiny's full config through the model-level
+   API (the reference's engine cannot serve it): B = 4 frames of 1500, a
+   4-token prompt, 64 greedy decode steps, fp32 streams equal on the card
+   and the CPU; bf16 encode and decode-step times.  No kernel lies on
+   this path.
 
-With all eleven, a summary follows: one ``{"kernels": [...]}`` line (each
+With all fourteen, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
 line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
 2, the kernels build at their first launch).  ``--src DIR`` imports
@@ -383,8 +405,9 @@ def _paged_case(B, K, G, hd, page, dtype, seed):
 
 # (B, K, G): qwen2.5-32b's grouping at two batches (the main case first);
 # qwen3-moe-235b's 16 q heads over each of 4 (the kMaxG instance at every
-# head) and starcoder2-7b's 9 (kMaxG, the heads past 9 skipped)
-PAGED_CASES = [(4, 8, 5), (8, 8, 5), (4, 4, 16), (4, 4, 9)]
+# head), starcoder2-7b's 9 (kMaxG, the heads past 9 skipped) and
+# llava-next-34b's 7 over each of 8
+PAGED_CASES = [(4, 8, 5), (8, 8, 5), (4, 4, 16), (4, 4, 9), (4, 8, 7)]
 
 
 def check_paged() -> dict:
@@ -442,6 +465,7 @@ def check_paged() -> dict:
     main["library_ms"] = None
     # qwen3-moe's grouping, the kMaxG instance: its numbers ride along
     main["g16"] = rows[(4, 4, 16)]
+    main["g7"] = rows[(4, 8, 7)]                 # llava-next-34b's grouping
     return main
 
 
@@ -454,7 +478,7 @@ def check_flash() -> dict:
         (2048, 40, 8, 128, 0, 0.0),
         (1000, 40, 8, 128, 0, 0.0),
         (512, 8, 4, 64, 128, 50.0),
-    ] + FLASH_MOE_CASES + FLASH_HD256_CASES
+    ] + FLASH_MOE_CASES + FLASH_HD256_CASES + FLASH_SLICE_CASES
     main = None
     extra = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -513,6 +537,10 @@ def check_flash() -> dict:
                     extra["hd256"] = row
                 elif (H, hd, window) == (40, 128, 512):
                     extra["w512"] = row           # llama4's kind of window
+                elif (H, hd) == (25, 64):
+                    extra["hymba"] = row
+                elif (H, hd) == (56, 128):
+                    extra["llava"] = row
     # qwen3-moe's heads, llama4's windows and gemma2/3's head dim: their
     # numbers ride along
     main.update(extra)
@@ -606,6 +634,9 @@ def flash_plain(q, k, v, window, *, scale, logit_cap):
 FLASH_HD256_CASES = [(2048, 16, 8, 256, 0, 0.0), (2048, 16, 8, 256, 4096, 50.0),
                      (6000, 16, 8, 256, 4096, 50.0),
                      (512, 16, 8, 256, 128, 50.0)]
+# hymba-1.5b's attention (25 q / 5 kv heads of 64) with its window of 1024,
+# and llava-next-34b's (56 q / 8 kv heads of 128), global
+FLASH_SLICE_CASES = [(2048, 25, 5, 64, 1024, 0.0), (2048, 56, 8, 128, 0, 0.0)]
 
 
 def wkv6_decay(kind: str, shape, g) -> torch.Tensor:
@@ -1154,13 +1185,15 @@ def phase_card_vs_cpu() -> None:
     _card_vs_cpu_rwkv()
     _card_vs_cpu_gemma2()
     _card_vs_cpu_reduced()
+    _card_vs_cpu_model_level()
 
 
 # the reduced configs as the launcher's ``--reduced`` serves them, head dims
 # under the kernels' smallest instance: (arch, engine mode)
 REDUCED_ARMS = [("qwen2.5-32b", "paged"), ("gemma2-9b", "dense"),
                 ("starcoder2-7b", "paged"), ("qwen3-moe-235b-a22b", "paged"),
-                ("llama4-scout-17b-a16e", "dense")]
+                ("llama4-scout-17b-a16e", "dense"), ("hymba-1.5b", "dense"),
+                ("llava-next-34b", "paged")]
 # a logit margin the card and the CPU cannot swap: the 1e-3 their fp32
 # logits are held to
 CLEAR_MARGIN = 1e-3
@@ -1292,6 +1325,82 @@ def _card_vs_cpu_reduced() -> None:
             + f"{streams['cuda']}; card launches flash_attention "
             f"{launches['flash_attention']}, paged_attention "
             f"{launches['paged_attention']}")
+
+
+def greedy_stream(model, tokens, n: int, **inputs) -> tuple:
+    """The model-level API as the reference runs it: ``prefill`` of
+    ``tokens`` (B, S) with ``inputs`` (patch embeddings, frames) into a
+    cache of S + n, then greedy ``decode_step``s to n tokens.  Returns (the
+    tokens (B, n), the logits each was chosen from (B, n, V) in fp32, both
+    on the CPU, and the host ms of each decode step, the card
+    synchronised)."""
+    dev = model.device
+    state, logits = model.prefill(
+        tokens.to(dev), max_seq=tokens.shape[1] + n,
+        **{k: v.to(dev) for k, v in inputs.items()})
+    out, rows, steps_ms = [], [], []
+    for i in range(n):
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok.cpu())
+        rows.append(logits.float().cpu())
+        if i == n - 1:
+            break
+        t = time.perf_counter()
+        state, logits = model.decode_step(state, tok)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t) * 1e3)
+    return torch.stack(out, dim=1), torch.stack(rows, dim=1), steps_ms
+
+
+def _card_vs_cpu_model_level() -> None:
+    """The modality inputs, through the model-level API as the reference
+    runs them (its engine passes none): llava-next-34b-smoke (K2 at head
+    dim 8 through the zero-pad) with a 4-patch prefix and whisper-tiny-smoke
+    with 16 encoder frames, fp32, greedy streams of the same inputs equal on
+    the card and on the CPU; whisper launches no kernel."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+
+    counters = _launch_counters()
+    for arch, key in (("llava-next-34b", "patch_embeds"),
+                      ("whisper-tiny", "frames")):
+        cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+        cpu = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(5))
+        gpu = build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(13)
+        n_in = cfg.num_patches if key == "patch_embeds" else cfg.encoder_len
+        inputs = {key: torch.from_numpy(rng.standard_normal(
+            (2, n_in, cfg.d_model)).astype(np.float32))}
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 20 if key == "patch_embeds" else 4)
+        ).astype(np.int32))
+        c_stream, c_logits, _ = greedy_stream(cpu, tokens, 8, **inputs)
+        for fn in counters.values():
+            fn.launches = 0
+        g_stream, g_logits, _ = greedy_stream(gpu, tokens, 8, **inputs)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        g_first, c_first = g_logits[:, 0], c_logits[:, 0]
+        err = (g_first - c_first).abs().max().item()
+        if not torch.allclose(g_first, c_first, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"card vs CPU {arch} prefill logits: "
+                                 f"max|err| {err}")
+        if not torch.equal(c_stream, g_stream):
+            raise AssertionError(f"card vs CPU {arch} greedy streams differ:"
+                                 f" cpu {c_stream.tolist()}, card "
+                                 f"{g_stream.tolist()}")
+        want = dict.fromkeys(launches, 0)
+        if key == "patch_embeds":
+            want["flash_attention"] = cfg.num_layers   # the prefill's layers
+        if launches != want:
+            raise AssertionError(f"{arch} on the card launched {launches}, "
+                                 f"not {want}")
+        log(f"[card-vs-cpu] {cfg.arch_id} fp32 model-level, {key} "
+            f"{tuple(inputs[key].shape)}: prefill logits max|err| {err:.3g} "
+            f"(tol 1e-3), 8 greedy decode steps equal "
+            f"{g_stream.tolist()}; card launches {launches}")
 
 
 def _judge_fork(cpu, gpu, cfg, prompts, streams) -> None:
@@ -1457,35 +1566,45 @@ def _is_gemm(name: str) -> bool:
     return any(x in name.lower() for x in GEMM_KERNEL_KEYS)
 
 
-# the MoE block's steps (functions of ``repro_torch.models.moe``) and the
-# ``[moe-prefill]`` group their kernels' device time goes to
-MOE_STEPS = {"route": "routing, dispatch, combine",
-             "dispatch": "routing, dispatch, combine",
-             "expert_ffn": "expert FFN", "combine": "routing, dispatch, combine"}
+# steps of a model (functions of one of its modules, by name) whose kernels
+# a prefill's breakdown reports apart, and the group each one's device time
+# goes to: the MoE block's (``[moe-prefill]``) and the hybrid's SSM scan
+# (``[hybrid-prefill]``)
+MOE_STEPS = ("repro_torch.models.moe",
+             {"route": "routing, dispatch, combine",
+              "dispatch": "routing, dispatch, combine",
+              "expert_ffn": "expert FFN",
+              "combine": "routing, dispatch, combine"})
+HYBRID_STEPS = ("repro_torch.models.hybrid", {"ssm_scan": "SSM scan"})
 
 
 @contextlib.contextmanager
-def _moe_ranges():
-    """A ``record_function`` range ``moe.<step>`` around every call of the
-    MoE block's steps, so the profiler can tell their kernels apart."""
-    import repro_torch.models.moe as moe
+def _step_ranges(steps):
+    """A ``record_function`` range ``<module>.<step>`` around every call of
+    each of ``steps``' functions (which the model calls through their
+    module), so the profiler can tell their kernels apart."""
+    import importlib
+
     from torch.profiler import record_function
 
-    real = {name: getattr(moe, name) for name in MOE_STEPS}
+    module_name, groups = steps
+    module = importlib.import_module(module_name)
+    prefix = module_name.rsplit(".", 1)[-1]
+    real = {name: getattr(module, name) for name in groups}
 
     def ranged(name, fn):
         def call(*args, **kwargs):
-            with record_function(f"moe.{name}"):
+            with record_function(f"{prefix}.{name}"):
                 return fn(*args, **kwargs)
         return call
 
     for name, fn in real.items():
-        setattr(moe, name, ranged(name, fn))
+        setattr(module, name, ranged(name, fn))
     try:
         yield
     finally:
         for name, fn in real.items():
-            setattr(moe, name, fn)
+            setattr(module, name, fn)
 
 
 def _range_kernels(event) -> list:
@@ -1496,35 +1615,38 @@ def _range_kernels(event) -> list:
     return out
 
 
-def _moe_groups(prof) -> dict:
-    """{group: [ms, kernels]} of the kernels under the ``moe.<step>``
-    ranges: the expert FFN's GEMMs (``expert GEMMs``) apart from its
+def _step_kernels(prof, steps) -> list:
+    """(group, kernel name, ms) of every kernel under the ``steps``'
+    ranges; the MoE expert FFN's GEMMs (``expert GEMMs``) apart from its
     elementwise kernels."""
-    groups = {}
+    module_name, groups = steps
+    prefix = module_name.rsplit(".", 1)[-1] + "."
+    out = []
     for event in prof.events():
-        step = event.name[4:] if event.name.startswith("moe.") else None
-        if step not in MOE_STEPS or \
+        step = event.name[len(prefix):] if event.name.startswith(prefix) \
+            else None
+        if step not in groups or \
                 event.device_type != torch.autograd.DeviceType.CPU:
             continue
         for name, us in _range_kernels(event):
-            group = MOE_STEPS[step]
+            group = groups[step]
             if group == "expert FFN":
                 group = "expert GEMMs" if _is_gemm(name) else \
                     "expert FFN elementwise"
-            acc = groups.setdefault(group, [0.0, 0])
-            acc[0] += us / 1e3
-            acc[1] += 1
-    return groups
+            out.append((group, name, us / 1e3))
+    return out
 
 
 def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
-                    max_seq: int, moe: bool = False) -> None:
+                    max_seq: int, steps=None) -> None:
     """The device time of one T-token prefill (B=1, as the engines run it,
     into a cache of ``max_seq``) by kernel: ``kernel`` = (label, substring
     of its CUDA kernels' names), the GEMMs and the rest, with its idle
-    share; with ``moe``, the MoE block's kernels (the expert GEMMs, its
-    routing, dispatch and combine, the expert FFN's elementwise kernels)
-    apart from the other GEMMs and the rest.  CUDA events and the host
+    share; with ``steps`` (``MOE_STEPS``, ``HYBRID_STEPS``), the kernels
+    under those steps' ranges by their group (for the MoE block: the expert
+    GEMMs, its routing, dispatch and combine, the expert FFN's elementwise
+    kernels; for the hybrid: the SSM scan), each taken out of the GEMMs or
+    the rest where it would otherwise count.  CUDA events and the host
     clock around one prefill without the profiler, then ``torch.profiler``
     around another; after the launch counts were read."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1548,7 +1670,7 @@ def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
     # that opens with the prefill can lose its first kernels
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof, \
-            (_moe_ranges() if moe else contextlib.nullcontext()):
+            (_step_ranges(steps) if steps else contextlib.nullcontext()):
         run()
         torch.cuda.synchronize()
         prof.step()                            # the recorded step from here
@@ -1556,13 +1678,14 @@ def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
         run()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels and copies only: the step's own range and the moe.<step>
-    # ranges span the device too
+    # kernels and copies only: the step's own range and the steps' ranges
+    # span the device too
+    ranges = (steps[0].rsplit(".", 1)[-1] + ".",) if steps else ()
     rows = [(e.self_device_time_total / 1e3, e.key, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0
-            and not e.key.startswith(("ProfilerStep", "moe."))]
+            and not e.key.startswith(("ProfilerStep",) + ranges)]
     log(f"[{tag}] one {T}-token prefill, B=1, {cfg.num_layers} layers: "
         f"wall {wall_ms:.2f} ms, CUDA events first launch to last end "
         f"{span_ms:.2f} ms (no profiler)")
@@ -1571,25 +1694,25 @@ def profile_prefill(model, cfg, tag: str, kernel: tuple, T: int,
             "measured")
         return
     label, key = kernel
+    group_of = lambda name: (label if key in name else "GEMMs"
+                             if _is_gemm(name) else "the rest")
     groups = {label: [0.0, 0], "GEMMs": [0.0, 0], "the rest": [0.0, 0]}
     for ms, name, count in rows:
-        group = (label if key in name else "GEMMs" if _is_gemm(name)
-                 else "the rest")
-        groups[group][0] += ms
-        groups[group][1] += count
+        groups[group_of(name)][0] += ms
+        groups[group_of(name)][1] += count
     busy_ms = sum(r[0] for r in rows)
-    if moe:
-        inner = _moe_groups(prof)
+    if steps:
+        inner = {}
+        for group, name, ms in _step_kernels(prof, steps):
+            acc = inner.setdefault(group, [0.0, 0])
+            acc[0] += ms
+            acc[1] += 1
+            groups[group_of(name)][0] -= ms     # counted here, not there
+            groups[group_of(name)][1] -= 1
         if not inner:
             raise AssertionError(
-                f"[{tag}] no kernel was attributed to the moe.<step> "
-                f"ranges ({', '.join(MOE_STEPS)} of models/moe.py)")
-        # the expert GEMMs come out of the GEMMs, the block's other kernels
-        # out of the rest
-        for name, (ms, n) in inner.items():
-            out = "GEMMs" if name == "expert GEMMs" else "the rest"
-            groups[out][0] -= ms
-            groups[out][1] -= n
+                f"[{tag}] no kernel was attributed to the ranges of "
+                f"{', '.join(steps[1])} of {steps[0]}")
         groups = {label: groups[label], **inner,
                   "other GEMMs": groups["GEMMs"],
                   "the rest": groups["the rest"]}
@@ -1885,7 +2008,7 @@ def phase_moe_paged() -> dict:
             f"{[round(d[3].item(), 3) for d in drops[i:i + L]]}")
     _moe_layer0_check(model, cfg)
     profile_prefill(model, cfg, "moe-prefill", ("K2 (flash)", "flash_prefill"),
-                    T=2048, max_seq=2048, moe=True)
+                    T=2048, max_seq=2048, steps=MOE_STEPS)
     profile_decode(engine, cfg, "moe-profile")
     return launches
 
@@ -2207,6 +2330,215 @@ def phase_server() -> dict:
     return total
 
 
+# --------------------------------------------------------------- phase 12
+
+
+def phase_hybrid_serving() -> dict:
+    """hymba-1.5b at its published widths and full depth (32 layers) in the
+    engine's dense mode, on phase 4's prompt lengths (the reference's SSM
+    scan refuses 1000, 513, 300 and 1500 tokens; the port's takes any):
+    every prefill layer through K2 at head dim 64 (25 q / 5 kv heads, the
+    window of 1024 on 29 layers) beside the SSM scan in plain PyTorch;
+    decode on the dense cache and ``ssm_step``; K1, K3, K4 never.  Then
+    phase 4's decode window and one 2048-token prefill's device time split
+    into K2, the SSM scan, the other GEMMs and the rest
+    (``[hybrid-prefill]`` lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import hymba_windows
+
+    cfg = get_config("hymba-1.5b")
+    model = _model_on_card(
+        cfg, "hybrid", f" (all), window {cfg.local_window} on "
+        f"{int((hymba_windows(cfg) > 0).sum())} layers, SSM d_inner "
+        f"{cfg.ssm_d_inner} state {cfg.ssm_state_size}")
+    engine, launches = _serve_dense(model, cfg, "hybrid", "flash_attention",
+                                    4096, SERVE_LENGTHS, " [full depth]")
+    profile_decode(engine, cfg, "hybrid-profile")
+    profile_prefill(model, cfg, "hybrid-prefill",
+                    ("K2 (flash)", "flash_prefill"), T=2048, max_seq=4096,
+                    steps=HYBRID_STEPS)
+    return launches
+
+
+# --------------------------------------------------------------- phase 13
+
+VLM_LAYERS = 8
+# the text that follows llava-next-34b's 576 patch embeddings in phase 13's
+# prefill: 2048 rows in all
+VLM_TEXT = 1472
+VLM_DECODE = 32
+# phase 13's hold of the decode to the teacher-forced forward: the
+# relative L2 distance of each step's bf16 logits.  Both sides round every
+# layer's attention and MLP outputs, the residual and the logits to bf16
+# (2**-9 relative each), at other places (K2's tiles against one decode
+# row over the dense cache; GEMMs of 2048 rows against 1): over 8 layers
+# of ~4 such roundings, independent errors add to ~sqrt(64) * 2**-9 ~ 1.6 %,
+# and 5 % leaves a factor of 3 for the layers' amplification.  A wrong
+# position, cache row or prefix moves the logits by O(1).
+VLM_REL_TOL = 0.05
+
+
+def phase_vlm() -> dict:
+    """llava-next-34b at its published widths (56 q / 8 kv heads of 128,
+    d_ff 20480, untied unembedding), depth cut 60 -> 8 layers: (a) phase
+    4's 8 text requests in paged mode, every decode step through K1 at 7 q
+    heads per kv head and every full prefill through K2 at 56 / 8 (the
+    engine passes no patch embeddings, as the reference's passes none);
+    (b) the model-level API as the reference runs the prefix: one dense
+    ``prefill`` of 576 seeded patch embeddings and 1472 text tokens, timed,
+    then 32 greedy ``decode_step``s, each step's logits held to a
+    teacher-forced ``forward`` over the same prefix and tokens within
+    ``VLM_REL_TOL`` (its comment says why).  Returns the launches of (a)
+    and of (b)'s prefill and decode steps."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llava-next-34b"),
+                              num_layers=VLM_LAYERS)
+    model = _model_on_card(cfg, "llava", f" (of 60), {cfg.num_patches} "
+                           "patches, untied unembedding")
+    engine, launches = _serve_paged(model, cfg, "llava",
+                                    f" [{VLM_LAYERS}-layer depth cut]")
+    del engine
+    gc.collect()
+
+    g = torch.Generator("cuda").manual_seed(13)
+    patches = torch.randn((1, cfg.num_patches, cfg.d_model), generator=g,
+                          device="cuda").to(model.dtype)
+    rng = np.random.default_rng(13)
+    S = cfg.num_patches + VLM_TEXT
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S)).astype(
+        np.int32)).cuda()
+    model.prefill(tokens, max_seq=S, patch_embeds=patches)      # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    model.prefill(tokens, max_seq=S + VLM_DECODE, patch_embeds=patches)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    stream, got, steps_ms = greedy_stream(model, tokens, VLM_DECODE,
+                                          patch_embeds=patches)
+    counted = {n: fn.launches for n, fn in counters.items()}
+    want = dict.fromkeys(counted, 0)
+    want["flash_attention"] = cfg.num_layers             # the prefill's
+    if counted != want:
+        raise AssertionError(f"[llava] the prefix prefill and decode "
+                             f"launched {counted}, not {want}")
+    # the teacher-forced forward over the prefix and the greedy tokens
+    # (not counted: it checks the path, it is not the path)
+    full = torch.cat([tokens, stream[:, :-1].cuda()], dim=1)
+    logits, _ = model.forward(full, patch_embeds=patches)
+    want_rows = logits[0, S - 1:].float().cpu()
+    got = got[0]
+    rel = (got - want_rows).norm(dim=-1) / want_rows.norm(dim=-1)
+    agree = int((got.argmax(-1) == want_rows.argmax(-1)).sum())
+    if not bool((rel <= VLM_REL_TOL).all()):
+        raise AssertionError(
+            f"[llava] decode vs teacher-forced forward: relative L2 by step "
+            f"{[round(x, 4) for x in rel.tolist()]} > {VLM_REL_TOL}")
+    log(f"[llava] prefix prefill: {cfg.num_patches} patch embeddings + "
+        f"{VLM_TEXT} text tokens (S={S}), B=1, {cfg.num_layers} layers: "
+        f"{start.elapsed_time(end):.2f} ms CUDA events, wall {wall_ms:.2f} "
+        f"ms; "
+        f"{VLM_DECODE} greedy decode steps (dense cache), step p50 "
+        f"{float(np.median(steps_ms)):.2f} ms; launches {counted}")
+    log(f"[llava] decode vs teacher-forced forward over the same prefix: "
+        f"logits relative L2 max {rel.max().item():.4g}, median "
+        f"{rel.median().item():.4g} (tol {VLM_REL_TOL}); greedy token = "
+        f"forward's argmax at {agree} of {VLM_DECODE} steps")
+    for name, n in counted.items():
+        launches[name] += n
+    return launches
+
+
+# --------------------------------------------------------------- phase 14
+
+WHISPER_BATCH = 4
+WHISPER_PROMPT = 4
+WHISPER_DECODE = 64
+
+
+def phase_whisper() -> dict:
+    """whisper-tiny, the full config (4 + 4 layers, d_model 384, 6 heads of
+    64, 1500 encoder frames, vocab 51865, 32776 learned positions through
+    ``build_model``), through the model-level API as the reference runs it
+    (its engine cannot serve the family): B = 4 seeded frames, a 4-token
+    prompt, 64 greedy decode steps.  In fp32 the card's stream equals the
+    CPU's, and no kernel launches (no TPU kernel lies on this path: the
+    attention is ``blockwise_attn``, plain PyTorch as the reference's XLA);
+    in bf16 the encode and the decode steps are timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("whisper-tiny")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(14)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, cfg.encoder_len, cfg.d_model)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT)).astype(np.int32))
+    cpu = build_model(f32, device="cpu").init(torch.Generator().manual_seed(6))
+    gpu = build_model(f32, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    g_stream, g_logits, _ = greedy_stream(gpu, tokens, WHISPER_DECODE,
+                                          frames=frames)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"[whisper] launched {launches}")
+    c_stream, c_logits, _ = greedy_stream(cpu, tokens, WHISPER_DECODE,
+                                          frames=frames)
+    g_first, c_first = g_logits[:, 0], c_logits[:, 0]
+    err = (g_first - c_first).abs().max().item()
+    if not torch.allclose(g_first, c_first, rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"[whisper] card vs CPU prefill logits: "
+                             f"max|err| {err}")
+    if not torch.equal(g_stream, c_stream):
+        raise AssertionError(
+            f"[whisper] card vs CPU fp32 greedy streams differ: cpu "
+            f"{c_stream.tolist()}, card {g_stream.tolist()}")
+    log(f"[whisper] {cfg.arch_id} fp32, B={WHISPER_BATCH}, "
+        f"{cfg.encoder_len} frames, {WHISPER_PROMPT}-token prompt, "
+        f"{WHISPER_DECODE} greedy decode steps: prefill logits max|err| "
+        f"{err:.3g} (tol 1e-3), streams equal on card and CPU "
+        f"(first row {g_stream[0, :16].tolist()}...); launches {launches}")
+    del cpu, gpu
+    gc.collect()
+    model = _model_on_card(cfg, "whisper", f" + {cfg.encoder_layers} "
+                           f"encoder layers, {cfg.encoder_len} frames")
+    log(f"[whisper] learned target positions {model.max_target_positions}")
+    frames_d = frames.cuda().to(model.dtype)
+    model.encode(frames_d)                                # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reps = 10
+    start.record()
+    for _ in range(reps):
+        model.encode(frames_d)
+    end.record()
+    torch.cuda.synchronize()
+    encode_ms = start.elapsed_time(end) / reps
+    greedy_stream(model, tokens, 4, frames=frames_d)          # warm
+    stream, _, steps_ms = greedy_stream(model, tokens, WHISPER_DECODE,
+                                        frames=frames_d)
+    if not bool(((stream >= 0) & (stream < cfg.vocab_size)).all()):
+        raise AssertionError(f"[whisper] bf16 tokens out of range: {stream}")
+    log(f"[whisper] bf16, B={WHISPER_BATCH}: encode of {cfg.encoder_len} "
+        f"frames {encode_ms:.3f} ms (CUDA events, mean of {reps}); decode "
+        f"step p50 {float(np.median(steps_ms)):.2f} ms, max "
+        f"{max(steps_ms):.2f} ms over {WHISPER_DECODE} steps (host clock, "
+        "synchronised)")
+    return launches
+
+
 def _free_card() -> None:
     """Frees what a serving phase left behind (its model and engine are
     garbage once it returns) and logs what stays allocated."""
@@ -2221,7 +2553,8 @@ def _free_card() -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
@@ -2247,10 +2580,12 @@ def main(argv=None) -> int:
         results["wkv6"] = check_wkv6()
         results["segment_zero"] = check_segment_zero()
     # each kernel's launches on the serving paths, by phase (K1: phases 4,
-    # 8, 9 and 11; K2: 4, 7, 8, 9, 10 and 11; K3: 6); K4 is on no path
+    # 8, 9, 11 and 13; K2: 4, 7, 8, 9, 10, 11, 12 and 13; K3: 6); K4 is on
+    # no path, and phase 14's path has no kernel
     runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
             7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
-            9: phase_moe_paged, 10: phase_moe_dense, 11: phase_server}
+            9: phase_moe_paged, 10: phase_moe_dense, 11: phase_server,
+            12: phase_hybrid_serving, 13: phase_vlm, 14: phase_whisper}
     by_phase = {name: {} for name in _launch_counters()}
     for n, phase in runs.items():
         if n in phases:
@@ -2258,7 +2593,7 @@ def main(argv=None) -> int:
                 if count:
                     by_phase[name][n] = count
             _free_card()
-    if not set(range(3, 12)) <= phases:
+    if not set(range(3, 15)) <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {
@@ -2288,10 +2623,12 @@ def main(argv=None) -> int:
             "shape": r["shape"], "tol": r["tol"],
         })
         # K1: "ms" is with the L2 cache flushed, "warm_ms" warm, "g16" at
-        # qwen3-moe's grouping; K2: "h64" at qwen3-moe's heads, "w512"
-        # with a window at head dim 128, "w8192" at llama4's window and
-        # 10000 tokens, "hd256" at gemma2's head dim
-        for key in ("warm_ms", "g16", "h64", "w512", "w8192", "hd256"):
+        # qwen3-moe's grouping, "g7" at llava's; K2: "h64" at qwen3-moe's
+        # heads, "w512" with a window at head dim 128, "w8192" at llama4's
+        # window and 10000 tokens, "hd256" at gemma2's head dim, "hymba"
+        # at hymba's heads and window, "llava" at llava's heads
+        for key in ("warm_ms", "g16", "g7", "h64", "w512", "w8192", "hd256",
+                    "hymba", "llava"):
             if key in r:
                 kernels[-1][key] = r[key]
     print(json.dumps({"kernels": kernels}))

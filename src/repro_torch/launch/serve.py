@@ -10,8 +10,13 @@ default (``--kv-mode auto``) the engine picks its mode: paged for the
 dense and MoE transformers that can decode from pages (``--arch
 qwen3-moe-235b-a22b``), dense per-slot state for those with sliding
 windows or a softcap (``--arch gemma2-9b``, ``--arch
-llama4-scout-17b-a16e``) and for RWKV (``--arch rwkv6-3b``);
-``--no-incremental`` runs the rebatching baseline (dense).
+llama4-scout-17b-a16e``), for RWKV (``--arch rwkv6-3b``) and for the
+hybrid (``--arch hymba-1.5b``); the VLM serves text in paged mode
+(``--arch llava-next-34b``: the engine passes no patch embeddings, as the
+reference's passes none), and the enc-dec model fails on its first
+prefill, since the engine passes it no frames (``--arch whisper-tiny``,
+as the reference's launcher fails); ``--no-incremental`` runs the
+rebatching baseline (dense).
 
 Examples (full size on the card; ``--reduced --device cpu`` for the smoke
 config on the CPU; ``--workers 2 --pool-watermark 1 --metrics-port 0``
@@ -136,7 +141,11 @@ def main(argv=None) -> None:
         )
         for i in range(args.requests)
     ]
-    done = srv.run(reqs)
+    try:
+        done = srv.run(reqs)
+    except BaseException:
+        srv.close()
+        raise
     for r in sorted(done, key=lambda r: r.request_id):
         status = f"ERROR: {r.error}" if r.error else (
             f"{len(r.tokens)} tokens "

@@ -9,8 +9,10 @@ CPU.  Decode attention over the page pool lives in
 decode over a dense (B, max_seq) cache is :func:`update_cache` and
 :func:`decode_attn`, plain PyTorch as the reference computed them in XLA
 (no TPU kernel).  There is no mesh, so the reference's ``layout`` knob
-(a sharding choice) is not ported.  ``blockwise_attn`` is on no serving
-path of the port and waits for training (ROADMAP.md queue 1, item 10).
+(a sharding choice) is not ported.  :func:`blockwise_attn` is the
+reference's XLA online-softmax attention over KV chunks, in plain PyTorch:
+the enc-dec model's self- and cross-attention run through it, as they do
+in the reference (no TPU kernel computes it).
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ import torch
 from ..kernels.flash_attention import ops as fa_ops
 from .common import ArchConfig, rms_norm, rope, softcap
 
-__all__ = ["NEG_INF", "attn_params_shape", "attention_block", "decode_attn",
-           "qkv", "update_cache"]
+__all__ = ["NEG_INF", "attn_params_shape", "attention_block",
+           "blockwise_attn", "decode_attn", "qkv", "update_cache"]
 
 NEG_INF = -2.0e38
+_SENTINEL = 2 ** 30
 
 
 def attn_params_shape(cfg: ArchConfig) -> Dict[str, Any]:
@@ -62,6 +65,70 @@ def qkv(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
         q = rope(q, positions, rope_base)
         k = rope(k, positions, rope_base)
     return q, k, v
+
+
+def blockwise_attn(
+    q: torch.Tensor,              # (B, Sq, K, G, hd): q already grouped
+    k: torch.Tensor,              # (B, Sk, K, hd)
+    v: torch.Tensor,              # (B, Sk, K, hd)
+    *,
+    q_positions: torch.Tensor,    # (Sq,) absolute positions of queries
+    k_positions: torch.Tensor,    # (Sk,)
+    window,                       # 0 => global
+    scale: float,
+    logit_cap: float = 0.0,
+    causal: bool = True,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks; returns (B, Sq, K, G, hd)
+    in q's dtype.
+
+    The reference's arithmetic step for step: scores in fp32, the softcap
+    before the mask, masked scores set to ``NEG_INF``, a running max ``m``,
+    sum ``l`` and accumulator rescaled per chunk, ``l`` clamped at 1e-30.
+    A ragged KV (whisper's 1500 encoder frames) is zero-padded to the
+    chunk and its tail masked through sentinel positions.
+    """
+    B, Sq, K, G, hd = q.shape
+    Sk = k.shape[1]
+    chunk = min(chunk, Sk)
+    pad = (-Sk) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_positions = torch.cat([k_positions, torch.full(
+            (pad,), _SENTINEL, dtype=k_positions.dtype,
+            device=k_positions.device)])
+        Sk += pad
+    window = int(window)
+    qf = q.float() * scale
+    m = torch.full((B, Sq, K, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Sq, K, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, K, G, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, Sk, chunk):
+        k_j = k[:, c0:c0 + chunk].float()
+        v_j = v[:, c0:c0 + chunk].float()
+        kp_j = k_positions[c0:c0 + chunk]
+        s = torch.einsum("bqkgh,bckh->bqkgc", qf, k_j)
+        if logit_cap:
+            s = softcap(s, logit_cap)
+        mask = (kp_j[None, :] < _SENTINEL).expand(Sq, -1)
+        if causal:
+            mask = mask & (kp_j[None, :] <= q_positions[:, None])
+        if window > 0:
+            mask = mask & (q_positions[:, None] - kp_j[None, :] < window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        l_corr = torch.exp(m - m_new)
+        l = l_corr * l + p.sum(dim=-1)
+        acc = acc * l_corr[..., None] + torch.einsum("bqkgc,bckh->bqkgh",
+                                                     p, v_j)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.to(q.dtype)
 
 
 def attention_block(

@@ -17,9 +17,11 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 __all__ = [
     "ArchConfig",
+    "frozen",
     "resolve_device",
     "rms_norm",
     "rope",
@@ -158,6 +160,13 @@ def resolve_device(device) -> torch.device:
             "False; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def frozen(shape, dtype, device) -> nn.Parameter:
+    """An allocated, uninitialised parameter that takes no gradient: the
+    models' weights are set by ``init`` or ``load_state_dict``."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
 
 
 # --------------------------------------------------------------------------

@@ -3,9 +3,12 @@
 :func:`params_from_numpy` takes the reference ``init`` output as a nested
 dict of numpy arrays — layers stacked on axis 0 (``layers.attn.wq`` is
 ``(L, D, H, hd)``) — and returns the flat state dict that the port's
-model's ``load_state_dict`` takes.  Every leaf is cast to ``cfg.dtype``,
-except the ones the model keeps in float32 whatever its dtype (RWKV's
-``w0`` and ``u`` and the MoE router, as the reference initialises them).
+model's ``load_state_dict`` takes (the enc-dec tree's ``enc_layers.*``,
+``dec_layers.*``, ``enc_final_ln``, ``dec_final_ln`` and ``pos_embed``
+included).  Every leaf is cast to ``cfg.dtype``, except the ones the model
+keeps in float32 whatever its dtype (RWKV's ``w0`` and ``u``, the MoE
+router, and the hybrid's ``dt_bias``, ``A_log`` and ``D_skip``, as the
+reference initialises them).
 No jax import is needed: the caller converts the leaves with
 ``np.asarray``.
 """
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from .common import ArchConfig, torch_dtype
+from .hybrid import FP32_PARAMS as HYBRID_FP32_PARAMS
 from .moe import FP32_PARAMS as MOE_FP32_PARAMS
 from .rwkv import FP32_PARAMS as RWKV_FP32_PARAMS
 
@@ -37,10 +41,11 @@ def _tensor(leaf: Any, dtype: torch.dtype) -> torch.Tensor:
 def params_from_numpy(cfg: ArchConfig,
                       tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flatten ``tree`` to ``{"layers.attn.wq": tensor, ...}`` in
-    ``cfg.dtype`` (RWKV's and the MoE router's float32 leaves stay
-    float32)."""
+    ``cfg.dtype`` (RWKV's, the MoE router's and the hybrid SSM's float32
+    leaves stay float32)."""
     dtype = torch_dtype(cfg.dtype)
     keep_fp32 = (RWKV_FP32_PARAMS if cfg.family == "ssm" else
+                 HYBRID_FP32_PARAMS if cfg.family == "hybrid" else
                  MOE_FP32_PARAMS if cfg.is_moe else ())
     out: Dict[str, torch.Tensor] = {}
 

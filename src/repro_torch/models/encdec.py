@@ -1,0 +1,340 @@
+"""Whisper-style encoder-decoder backbone (audio family), as a PyTorch
+``nn.Module``.
+
+The counterpart of ``repro/models/encdec.py``.  The conv/mel frontend is
+a stub, as there: callers pass precomputed frame embeddings ``frames``
+(B, T_enc, D).  The encoder is bidirectional attention and a plain GELU
+MLP over sinusoidal positions; the decoder has learned positions, causal
+self-attention and cross-attention to the encoder's output; LayerNorm
+with a bias throughout (arXiv:2212.04356).  Attention is plain MHA
+through :func:`~repro_torch.models.attention.blockwise_attn` (chunk
+``min(512, Sk)``), K without a bias, Q and V with one.
+
+Like the reference, the model runs through ``forward``, ``prefill`` and
+``decode_step``, each given ``frames``: the serving engine passes none, so
+``prefill`` without them raises a ``ValueError`` (the reference fails
+there too).  The decode state holds the self-attention cache and each
+layer's cross-attention K/V.  A decode step adds the learned position of
+slot 0 to every slot (``pos_embed[pos[0]]``), as the reference does.
+Weights live on the module; the functions take no ``params`` argument.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import NEG_INF, blockwise_attn, update_cache
+from .common import (
+    ArchConfig,
+    frozen,
+    resolve_device,
+    take_embedding,
+    torch_dtype,
+)
+
+__all__ = ["EncDecLM", "layer_norm", "sinusoids"]
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm in fp32 (population variance), cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dt)
+
+
+def sinusoids(length: int, channels: int) -> np.ndarray:
+    """Whisper's encoder positions: (length, channels) float32."""
+    t = np.arange(length)[:, None]
+    inv = np.exp(-np.log(10000.0) * np.arange(channels // 2)
+                 / (channels // 2 - 1))
+    ang = t * inv[None, :]
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(
+        np.float32)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
+
+
+def _mha(x, kv, p, cfg, *, causal, positions=None):
+    """Plain MHA (whisper: H == K).  x: (B, Sq, D), kv: (B, Sk, D) →
+    (y (B, Sq, D), (k, v) (B, Sk, H, hd))."""
+    B, Sq, D = x.shape
+    Sk = kv.shape[1]
+    H, hd = cfg.num_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, Sq, H, hd) + p["bq"]
+    k = (kv @ p["wk"]).reshape(B, Sk, H, hd)
+    v = (kv @ p["wv"]).reshape(B, Sk, H, hd) + p["bv"]
+    if positions is None:
+        positions = torch.arange(Sq, device=x.device)
+    out = blockwise_attn(
+        q.reshape(B, Sq, H, 1, hd), k, v, q_positions=positions,
+        k_positions=torch.arange(Sk, device=x.device), window=0,
+        scale=1.0 / math.sqrt(hd), causal=causal, chunk=min(512, Sk))
+    y = out.reshape(B, Sq, H * hd) @ p["wo"] + p["bo"]
+    return y, (k, v)
+
+
+def _attend(q, k, v, mask=None):
+    """One query row per slot over (B, S, H, hd) K/V, in fp32 as the
+    reference's decode: (B, H, hd) → (B, H, hd)."""
+    hd = q.shape[-1]
+    s = torch.einsum("bhd,bshd->bhs", q.float() / math.sqrt(hd), k.float())
+    if mask is not None:
+        s = torch.where(mask[:, None], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", w, v.float())
+
+
+def _attn_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    D, H, hd = cfg.d_model, cfg.num_heads, cfg.hd
+    return {"wq": (D, H * hd), "wk": (D, H * hd), "wv": (D, H * hd),
+            "wo": (H * hd, D), "bq": (H, hd), "bv": (H, hd), "bo": (D,)}
+
+
+def _mlp_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {"w1": (D, F_), "b1": (F_,), "w2": (F_, D), "b2": (D,)}
+
+
+def _stack(groups: Dict[str, Dict[str, tuple]], L: int, dtype,
+           device) -> nn.Module:
+    """A module of submodules ``groups`` whose leaves are stacked over L
+    layers on axis 0."""
+    out = nn.Module()
+    for group, shapes in groups.items():
+        sub = nn.Module()
+        for name, shape in shapes.items():
+            setattr(sub, name, frozen((L, *shape), dtype, device))
+        setattr(out, group, sub)
+    return out
+
+
+class EncDecLM(nn.Module):
+    """Whisper-style encoder-decoder LM; parameters are allocated, not
+    initialised — call :meth:`init` or ``load_state_dict``."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 max_target_positions: int = 4096) -> None:
+        super().__init__()
+        if cfg.family != "audio":
+            raise ValueError(
+                f"EncDecLM needs family 'audio', got {cfg.family!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.dtype)
+        self.max_target_positions = max_target_positions
+        D = cfg.d_model
+        dt, dev = self.dtype, self.device
+        ln = {"scale": (D,), "bias": (D,)}
+        self.embed = frozen((cfg.vocab_size, D), dt, dev)
+        self.pos_embed = frozen((max_target_positions, D), dt, dev)
+        self.enc_layers = _stack(
+            {"ln1": ln, "ln2": ln, "attn": _attn_shapes(cfg),
+             "mlp": _mlp_shapes(cfg)}, cfg.encoder_layers, dt, dev)
+        self.dec_layers = _stack(
+            {"ln1": ln, "ln_x": ln, "ln2": ln,
+             "self_attn": _attn_shapes(cfg), "cross_attn": _attn_shapes(cfg),
+             "mlp": _mlp_shapes(cfg)}, cfg.num_layers, dt, dev)
+        self.enc_final_ln = nn.Module()
+        self.dec_final_ln = nn.Module()
+        for final in (self.enc_final_ln, self.dec_final_ln):
+            for name, shape in ln.items():
+                setattr(final, name, frozen(shape, dt, dev))
+
+    # ------------------------------------------------------------- params
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "EncDecLM":
+        """Random weights with the reference's distributions, drawn from
+        ``generator`` (which must live on the model's device)."""
+        cfg, dev = self.cfg, self.device
+        D, F_ = cfg.d_model, cfg.d_ff
+
+        def normal(shape, scale):
+            x = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            return (x * scale).to(self.dtype)
+
+        self.embed.copy_(normal(self.embed.shape, 1 / math.sqrt(D)))
+        self.pos_embed.copy_(normal(self.pos_embed.shape, 0.01))
+        std = {"wq": 1 / math.sqrt(D), "wk": 1 / math.sqrt(D),
+               "wv": 1 / math.sqrt(D), "wo": 1 / math.sqrt(D),
+               "w1": 1 / math.sqrt(D), "w2": 1 / math.sqrt(F_)}
+        for name, t in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name in ("embed", "pos_embed"):
+                continue
+            if leaf in std:
+                for l in range(t.shape[0]):
+                    t[l].copy_(normal(t.shape[1:], std[leaf]))
+            elif leaf == "scale":
+                t.fill_(1)
+            else:                                    # the biases
+                t.zero_()
+        return self
+
+    @staticmethod
+    def _layer_params(layers: nn.Module, l: int) -> Dict[str, Any]:
+        return {group: {n: t[l] for n, t in sub.named_parameters()}
+                for group, sub in layers.named_children()}
+
+    # ------------------------------------------------------------- encode
+
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, T_enc, D) precomputed embeddings (frontend stub) →
+        the encoder's output, in the model's dtype."""
+        cfg = self.cfg
+        pos = torch.from_numpy(sinusoids(frames.shape[1], cfg.d_model)).to(
+            frames.device)
+        h = (frames + pos).to(self.dtype)
+        for l in range(cfg.encoder_layers):
+            p = self._layer_params(self.enc_layers, l)
+            a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
+            y, _ = _mha(a, a, p["attn"], cfg, causal=False)
+            h = h + y
+            m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
+            m = _gelu(m @ p["mlp"]["w1"] + p["mlp"]["b1"])
+            h = h + (m @ p["mlp"]["w2"] + p["mlp"]["b2"])
+        return layer_norm(h, self.enc_final_ln.scale, self.enc_final_ln.bias)
+
+    # ------------------------------------------------------------ decoder
+
+    def _frames(self, frames, patch_embeds, what: str) -> torch.Tensor:
+        """The encoder's input: ``frames``, else ``patch_embeds`` (the one
+        slot the reference's launcher passes the stub through)."""
+        frames = patch_embeds if frames is None else frames
+        if frames is None:
+            raise ValueError(
+                f"EncDecLM.{what} needs frames: the encoder's input "
+                f"embeddings (B, T_enc, {self.cfg.d_model}); the audio "
+                "frontend is a stub and the serving engine passes none")
+        return frames.to(self.device)
+
+    def _decoder(self, tokens, enc_out):
+        """Every decoder layer over the full prompt; yields (h, (k, v),
+        (cross k, cross v)) per layer."""
+        cfg = self.cfg
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)
+        h = take_embedding(self.embed, tokens) + self.pos_embed[:S]
+        for l in range(cfg.num_layers):
+            p = self._layer_params(self.dec_layers, l)
+            a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
+            y, kv = _mha(a, a, p["self_attn"], cfg, causal=True,
+                         positions=positions)
+            h = h + y
+            x = layer_norm(h, p["ln_x"]["scale"], p["ln_x"]["bias"])
+            y2, xkv = _mha(x, enc_out, p["cross_attn"], cfg, causal=False,
+                           positions=positions)
+            h = h + y2
+            m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
+            m = _gelu(m @ p["mlp"]["w1"] + p["mlp"]["b1"])
+            h = h + (m @ p["mlp"]["w2"] + p["mlp"]["b2"])
+            yield h, kv, xkv
+
+    def _final(self, h: torch.Tensor) -> torch.Tensor:
+        h = layer_norm(h, self.dec_final_ln.scale, self.dec_final_ln.bias)
+        return h @ self.embed.T
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, *,
+                frames: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced decoder logits (B, S, V) over the encoded
+        ``frames`` (+ the aux loss, 0)."""
+        enc_out = self.encode(self._frames(frames, patch_embeds, "forward"))
+        for h, _, _ in self._decoder(tokens, enc_out):
+            pass
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return self._final(h), aux
+
+    # ------------------------------------------------------------ serving
+
+    def init_decode_state(self, batch_size: int, max_seq: int, dtype=None,
+                          device=None) -> Dict[str, torch.Tensor]:
+        """Zero decode state for ``batch_size`` slots (cross K/V over
+        ``encoder_len`` frames); ``device`` overrides the model's."""
+        cfg = self.cfg
+        dtype = dtype or self.dtype
+        dev = self.device if device is None else device
+        L, H, hd = cfg.num_layers, cfg.num_heads, cfg.hd
+        self_kv = (L, batch_size, max_seq, H, hd)
+        cross_kv = (L, batch_size, cfg.encoder_len, H, hd)
+        return {
+            "cache_k": torch.zeros(self_kv, dtype=dtype, device=dev),
+            "cache_v": torch.zeros(self_kv, dtype=dtype, device=dev),
+            "xk": torch.zeros(cross_kv, dtype=dtype, device=dev),
+            "xv": torch.zeros(cross_kv, dtype=dtype, device=dev),
+            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+        }
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
+                frames: Optional[torch.Tensor] = None,
+                patch_embeds: Optional[torch.Tensor] = None):
+        """Encode ``frames`` and run the prompt: (decode_state, logits at
+        the last position)."""
+        enc_out = self.encode(self._frames(frames, patch_embeds, "prefill"))
+        B, S = tokens.shape
+        max_seq = max_seq or S
+        ks, vs, xks, xvs = [], [], [], []
+        for h, (k, v), (xk, xv) in self._decoder(tokens, enc_out):
+            if max_seq > S:
+                pad = (0, 0, 0, 0, 0, max_seq - S)
+                k, v = F.pad(k, pad), F.pad(v, pad)
+            ks.append(k)
+            vs.append(v)
+            xks.append(xk)
+            xvs.append(xv)
+        state = {
+            "cache_k": torch.stack(ks), "cache_v": torch.stack(vs),
+            "xk": torch.stack(xks), "xv": torch.stack(xvs),
+            "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
+        }
+        return state, self._final(h[:, -1])
+
+    @torch.no_grad()
+    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor):
+        """One token per slot: (state, (B, V) logits).  Lane b writes its
+        self-attention K/V at ``pos[b]`` (in place) and attends rows
+        ``<= pos[b]``, then the fixed cross K/V; every lane takes slot 0's
+        learned position, as in the reference."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        H, hd = cfg.num_heads, cfg.hd
+        pos = state["pos"]
+        h = take_embedding(self.embed, tokens) + self.pos_embed[pos[0].long()]
+        live = (torch.arange(state["cache_k"].shape[2], device=h.device)[None]
+                <= pos.long()[:, None])
+        for l in range(cfg.num_layers):
+            p = self._layer_params(self.dec_layers, l)
+            sa, xa = p["self_attn"], p["cross_attn"]
+            a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
+            q = (a @ sa["wq"]).reshape(B, H, hd) + sa["bq"]
+            k = (a @ sa["wk"]).reshape(B, H, hd)
+            v = (a @ sa["wv"]).reshape(B, H, hd) + sa["bv"]
+            ck, cv = state["cache_k"][l], state["cache_v"][l]
+            update_cache(ck, cv, k, v, pos)
+            o = _attend(q, ck, cv, live)
+            h = h + (o.reshape(B, H * hd).to(h.dtype) @ sa["wo"] + sa["bo"])
+            x = layer_norm(h, p["ln_x"]["scale"], p["ln_x"]["bias"])
+            qx = (x @ xa["wq"]).reshape(B, H, hd) + xa["bq"]
+            ox = _attend(qx, state["xk"][l], state["xv"][l])
+            h = h + (ox.reshape(B, H * hd).to(h.dtype) @ xa["wo"] + xa["bo"])
+            m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
+            m = _gelu(m @ p["mlp"]["w1"] + p["mlp"]["b1"])
+            h = h + (m @ p["mlp"]["w2"] + p["mlp"]["b2"])
+        new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
+                     "xk": state["xk"], "xv": state["xv"], "pos": pos + 1}
+        return new_state, self._final(h)

@@ -1,0 +1,322 @@
+"""Hymba-style hybrid: parallel attention and selective-SSM (Mamba) heads
+in every layer, as a PyTorch ``nn.Module``.
+
+The counterpart of ``repro/models/hybrid.py``: the same stacked-parameter
+layout (layer ``l``'s ``w_in`` is ``layers.ssm.w_in[l]``), the same
+functions, and a Python loop over layers where the reference scanned.
+Each layer feeds one normed input to a GQA attention branch (a sliding
+window on every layer but the first, middle and last) and to a selective
+SSM branch; the two outputs are RMS-normed, averaged and added to the
+residual (arXiv:2411.13676; meta tokens and the depthwise conv are left
+out, as in the reference).
+
+Prompt attention goes through :func:`~repro_torch.models.attention.
+attention_block`, so through the flash kernel (K2) on the card.  The SSM
+recurrence is plain PyTorch in fp32 (:func:`ssm_scan`, a ``lax.scan`` in
+the reference, no TPU kernel).  A decode step runs the dense-cache
+attention and :func:`ssm_step`.  The engine serves this model in its
+dense mode (``init_decode_state`` / ``prefill`` / ``decode_step``); the
+state holds the K/V cache and each layer's fp32 SSM state.  Weights live
+on the module; the functions take no ``params`` argument.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import (
+    attention_block,
+    attn_params_shape,
+    decode_attn,
+    qkv,
+    update_cache,
+)
+from .common import (
+    ArchConfig,
+    frozen,
+    gated_mlp,
+    resolve_device,
+    rms_norm,
+    take_embedding,
+    torch_dtype,
+)
+
+__all__ = ["FP32_PARAMS", "HybridLM", "hymba_windows", "ssm_scan",
+           "ssm_step"]
+
+#: parameters kept in float32 whatever the model dtype, as the reference
+#: initialises them
+FP32_PARAMS = ("layers.ssm.dt_bias", "layers.ssm.A_log", "layers.ssm.D_skip")
+
+
+def hymba_windows(cfg: ArchConfig) -> np.ndarray:
+    """(L,) sliding window per layer: ``local_window`` (or 1024)
+    everywhere but the first, middle and last layers, which are global."""
+    L = cfg.num_layers
+    out = np.full(L, cfg.local_window or 1024, np.int32)
+    for g in (0, L // 2, L - 1):
+        out[g] = 0
+    return out
+
+
+# --------------------------------------------------------------------------
+# selective SSM
+# --------------------------------------------------------------------------
+
+
+def ssm_step(h, x, dt, B_t, C_t, A):
+    """One token.  h: (..., di, N); x/dt: (..., di); B_t/C_t: (..., N);
+    A: (di, N)."""
+    dA = torch.exp(dt[..., None] * A)
+    dBx = (dt * x)[..., None] * B_t[..., None, :]
+    h = h * dA + dBx
+    y = torch.einsum("...dn,...n->...d", h, C_t)
+    return h, y
+
+
+def ssm_scan(x, dt, Bp, Cp, A, h0, *, chunk: int = 64):
+    """x/dt: (B, T, di); Bp/Cp: (B, T, N) → (final h, y (B, T, di) in x's
+    dtype): :func:`ssm_step`'s recurrence in fp32, token by token, for any
+    T (the reference's scan needs ``min(64, T)`` to divide T).
+
+    Per chunk of up to ``chunk`` tokens the decays ``exp(dt·A)`` and inputs
+    ``dt·x·B`` are formed at once, each token's state is one fused
+    multiply-add into the chunk's state buffer, and the outputs are one
+    product with ``C`` over the buffer, so memory stays O(chunk·di·N).
+    """
+    Bsz, T, di = x.shape
+    # time-major, so each token's slice of a chunk buffer is contiguous
+    xt, dtt, bt, ct = (v.float().transpose(0, 1) for v in (x, dt, Bp, Cp))
+    A = A.float()
+    h = h0.float()
+    ys = []
+    for s in range(0, T, chunk):
+        e = min(s + chunk, T)
+        dA = torch.exp(dtt[s:e, ..., None] * A)                # (c, B, di, N)
+        dBx = (dtt[s:e] * xt[s:e])[..., None] * bt[s:e, :, None, :]
+        hs = torch.empty_like(dA)
+        for t in range(e - s):
+            h = torch.addcmul(dBx[t], h, dA[t], out=hs[t])
+        ys.append(torch.einsum("tbdn,tbn->btd", hs, ct[s:e]))
+    return h, torch.cat(ys, dim=1).to(x.dtype)
+
+
+class HybridLM(nn.Module):
+    """Hymba-style hybrid LM; parameters are allocated, not initialised —
+    call :meth:`init` or ``load_state_dict``."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
+        super().__init__()
+        if cfg.family != "hybrid":
+            raise ValueError(
+                f"HybridLM needs family 'hybrid', got {cfg.family!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg.dtype)
+        self.windows = hymba_windows(cfg)
+        self.di = cfg.ssm_d_inner or 2 * cfg.d_model
+        self.N = cfg.ssm_state_size
+        L, D, F_, di, N = (cfg.num_layers, cfg.d_model, cfg.d_ff, self.di,
+                           self.N)
+        dt, dev = self.dtype, self.device
+        self.embed = frozen((cfg.vocab_size, D), dt, dev)
+        self.final_norm = frozen((D,), dt, dev)
+        self.layers = nn.Module()
+        for name in ("ln1", "ln2", "attn_norm", "ssm_norm"):
+            setattr(self.layers, name, frozen((L, D), dt, dev))
+        self.layers.attn = nn.Module()
+        for name, shape in attn_params_shape(cfg).items():
+            setattr(self.layers.attn, name, frozen((L, *shape), dt, dev))
+        self.layers.ssm = nn.Module()
+        for name, shape in {"w_in": (D, 2 * di), "w_dt": (di, di),
+                            "dt_bias": (di,), "w_B": (di, N), "w_C": (di, N),
+                            "A_log": (di, N), "D_skip": (di,),
+                            "w_out": (di, D)}.items():
+            leaf_dt = (torch.float32 if f"layers.ssm.{name}" in FP32_PARAMS
+                       else dt)
+            setattr(self.layers.ssm, name, frozen((L, *shape), leaf_dt, dev))
+        self.layers.mlp = nn.Module()
+        self.layers.mlp.wg = frozen((L, D, F_), dt, dev)
+        self.layers.mlp.wu = frozen((L, D, F_), dt, dev)
+        self.layers.mlp.wd = frozen((L, F_, D), dt, dev)
+
+    # ------------------------------------------------------------- params
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "HybridLM":
+        """Random weights with the reference's distributions, drawn from
+        ``generator`` (which must live on the model's device), one layer
+        at a time."""
+        cfg, dev = self.cfg, self.device
+        D, di, N = cfg.d_model, self.di, self.N
+        s_d, s_di = 1 / math.sqrt(D), 1 / math.sqrt(di)
+        std = {"attn.wq": s_d, "attn.wk": s_d, "attn.wv": s_d, "attn.wo": s_d,
+               "ssm.w_in": s_d, "ssm.w_dt": s_di, "ssm.w_B": s_di,
+               "ssm.w_C": s_di, "ssm.w_out": s_di, "mlp.wg": s_d,
+               "mlp.wu": s_d, "mlp.wd": 1 / math.sqrt(cfg.d_ff)}
+
+        def normal(shape, scale, dtype):
+            x = torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32)
+            return (x * scale).to(dtype)
+
+        self.embed.copy_(normal(self.embed.shape, s_d, self.dtype))
+        self.final_norm.fill_(1)
+        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                       device=dev)).expand(di, N)
+        for name, t in self.layers.named_parameters():
+            if name in std:
+                for l in range(cfg.num_layers):
+                    t[l].copy_(normal(t.shape[1:], std[name], t.dtype))
+            elif name == "ssm.A_log":
+                t.copy_(a_log)
+            elif name.startswith("attn.b") or name == "ssm.dt_bias":
+                t.zero_()
+            else:                      # the norms' scales and D_skip
+                t.fill_(1)
+        return self
+
+    def _layer_params(self, l: int) -> Dict[str, Any]:
+        p: Dict[str, Any] = {
+            name: t[l] for name, t in self.layers.named_parameters()
+            if "." not in name
+        }
+        for group in ("attn", "ssm", "mlp"):
+            p[group] = {n: t[l] for n, t in
+                        getattr(self.layers, group).named_parameters()}
+        return p
+
+    # ----------------------------------------------------------- branches
+
+    def _ssm_branch(self, x, p, h0):
+        """x: (B, T, D) → ((B, T, D), final fp32 state (B, di, N)).  The
+        skip adds in y's dtype after the scan, as the reference's prefill
+        does."""
+        xc, z = torch.chunk(x @ p["w_in"], 2, dim=-1)
+        dt = F.softplus(xc @ p["w_dt"] + p["dt_bias"])   # fp32: bias is fp32
+        A = -torch.exp(p["A_log"])
+        h, y = ssm_scan(xc, dt, xc @ p["w_B"], xc @ p["w_C"], A, h0)
+        y = y + p["D_skip"].to(y.dtype) * xc
+        y = y * F.silu(z)
+        return y @ p["w_out"], h
+
+    def _fuse(self, h, attn_y, ssm_y, p):
+        """The residual add of both branches, then the gated MLP."""
+        cfg = self.cfg
+        h = h + 0.5 * (rms_norm(attn_y, p["attn_norm"], cfg.norm_eps)
+                       + rms_norm(ssm_y, p["ssm_norm"], cfg.norm_eps))
+        m = rms_norm(h, p["ln2"], cfg.norm_eps)
+        return h + gated_mlp(m, p["mlp"]["wu"], p["mlp"]["wg"],
+                             p["mlp"]["wd"], cfg.activation)
+
+    def _layers(self, h: torch.Tensor, positions: torch.Tensor):
+        """Every layer over the full prompt from a zero SSM state; yields
+        (h, (k, v), final SSM state) per layer."""
+        cfg = self.cfg
+        B = h.shape[0]
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            a = rms_norm(h, p["ln1"], cfg.norm_eps)
+            attn_y, kv = attention_block(
+                a, p["attn"], cfg, window=int(self.windows[l]),
+                rope_base=cfg.rope_base, positions=positions, return_kv=True)
+            h0 = torch.zeros((B, self.di, self.N), dtype=torch.float32,
+                             device=h.device)
+            ssm_y, hs = self._ssm_branch(a, p["ssm"], h0)
+            h = self._fuse(h, attn_y, ssm_y, p)
+            yield h, kv, hs
+
+    def _final(self, h: torch.Tensor) -> torch.Tensor:
+        h = rms_norm(h, self.final_norm, self.cfg.norm_eps)
+        return h @ self.embed.T                      # tied embedding
+
+    # ------------------------------------------------------------ forward
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T) tokens → (B, T, V) logits (+ the aux loss, 0)."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        h = take_embedding(self.embed, tokens)
+        for h, _, _ in self._layers(h, positions):
+            pass
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return self._final(h), aux
+
+    # ------------------------------------------------------------ serving
+
+    def init_decode_state(self, batch_size: int, max_seq: int, dtype=None,
+                          device=None) -> Dict[str, torch.Tensor]:
+        """Zero decode state for ``batch_size`` slots; ``device`` overrides
+        the model's (``"meta"`` gives the shapes alone)."""
+        cfg = self.cfg
+        dtype = dtype or self.dtype
+        dev = self.device if device is None else device
+        shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads, cfg.hd)
+        return {
+            "cache_k": torch.zeros(shape, dtype=dtype, device=dev),
+            "cache_v": torch.zeros(shape, dtype=dtype, device=dev),
+            "ssm_h": torch.zeros((cfg.num_layers, batch_size, self.di, self.N),
+                                 dtype=torch.float32, device=dev),
+            "pos": torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+        }
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None):
+        """Run the prompt, return (decode_state, logits at last position)."""
+        B, S = tokens.shape
+        max_seq = max_seq or S
+        positions = torch.arange(S, device=tokens.device)
+        h = take_embedding(self.embed, tokens)
+        ks, vs, hs = [], [], []
+        for h, (k, v), state in self._layers(h, positions):
+            if max_seq > S:
+                pad = (0, 0, 0, 0, 0, max_seq - S)
+                k = F.pad(k, pad)
+                v = F.pad(v, pad)
+            ks.append(k)
+            vs.append(v)
+            hs.append(state)
+        state = {
+            "cache_k": torch.stack(ks), "cache_v": torch.stack(vs),
+            "ssm_h": torch.stack(hs),
+            "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device),
+        }
+        return state, self._final(h[:, -1])
+
+    @torch.no_grad()
+    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor):
+        """One token per slot: (state, (B, V) logits).  Lane b writes its
+        K/V at ``pos[b]`` and attends rows ``<= pos[b]`` within its layer's
+        window; the cache and the SSM states are written in place and
+        returned; ``pos`` advances by one on every lane.  The SSM skip adds
+        in fp32 before the cast, as the reference's decode does."""
+        cfg = self.cfg
+        pos = state["pos"]
+        h = take_embedding(self.embed, tokens)
+        for l in range(cfg.num_layers):
+            p = self._layer_params(l)
+            a = rms_norm(h, p["ln1"], cfg.norm_eps)
+            q, k, v = qkv(a, p["attn"], cfg, pos, cfg.rope_base)
+            ck, cv = state["cache_k"][l], state["cache_v"][l]
+            update_cache(ck, cv, k, v, pos)
+            o = decode_attn(q, ck, cv, pos, cfg, window=int(self.windows[l]))
+            attn_y = o.to(h.dtype) @ p["attn"]["wo"]
+            ps = p["ssm"]
+            xc, z = torch.chunk(a @ ps["w_in"], 2, dim=-1)
+            dt = F.softplus(xc @ ps["w_dt"] + ps["dt_bias"])
+            A = -torch.exp(ps["A_log"])
+            hs, y = ssm_step(state["ssm_h"][l], xc.float(), dt.float(),
+                             (xc @ ps["w_B"]).float(),
+                             (xc @ ps["w_C"]).float(), A)
+            state["ssm_h"][l] = hs
+            y = (y + ps["D_skip"] * xc).to(h.dtype) * F.silu(z)
+            h = self._fuse(h, attn_y, y @ ps["w_out"], p)
+        new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
+                     "ssm_h": state["ssm_h"], "pos": pos + 1}
+        return new_state, self._final(h)

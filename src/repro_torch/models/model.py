@@ -1,31 +1,34 @@
-"""Model factory: family → implementation dispatch.
-
-The dense and MoE families (``TransformerLM``) and RWKV6 (``RwkvLM``,
-family ``"ssm"``) are ported; the others raise and are queued in
-ROADMAP.md (queue 1, item 7).
-"""
+"""Model factory: family → implementation dispatch, as the reference's
+``repro/models/model.py``: every family it builds, the port builds."""
 
 from __future__ import annotations
 
 from typing import Any
 
 from .common import ArchConfig
+from .encdec import EncDecLM
+from .hybrid import HybridLM
 from .rwkv import RwkvLM
 from .transformer import TransformerLM
 
 __all__ = ["build_model"]
 
-_FAMILIES = {"dense": TransformerLM, "moe": TransformerLM, "ssm": RwkvLM}
-_KNOWN = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+_FAMILIES = {
+    "dense": TransformerLM,
+    "moe": TransformerLM,
+    "vlm": TransformerLM,
+    "ssm": RwkvLM,
+    "hybrid": HybridLM,
+    "audio": EncDecLM,
+}
 
 
-def build_model(cfg: ArchConfig, *, device="cuda") -> Any:
-    cls = _FAMILIES.get(cfg.family)
-    if cls is None:
-        if cfg.family in _KNOWN:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 7: other model families)"
-            )
-        raise ValueError(f"unknown family {cfg.family!r} for {cfg.arch_id}")
-    return cls(cfg, device=device)
+def build_model(cfg: ArchConfig, *, device="cuda", **kw) -> Any:
+    try:
+        cls = _FAMILIES[cfg.family]
+    except KeyError:
+        raise ValueError(
+            f"unknown family {cfg.family!r} for {cfg.arch_id}") from None
+    if cfg.family == "audio":
+        kw.setdefault("max_target_positions", 32768 + 8)
+    return cls(cfg, device=device, **kw)

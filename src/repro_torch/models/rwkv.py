@@ -30,6 +30,7 @@ from torch import nn
 from ..kernels.wkv6.ops import wkv6
 from .common import (
     ArchConfig,
+    frozen,
     resolve_device,
     rms_norm,
     take_embedding,
@@ -100,11 +101,6 @@ def _group_norm(x, scale, bias, H, eps=64e-5):
     return out.to(x.dtype)
 
 
-def _frozen(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 def _layer_shapes(cfg: ArchConfig, H: int, hd: int) -> Dict[str, tuple]:
     D, F_ = cfg.d_model, cfg.d_ff
     return {
@@ -133,12 +129,12 @@ class RwkvLM(nn.Module):
         self.H = cfg.d_model // self.hd
         L, D = cfg.num_layers, cfg.d_model
         dt, dev = self.dtype, self.device
-        self.embed = _frozen((cfg.vocab_size, D), dt, dev)
-        self.final_norm = _frozen((D,), dt, dev)
+        self.embed = frozen((cfg.vocab_size, D), dt, dev)
+        self.final_norm = frozen((D,), dt, dev)
         self.layers = nn.Module()
         for name, shape in _layer_shapes(cfg, self.H, self.hd).items():
             ldt = torch.float32 if f"layers.{name}" in FP32_PARAMS else dt
-            setattr(self.layers, name, _frozen((L, *shape), ldt, dev))
+            setattr(self.layers, name, frozen((L, *shape), ldt, dev))
 
     # ------------------------------------------------------------- params
 

@@ -1,9 +1,9 @@
-"""Decoder-only transformer, dense and MoE families, as a PyTorch
+"""Decoder-only transformer, dense, MoE and VLM families, as a PyTorch
 ``nn.Module``.
 
 The counterpart of ``repro/models/transformer.py`` for the dense family
-(gemma2/3, starcoder2, qwen2.5) and the MoE family (qwen3-moe,
-llama4-scout as text only, the reference's ``patch_embeds=None`` path):
+(gemma2/3, starcoder2, qwen2.5), the MoE family (qwen3-moe,
+llama4-scout) and the VLM family (llava-next-34b, a dense backbone):
 the same stacked-parameter layout (layer ``l``'s ``wq`` is
 ``layers.attn.wq[l]`` of shape ``(D, H, hd)``; an MoE layer holds
 ``layers.moe.*`` in place of ``layers.mlp.*``), the same public functions,
@@ -14,6 +14,12 @@ An MoE layer routes with the capacity counted over the rows the call sees
 (the B·S rows of ``forward``, ``prefill``, ``prefill_chunk`` and
 ``paged_prefill_at``: a padded batch, one chunk, one suffix), as the
 reference counts it, and losslessly over the B lanes of a decode step.
+
+The modality prefix (VLM early fusion, a frontend stub as in the
+reference): ``forward`` and the dense ``prefill`` take ``patch_embeds``
+(B, P, D), which replace the first P token embeddings; the paged
+functions and ``decode_step`` take none, as the reference's take none, so
+the engine serves such a model on text.
 
 Paged serving interface (``ServingEngine`` in paged mode):
   ``supports_paged_decode``                       → bool
@@ -58,6 +64,7 @@ from .attention import (
 )
 from .common import (
     ArchConfig,
+    frozen,
     gated_mlp,
     layer_rope_bases,
     layer_windows,
@@ -74,22 +81,16 @@ from .moe import moe_block, moe_params_shape
 __all__ = ["TransformerLM"]
 
 
-def _frozen(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
-
-
 class TransformerLM(nn.Module):
     """Decoder-only LM (dense or MoE); parameters are allocated, not
     initialised — call :meth:`init` or ``load_state_dict``."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{cfg.arch_id}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 7: other model families)"
-            )
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(
+                f"TransformerLM needs family 'dense', 'moe' or 'vlm', got "
+                f"{cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
@@ -97,31 +98,31 @@ class TransformerLM(nn.Module):
         self.rope_bases = layer_rope_bases(cfg)
         L, D, F, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
         dt, dev = self.dtype, self.device
-        self.embed = _frozen((V, D), dt, dev)
+        self.embed = frozen((V, D), dt, dev)
         if not cfg.tie_embeddings:
-            self.unembed = _frozen((V, D), dt, dev)
-        self.final_norm = _frozen((D,), dt, dev)
+            self.unembed = frozen((V, D), dt, dev)
+        self.final_norm = frozen((D,), dt, dev)
         self.layers = nn.Module()
         norms = ["ln1", "ln2"] + (["ln1_post", "ln2_post"]
                                   if cfg.post_norms else [])
         for name in norms:
-            setattr(self.layers, name, _frozen((L, D), dt, dev))
+            setattr(self.layers, name, frozen((L, D), dt, dev))
         self.layers.attn = nn.Module()
         for name, shape in attn_params_shape(cfg).items():
-            setattr(self.layers.attn, name, _frozen((L, *shape), dt, dev))
+            setattr(self.layers.attn, name, frozen((L, *shape), dt, dev))
         if cfg.is_moe:
             self.layers.moe = nn.Module()
             for name, shape in moe_params_shape(cfg).items():
                 leaf_dt = (torch.float32 if f"layers.moe.{name}" in
                            MOE_FP32_PARAMS else dt)
                 setattr(self.layers.moe, name,
-                        _frozen((L, *shape), leaf_dt, dev))
+                        frozen((L, *shape), leaf_dt, dev))
         else:
             self.layers.mlp = nn.Module()
-            self.layers.mlp.wu = _frozen((L, D, F), dt, dev)
-            self.layers.mlp.wd = _frozen((L, F, D), dt, dev)
+            self.layers.mlp.wu = frozen((L, D, F), dt, dev)
+            self.layers.mlp.wd = frozen((L, F, D), dt, dev)
             if cfg.gated:
-                self.layers.mlp.wg = _frozen((L, D, F), dt, dev)
+                self.layers.mlp.wg = frozen((L, D, F), dt, dev)
 
     # ------------------------------------------------------------- params
 
@@ -190,8 +191,18 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------ forward
 
-    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
-        return scale_embedding(take_embedding(self.embed, tokens), self.cfg)
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """Token embeddings (gemma's scaling applied); with
+        ``patch_embeds`` (B, P, D) and a config that has patches, rows
+        ``[0, P)`` are the patch embeddings in the model's dtype."""
+        h = scale_embedding(take_embedding(self.embed, tokens), self.cfg)
+        if patch_embeds is not None and self.cfg.num_patches:
+            n = patch_embeds.shape[1]
+            h = torch.cat([patch_embeds.to(device=h.device, dtype=h.dtype),
+                           h[:, n:]], dim=1)
+        return h
 
     def _mlp_residual(self, h: torch.Tensor, p: Dict[str, Any], *,
                       lossless: bool = False):
@@ -242,11 +253,13 @@ class TransformerLM(nn.Module):
         return self._unembed(h)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, tokens: torch.Tensor, *,
+                patch_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, S) tokens → (B, S, V) logits (+ the aux loss summed over
         layers, 0 for dense)."""
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        h = self._embed_inputs(tokens)
+        h = self._embed_inputs(tokens, patch_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for h, _, layer_aux in self._layers(h, positions):
             if layer_aux is not None:
@@ -254,12 +267,13 @@ class TransformerLM(nn.Module):
         return self._final(h), aux
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None):
+    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
+                patch_embeds: Optional[torch.Tensor] = None):
         """Run the prompt, return (decode_state, logits at last position)."""
         B, S = tokens.shape
         max_seq = max_seq or S
         positions = torch.arange(S, device=tokens.device)
-        h = self._embed_inputs(tokens)
+        h = self._embed_inputs(tokens, patch_embeds)
         ks, vs = [], []
         for h, (k, v), _ in self._layers(h, positions):
             if max_seq > S:

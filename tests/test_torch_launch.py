@@ -1,8 +1,9 @@
 """The port's serving launcher (``python -m repro_torch.launch.serve``) on
-the CPU: the reduced gemma2 and llama4-scout configs serve in dense mode
-under the default ``--kv-mode auto`` and the reduced qwen2.5 and qwen3-moe
-ones in paged mode, and the reference's ``--no-incremental`` and
-``--kv-mode`` flags reach the engine."""
+the CPU: the reduced gemma2, llama4-scout and hymba configs serve in dense
+mode under the default ``--kv-mode auto`` and the reduced qwen2.5,
+qwen3-moe and llava (text) ones in paged mode, whisper fails on its first
+prefill as the reference's launcher does, and the reference's
+``--no-incremental`` and ``--kv-mode`` flags reach the engine."""
 
 import json
 import re
@@ -30,12 +31,22 @@ def _serve(capsys, *flags):
     (("--arch", "qwen2.5-32b"), "paged", False),
     (("--arch", "qwen3-moe-235b-a22b"), "paged", False),
     (("--arch", "llama4-scout-17b-a16e"), "dense", False),
+    (("--arch", "hymba-1.5b"), "dense", False),
+    (("--arch", "llava-next-34b"), "paged", False),
 ])
 def test_launcher_serves_in_the_requested_mode(capsys, flags, mode, full):
     got, prefills = _serve(capsys, *flags)
     assert got == mode
     assert (prefills["full"] > 0) == full
     assert (prefills["incremental"] > 0) == (not full)
+
+
+def test_launcher_fails_whisper_on_its_first_prefill():
+    """The engine passes no encoder frames: the port's prefill names them
+    (the reference's launcher fails there with an AttributeError)."""
+    with pytest.raises(ValueError, match="needs frames"):
+        main(["--arch", "whisper-tiny", "--reduced", "--device", "cpu",
+              "--requests", "2", "--new-tokens", "2"])
 
 
 def test_launcher_refuses_paged_mode_for_gemma2():

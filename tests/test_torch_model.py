@@ -17,8 +17,10 @@ import pytest
 import torch
 from helpers.torch_port import fp32_config, model_pair, to_numpy, to_torch
 
+from repro.configs import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
 from repro.models.attention import attention_block as jax_attention_block
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import TransformerLM, build_model
 from repro_torch.models.attention import attention_block
 
@@ -261,11 +263,35 @@ def test_init_uses_the_reference_distributions():
 
 
 def test_unported_families_and_absent_cuda_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("llava-next-34b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("hymba-1.5b"), device="cpu")
+    """Every family the reference builds is ported now: only a family the
+    reference does not know raises, with its ``ValueError``; CUDA asked
+    for and absent raises and never falls back to the CPU."""
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(get_config("qwen2.5-32b"),
+                                        family="diffusion"), device="meta")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(dataclasses.replace(
                 get_config("qwen2.5-32b"), num_layers=1), device="cuda")
+
+
+def _leaf_name(path) -> str:
+    return ".".join(str(k.key) for k in path)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_build_model_builds_every_arch_like_the_reference(arch):
+    """The published config of each of the ten archs builds on the meta
+    device with the reference's parameter tree: the same leaves (names,
+    shapes, dtypes, from ``jax.eval_shape`` of its ``init``) and so the
+    same parameter count."""
+    ref = jax.eval_shape(jax_build_model(jax_get_config(arch)).init,
+                         jax.random.PRNGKey(0))
+    want = {_leaf_name(path): (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    model = build_model(get_config(arch), device="meta")
+    got = {name: (tuple(t.shape), str(t.dtype)[6:])
+           for name, t in model.state_dict().items()}
+    assert got == want
+    assert sum(t.numel() for t in model.parameters()) == sum(
+        int(np.prod(leaf.shape)) for leaf in jax.tree_util.tree_leaves(ref))
