@@ -109,9 +109,27 @@ prints no result line):
    API (the reference's engine cannot serve it): B = 4 frames of 1500, a
    4-token prompt, 64 greedy decode steps, fp32 streams equal on the card
    and the CPU; bf16 encode and decode-step times.  No kernel lies on
-   this path.
+   this path;
+15. training (``Trainer``, the reference's training route: no kernel has a
+   backward, so none may launch): (a) phase 5's widened small configs,
+   one per family (gemma2 with window and softcaps, qwen3-moe, llava with
+   patch embeddings, RWKV6, hymba at 64 tokens, whisper with frames), 3
+   fp32 steps on the card and on the CPU from the same weights and
+   batches, losses, gradient norms and parameters held to each other, the
+   card's step-0 gradient finite and non-zero on every leaf (the q/k/v
+   projections named in the log), once more with ``accum_steps=2``; a
+   failure at step 3 with checkpoints every 2 steps recovered on the card
+   to the parameters of an uninterrupted run one step longer (the
+   reference's replay); (b) gemma2-9b at its published widths, 8 of 42
+   layers, bf16, 6 steps at global batch 4 of 1024 tokens: finite losses,
+   a non-zero gradient on and a change in every leaf, 0 launches of
+   K1-K4, the median step time, tokens/s, peak memory, then one profiled
+   step's busy share and forward / backward / optimizer spans
+   (``[train-profile]``); (c) a blocking checkpoint of its parameters,
+   restored onto the card bitwise, the legacy loader's ``SegfaultError``
+   on the same image, save and restore GB/s (``[train-ckpt]``).
 
-With all fourteen, a summary follows: one ``{"kernels": [...]}`` line (each
+With all fifteen, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
 line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
 2, the kernels build at their first launch).  ``--src DIR`` imports
@@ -2539,6 +2557,501 @@ def phase_whisper() -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 15
+
+# card against CPU, fp32, from the same weights and batches.  The step-0
+# gradients are the well-conditioned comparison: every leaf within
+# 1e-4 of its largest entry (cuBLAS and the CPU's BLAS sum in other
+# orders; the CPU tests hold the port to the reference by the same
+# limit), and the first loss within rtol 1e-5.  The 3-step runs drift
+# further: AdamW's first update is sign(g) * lr elementwise, so every
+# entry whose gradient lies within fp32 noise of zero moves by +lr on one
+# side and -lr on the other, and the runs then descend from points that
+# differ.  On an H100 80GB HBM3 (700 W) the widened gemma2 and hymba
+# drift by up to 7.7e-5 of a loss, 2.5e-3 of a gradient norm and 4.9e-3
+# of a leaf's update (relative L2); the limits are 1e-3, 1e-2 and 2e-2
+TRAIN_GRAD_REL, TRAIN_LOSS_RTOL0 = 1e-4, 1e-5
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_UPDATE_REL = 1e-3, 1e-2, 2e-2
+#: the full-width cell: gemma2-9b at its published widths, 8 of 42 layers,
+#: bf16, global batch 4 of 1024 tokens, 6 steps of Trainer.run
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 6
+#: peak device memory the full-width cell may reach
+TRAIN_PEAK_LIMIT = 72e9
+
+
+class _ModalityLM:
+    """``SyntheticLM`` plus the seeded input a family's ``loss`` reads
+    beside the tokens (llava's patch embeddings, whisper's frames), keyed
+    by step as the tokens are."""
+
+    def __init__(self, cfg, dc):
+        from repro_torch.data import SyntheticLM
+
+        self.base, self.cfg = SyntheticLM(dc), cfg
+
+    def batch_at(self, step):
+        b = self.base.batch_at(step)
+        cfg = self.cfg
+        key, n = {"vlm": ("patch_embeds", cfg.num_patches),
+                  "audio": ("frames", cfg.encoder_len)}.get(
+            cfg.family, (None, 0))
+        if key:
+            rng = np.random.default_rng(1000 + step)
+            b[key] = rng.standard_normal(
+                (b["tokens"].shape[0], n, cfg.d_model)).astype(np.float32)
+        return b
+
+
+def _train_cells():
+    """(tag, config, sequence length): phase 5's widened small configs, one
+    per family."""
+    from repro_torch.configs import get_reduced
+
+    rep = dataclasses.replace
+    return [
+        ("gemma2", rep(get_reduced("gemma2-9b"), num_layers=2, d_model=512,
+                       num_heads=2, num_kv_heads=1, head_dim=256, d_ff=1024,
+                       local_window=64, query_scale=256 ** -0.5,
+                       dtype="float32"), 128),
+        ("qwen3-moe", rep(get_reduced("qwen3-moe-235b-a22b"),
+                          dtype="float32"), 32),
+        ("llava", rep(get_reduced("llava-next-34b"), dtype="float32"), 32),
+        ("rwkv6", rep(get_reduced("rwkv6-3b"), num_layers=2, d_model=256,
+                      num_heads=4, num_kv_heads=4, d_ff=896,
+                      rwkv_head_size=64, dtype="float32"), 64),
+        ("hymba", rep(get_reduced("hymba-1.5b"), dtype="float32"), 64),
+        ("whisper", rep(get_reduced("whisper-tiny"), dtype="float32"), 16),
+    ]
+
+
+def _train(model, cfg, seq: int, steps: int, *, accum: int = 1,
+           batch: int = 4, ckpt_every: int = 10 ** 9, **kw):
+    """``steps`` of ``Trainer.run`` on ``_ModalityLM`` batches from the
+    module's weights (peak lr 3e-3, warmup 1 step: the first step moves a
+    bf16 norm scale of 1.0 by more than half its ulp)."""
+    from repro_torch.data import DataConfig, Loader
+    from repro_torch.models.common import param_tree
+    from repro_torch.optim import ScheduleConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    dc = DataConfig(global_batch=batch, seq_len=seq,
+                    vocab_size=cfg.vocab_size)
+    loader = Loader(_ModalityLM(cfg, dc), dc)
+    tr = Trainer(model, loader, TrainerConfig(
+        total_steps=steps, accum_steps=accum, log_every=1,
+        ckpt_every=ckpt_every,
+        schedule=ScheduleConfig(peak_lr=3e-3, warmup_steps=1,
+                                decay_steps=100)), **kw)
+    params = param_tree(model)
+    try:
+        params, _ = tr.run(params, adamw_init(params))
+    finally:
+        loader.stop()
+    return tr, params
+
+
+def _check_grads(named) -> list:
+    """Raises unless every gradient is finite with a non-zero norm;
+    returns (name, norm) of each, in leaf order."""
+    names = [n for n, _ in named]
+    norms = torch.stack([g.float().norm() for _, g in named]).tolist()
+    bad = [(n, v) for n, v in zip(names, norms)
+           if not (np.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"gradients zero or not finite: {bad[:8]}")
+    return list(zip(names, norms))
+
+
+def _step0_grads(model, cfg, seq: int) -> list:
+    """(name, gradient) of every leaf for the first batch's loss on the
+    model's device, each checked finite and non-zero."""
+    from repro_torch.data import DataConfig
+    from repro_torch.models.common import param_tree
+    from repro_torch.runtime.train_loop import backward
+    from repro_torch.tree import tree_flatten_with_path, tree_unflatten_like
+
+    dc = DataConfig(global_batch=4, seq_len=seq, vocab_size=cfg.vocab_size)
+    batch = {k: torch.from_numpy(v).to(model.device)
+             for k, v in _ModalityLM(cfg, dc).batch_at(0).items()}
+    tree = param_tree(model)
+    flat = tree_flatten_with_path(tree)
+    leaves = [t.detach().requires_grad_(True) for _, t in flat]
+    loss, _ = model.loss(tree_unflatten_like(tree, leaves), batch)
+    named = [(".".join(map(str, p)), g) for (p, _), g in zip(flat, backward(
+        loss, leaves))]
+    _check_grads(named)
+    return named
+
+
+def _attn_norms(norms: list) -> str:
+    """The query/key/value projections' gradient norms, by name."""
+    keys = ("attn.wq", "attn.wk", "attn.wv", "layers.wr", "layers.wk",
+            "layers.wv")
+    return ", ".join(f"{n} {v:.3g}" for n, v in norms
+                     if n.endswith(keys)) or "none"
+
+
+def _update_errors(got, want, start) -> float:
+    """The largest leaf's |got - want| over |want - start| (relative L2)."""
+    from repro_torch.checkpoint.ckpt import tree_to_records
+
+    want = dict(tree_to_records(want))
+    worst = 0.0
+    for key, t in tree_to_records(got):
+        ref = want[key].double()
+        moved = (ref - start[key.replace("/", ".")].double()).norm().item()
+        err = (t.double() - ref).norm().item()
+        worst = max(worst, err / max(moved, 1e-30))
+    return worst
+
+
+def _train_card_vs_cpu(tag: str, cfg, seq: int, accum: int = 1) -> dict:
+    """3 fp32 Trainer steps of ``cfg`` on the card and on the CPU from the
+    same weights: losses, gradient norms and final parameters held to each
+    other; the card's step-0 gradient finite and non-zero on every leaf;
+    no kernel launched on the card.  Returns the card's launches."""
+    from repro_torch.models import build_model
+
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(21))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    start = {k: v.clone() for k, v in cpu.state_dict().items()}
+    grads = _step0_grads(gpu, cfg, seq)
+    norms = [(n, g.norm().item()) for n, g in grads]
+    grad_err = 0.0
+    for (name, g), (_, ref) in zip(grads, _step0_grads(cpu, cfg, seq)):
+        err = (g.cpu() - ref).abs().max().item() / ref.abs().max().item()
+        grad_err = max(grad_err, err)
+        if err > TRAIN_GRAD_REL:
+            raise AssertionError(f"[train-card-vs-cpu] {tag}: step-0 "
+                                 f"gradient of {name} off by {err:.3g} of "
+                                 "its largest entry")
+    del grads
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tr_g, p_g = _train(gpu, cfg, seq, 3, accum=accum)
+    card_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    tr_c, p_c = _train(cpu, cfg, seq, 3, accum=accum)
+    loss_g = [r["loss"] for r in tr_g.metrics_log]
+    loss_c = [r["loss"] for r in tr_c.metrics_log]
+    gn_g = [r["gnorm"] for r in tr_g.metrics_log]
+    gn_c = [r["gnorm"] for r in tr_c.metrics_log]
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    upd = _update_errors(p_g, p_c, start)
+    ok = (np.isfinite(loss_g + gn_g).all()
+          and abs(loss_g[0] - loss_c[0]) <= TRAIN_LOSS_RTOL0 * abs(loss_c[0])
+          and rel(loss_g, loss_c) <= TRAIN_LOSS_RTOL
+          and rel(gn_g, gn_c) <= TRAIN_GNORM_RTOL
+          and upd <= TRAIN_UPDATE_REL)
+    if not ok:
+        raise AssertionError(
+            f"[train-card-vs-cpu] {tag} accum {accum}: losses card {loss_g} "
+            f"cpu {loss_c}, gnorms card {gn_g} cpu {gn_c}, worst leaf "
+            f"update error {upd:.3g}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag} training launched {launches}")
+    log(f"[train-card-vs-cpu] {tag} ({cfg.arch_id} at d_model "
+        f"{cfg.d_model}, {cfg.num_layers} layers, seq {seq}, fp32, accum "
+        f"{accum}): losses card {[round(x, 6) for x in loss_g]} cpu "
+        f"{[round(x, 6) for x in loss_c]} (max rel {rel(loss_g, loss_c):.2g},"
+        f" tol {TRAIN_LOSS_RTOL:g}), gnorm max rel {rel(gn_g, gn_c):.2g}, "
+        f"worst leaf update error {upd:.2g} (tol {TRAIN_UPDATE_REL:g}); "
+        f"card step-0 gradients finite and non-zero on all {len(norms)} "
+        f"leaves ({_attn_norms(norms)}), within {grad_err:.2g} of the "
+        f"CPU's (tol {TRAIN_GRAD_REL:g}); card {card_s:.2f}s, launches "
+        f"{launches}")
+    return launches
+
+
+def _train_recovery_card() -> None:
+    """The widened gemma2 on the card: a ``FailureInjector`` failure at
+    step 3 with ``ckpt_every=2`` restores step 2's checkpoint and replays
+    step 2 on the next batch (the reference's recovery), so its 5-step run
+    ends with the parameters of an uninterrupted 6-step run."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.gofer import Gofer
+    from repro_torch.models import build_model
+    from repro_torch.runtime import FailureInjector, HeartbeatMonitor
+
+    tag, cfg, seq = _train_cells()[0]
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(22))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = CheckpointManager(Gofer.for_root("ckpt", d, write=True))
+        tr, recovered = _train(
+            model, cfg, seq, 5, ckpt_every=2, ckpt=ckpt,
+            injector=FailureInjector(fail_at={3: ["host1"]}),
+            monitor=HeartbeatMonitor(["host0", "host1"]))
+        steps = ckpt.all_steps()
+    if tr.restarts != 1 or steps != [2, 4, 5]:
+        raise AssertionError(f"recovery: restarts {tr.restarts}, "
+                             f"checkpoints {steps}")
+    model.load_state_dict(start)
+    _, straight = _train(model, cfg, seq, 6)
+    cpu_start = {k: v.cpu() for k, v in start.items()}
+    err = _update_errors(recovered, straight, cpu_start)
+    from repro_torch.tree import tree_leaves
+
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(tree_leaves(recovered), tree_leaves(straight)))
+    if not bitwise and err > TRAIN_UPDATE_REL:
+        raise AssertionError(f"recovered run vs uninterrupted: worst leaf "
+                             f"update error {err:.3g}")
+    log(f"[train-recovery] {tag} on the card: failure at step 3, restored "
+        f"step 2 of checkpoints {steps}, 5 steps end equal to an "
+        f"uninterrupted 6-step run ("
+        + ("bit for bit)" if bitwise else f"worst leaf update error {err:.2g})"))
+
+
+@contextlib.contextmanager
+def _train_ranges(model, spans: dict):
+    """``record_function`` ranges ``train.forward`` (the model's ``loss``),
+    ``train.backward`` and ``train.optimizer`` around the trainer's steps,
+    and CUDA events on the stream before and after each, appended to
+    ``spans[name]`` as (start, end) pairs."""
+    import repro_torch.runtime.train_loop as train_loop
+    from torch.profiler import record_function
+
+    real = {"backward": train_loop.backward,
+            "adamw_update": train_loop.adamw_update}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with record_function(f"train.{name}"):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(*args, **kwargs)
+                b.record()
+            spans.setdefault(name, []).append((a, b))
+            return out
+        return call
+
+    model.loss = ranged("forward", model.loss)
+    train_loop.backward = ranged("backward", real["backward"])
+    train_loop.adamw_update = ranged("optimizer", real["adamw_update"])
+    try:
+        yield
+    finally:
+        del model.loss
+        train_loop.backward = real["backward"]
+        train_loop.adamw_update = real["adamw_update"]
+
+
+def _train_full_width() -> dict:
+    """gemma2-9b at its published widths (d_model 3584, 16 q / 8 kv heads
+    of 256, d_ff 14336, the tied 256000-token embedding, softcaps 50/30,
+    window 4096 on every other layer), depth cut 42 -> 8 layers, bf16: 6
+    steps of ``Trainer.run`` at global batch 4 of 1024 tokens.  Checks
+    finite losses and norms, a finite non-zero gradient on every leaf and
+    a change in every leaf at the first step, no kernel launched; logs the
+    median step time of steps 1-5, tokens/s, the peak memory, then one
+    more step under the profiler (busy share, device time of its forward,
+    backward and optimizer spans) and a blocking checkpoint save and
+    restore of the parameters."""
+    import repro_torch.runtime.train_loop as train_loop
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Loader, SyntheticLM
+    from repro_torch.models.common import param_tree
+    from repro_torch.optim import ScheduleConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    cfg = dataclasses.replace(get_config("gemma2-9b"),
+                              num_layers=SERVE_LAYERS)
+    model = _model_on_card(cfg, "train", f" (depth cut 42 -> {SERVE_LAYERS},"
+                           " tied embedding)")
+    dc = DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_S,
+                    vocab_size=cfg.vocab_size)
+    loader = Loader(SyntheticLM(dc), dc)
+    trainer = Trainer(model, loader, TrainerConfig(
+        total_steps=TRAIN_STEPS, log_every=1, ckpt_every=10 ** 9,
+        schedule=ScheduleConfig(peak_lr=3e-3, warmup_steps=1,
+                                decay_steps=100)))
+    params = param_tree(model)
+    opt = adamw_init(params)
+    step_fn = trainer._step_fn
+    real_update = train_loop.adamw_update
+    times, first = [], {}
+
+    def checked_update(grads, *args, **kwargs):
+        if "grads" not in first:       # step 0: every leaf's gradient
+            first["grads"] = _check_grads(
+                [(".".join(map(str, p)), g)
+                 for p, g in tree_flatten_with_path(grads)])
+        return real_update(grads, *args, **kwargs)
+
+    def timed_step(p, o, b):
+        before = [t.clone() for t in tree_leaves(p)] if not times else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(p, o, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if len(times) == 1:            # the peak of steps 1.. from here
+            torch.cuda.reset_peak_memory_stats()
+        if before is not None:
+            same = [n for (n, _), a, c in zip(first["grads"], before,
+                                              tree_leaves(out[0]))
+                    if torch.equal(a, c)]
+            if same:
+                raise AssertionError(f"leaves unchanged by step 0: {same}")
+        return out
+
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    trainer._step_fn = timed_step
+    train_loop.adamw_update = checked_update
+    try:
+        params, opt = trainer.run(params, opt)
+    finally:
+        train_loop.adamw_update = real_update
+        loader.stop()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    rows = trainer.metrics_log
+    if any(launches.values()):
+        raise AssertionError(f"training launched {launches}")
+    if not all(np.isfinite([r["loss"], r["gnorm"]]).all() for r in rows):
+        raise AssertionError(f"non-finite training metrics: {rows}")
+    if peak > TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"peak memory {peak / 1e9:.1f} GB")
+    med = float(np.median(times[1:]))
+    log(f"[train] gemma2-9b x{SERVE_LAYERS} layers bf16, B={TRAIN_B} "
+        f"S={TRAIN_S}, {TRAIN_STEPS} steps: losses "
+        f"{[round(r['loss'], 4) for r in rows]}, gnorms "
+        f"{[round(r['gnorm'], 3) for r in rows]}, lr {rows[0]['lr']:.2e}")
+    log(f"[train] step times {[round(t, 4) for t in times]} s; median of "
+        f"steps 1-{TRAIN_STEPS - 1} {med * 1e3:.1f} ms, "
+        f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s; peak memory of steps "
+        f"1-{TRAIN_STEPS - 1} {peak / 1e9:.2f} GB (max_memory_allocated); "
+        f"step-0 gradients "
+        f"finite and non-zero on all {len(first['grads'])} leaves "
+        f"({_attn_norms(first['grads'])}), every leaf changed; launches "
+        f"{launches}")
+    _profile_train_step(model, trainer, params, opt, dc)
+    _checkpoint_full_width(params)
+    return launches
+
+
+def _profile_train_step(model, trainer, params, opt, dc) -> None:
+    """One more step (batch 6) under ``torch.profiler``, after a warm one
+    (batch 7): wall time, device busy share, the CUDA-event spans of its
+    forward, backward (with the layers' recomputation) and optimizer, and
+    the kernels that take the most time."""
+    from repro_torch.data import SyntheticLM
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    data = SyntheticLM(dc)
+    batch = lambda i: {k: torch.from_numpy(v).cuda()
+                       for k, v in data.batch_at(i).items()}
+    spans: dict = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof, \
+            _train_ranges(model, spans):
+        params, opt, _ = trainer._step_fn(params, opt, batch(7))
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        params, opt, _ = trainer._step_fn(params, opt, batch(6))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = {name: pairs[-1][0].elapsed_time(pairs[-1][1])
+             for name, pairs in spans.items()}
+    rows = [(e.self_device_time_total / 1e3, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith(("ProfilerStep", "train."))]
+    log(f"[train-profile] one step, profiler on: wall {wall_ms:.1f} ms; "
+        "CUDA-event spans " + ", ".join(
+            f"{n} {ms:.1f} ms ({100 * ms / wall_ms:.1f}%)"
+            for n, ms in split.items()))
+    if not rows:
+        log("[train-profile] the profiler saw no device time: busy share "
+            "not measured")
+        return
+    busy = sum(r[0] for r in rows)
+    gemm = sum(r[0] for r in rows if _is_gemm(r[1]))
+    share = busy / wall_ms
+    log(f"[train-profile] device busy {busy:.1f} ms ({100 * share:.1f}% of "
+        f"wall), idle {100 * (1 - share):.1f}%; GEMMs {gemm:.1f} ms "
+        f"({100 * gemm / busy:.1f}% of busy)")
+    for ms, name, count in sorted(rows, reverse=True)[:8]:
+        log(f"[train-profile]   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+
+
+def _checkpoint_full_width(params) -> None:
+    """A blocking ``CheckpointManager.save`` of ``{"params"}`` to a
+    temporary directory, a restore onto the card held bitwise equal, and
+    the legacy loader's ``SegfaultError`` on the same image."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager, load_tree
+    from repro_torch.core.gofer import Gofer
+    from repro_torch.core.loader import SegfaultError
+    from repro_torch.tree import tree_leaves
+
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(Gofer.for_root("ckpt", d, write=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, {"params": params}, blocking=True)
+        save_s = time.perf_counter() - t0
+        blob_bytes = mgr.save_log[-1]["bytes"]
+        t0 = time.perf_counter()
+        step, tree, _ = mgr.restore_latest({"params": params}, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(tree_leaves(tree["params"]), tree_leaves(params)))
+        del tree
+        if step != TRAIN_STEPS or not equal:
+            raise AssertionError(f"restore of step {step} is not bitwise "
+                                 "equal to the saved parameters")
+        blob = mgr.gofer.read_bytes("ckpt", f"step_{TRAIN_STEPS:08d}.self")
+        t0 = time.perf_counter()
+        try:
+            load_tree(blob, semantics="legacy")
+        except SegfaultError as e:
+            legacy = f"{type(e).__name__} in {time.perf_counter() - t0:.1f}s"
+        else:
+            raise AssertionError("the legacy loader restored the checkpoint")
+        del blob
+    log(f"[train-ckpt] {{params}} {nbytes / 1e9:.2f} GB in a "
+        f"{blob_bytes / 1e9:.2f} GB SELF image: blocking save {save_s:.1f}s "
+        f"({nbytes / 1e9 / save_s:.2f} GB/s, card to file), restore onto "
+        f"the card {restore_s:.1f}s ({nbytes / 1e9 / restore_s:.2f} GB/s), "
+        f"bitwise equal; legacy semantics: {legacy}")
+
+
+def phase_training() -> dict:
+    """Card against CPU for each family (3 fp32 steps, one more run with
+    ``accum_steps=2``), recovery on the card, then full-width gemma2-9b
+    training with its checkpoint.  Returns the kernels' launches (none)."""
+    total = {name: 0 for name in _launch_counters()}
+    cells = _train_cells()
+    runs = [(tag, cfg, seq, 1) for tag, cfg, seq in cells]
+    runs.append(cells[0][:3] + (2,))
+    for tag, cfg, seq, accum in runs:
+        for name, n in _train_card_vs_cpu(tag, cfg, seq, accum).items():
+            total[name] += n
+    _train_recovery_card()
+    _free_card()
+    for name, n in _train_full_width().items():
+        total[name] += n
+    return total
+
+
 def _free_card() -> None:
     """Frees what a serving phase left behind (its model and engine are
     garbage once it returns) and logs what stays allocated."""
@@ -2554,7 +3067,7 @@ def _free_card() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
@@ -2581,11 +3094,12 @@ def main(argv=None) -> int:
         results["segment_zero"] = check_segment_zero()
     # each kernel's launches on the serving paths, by phase (K1: phases 4,
     # 8, 9, 11 and 13; K2: 4, 7, 8, 9, 10, 11, 12 and 13; K3: 6); K4 is on
-    # no path, and phase 14's path has no kernel
+    # no path, and the paths of phases 14 and 15 have no kernel
     runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
             7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
             9: phase_moe_paged, 10: phase_moe_dense, 11: phase_server,
-            12: phase_hybrid_serving, 13: phase_vlm, 14: phase_whisper}
+            12: phase_hybrid_serving, 13: phase_vlm, 14: phase_whisper,
+            15: phase_training}
     by_phase = {name: {} for name in _launch_counters()}
     for n, phase in runs.items():
         if n in phases:
@@ -2593,7 +3107,7 @@ def main(argv=None) -> int:
                 if count:
                     by_phase[name][n] = count
             _free_card()
-    if not set(range(3, 15)) <= phases:
+    if not set(range(3, 16)) <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {

@@ -22,13 +22,17 @@
                    production, seeded cooperative interleaving + virtual
                    clock under test
 ``tasks``          §V.A serverless multi-tenant scheduler
+``elf``            §IV.B SELF segmented artifact format
+``loader``         SELF image loader: Linux vs legacy zero-fill semantics
+``artifacts``      §V.B artifact repository: ops and SELF images, verified
+                   at registration
 =================  =========================================================
 
-``vma``, ``mm``, ``arena``, ``sim``, ``telemetry``, ``metrics`` and
-``gofer`` are copies of the reference's modules, and ``pool`` and
-``tasks`` are the reference's files with their imports pointed here: the
-port imports nothing of ``repro``.  ``artifacts``, ``elf`` and ``loader``
-are not ported yet (ROADMAP.md, queue 1, item 8).
+``vma``, ``mm``, ``arena``, ``sim``, ``telemetry``, ``metrics``,
+``gofer``, ``elf`` and ``loader`` are copies of the reference's modules,
+and ``pool``, ``tasks`` and ``artifacts`` are the reference's files with
+their imports pointed here: the port imports nothing of ``repro``.  The
+loader's zero-fill stays on the host ``bytearray``, as in the reference.
 """
 
 from .admission import (
@@ -38,8 +42,20 @@ from .admission import (
     default_controller,
 )
 from .arena import DeviceArena, PagedKVAllocator, PrefixIndex, SequencePages
+from .artifacts import Artifact, ArtifactRepository, RegistrationReport
+from .elf import (
+    LANE_TILE,
+    PAGE_SIZE,
+    PT_DYNAMIC,
+    PT_LOAD,
+    BadImageError,
+    SELFImage,
+    SELFWriter,
+    read_self,
+)
 from .gofer import Capability, CapabilityError, Gofer
 from .image import DEFAULT_IMAGE, BaseImage, DtypePolicy, ImageSpec
+from .loader import ImageLoader, LoadedImage, SegfaultError, ZeroStats
 from .metrics import MetricsHTTPServer, MetricsRegistry
 from .mm import MemoryManager, MMConfig
 from .policy import (

@@ -1,10 +1,12 @@
 """Attention: GQA with RoPE, sliding windows and softcap.
 
-The counterpart of ``repro/models/attention.py``.  The port has no
-``impl`` knob: prefill attention always goes through
-:func:`repro_torch.kernels.flash_attention.ops.flash_attention` — the
-hand-written CUDA kernel on the card, its plain PyTorch version on the
-CPU.  Decode attention over the page pool lives in
+The counterpart of ``repro/models/attention.py``.  Prefill attention goes
+through :func:`repro_torch.kernels.flash_attention.ops.flash_attention` —
+the hand-written CUDA kernel on the card, its plain PyTorch version on the
+CPU.  The kernel has no backward (nor has the reference's Pallas kernel),
+so the training route, ``attention_block(..., impl="xla")`` as the
+reference's trainer calls it, runs :func:`blockwise_attn`, differentiable,
+on every device.  Decode attention over the page pool lives in
 :meth:`repro_torch.models.transformer.TransformerLM.paged_decode_step`;
 decode over a dense (B, max_seq) cache is :func:`update_cache` and
 :func:`decode_attn`, plain PyTorch as the reference computed them in XLA
@@ -141,7 +143,11 @@ def attention_block(
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
     return_kv: bool = False,
+    impl: str = "kernel",
 ):
+    """``impl="kernel"``: the flash kernel (K2) on the card, serving;
+    ``impl="xla"``: :func:`blockwise_attn`, the reference's training
+    route."""
     B, S, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     G = H // K
@@ -149,12 +155,19 @@ def attention_block(
         positions = torch.arange(S, device=x.device)
     q, k, v = qkv(x, p, cfg, positions, rope_base)
     scale = cfg.query_scale or (1.0 / math.sqrt(hd))
-    out = fa_ops.flash_attention(
-        q.reshape(B, S, K, G, hd).contiguous(), k.contiguous(),
-        v.contiguous(), q_positions=positions, k_positions=positions,
-        window=window, scale=scale, logit_cap=cfg.attn_logit_softcap,
-        causal=causal,
-    )
+    if impl == "xla":
+        out = blockwise_attn(
+            q.reshape(B, S, K, G, hd), k, v, q_positions=positions,
+            k_positions=positions, window=window, scale=scale,
+            logit_cap=cfg.attn_logit_softcap, causal=causal,
+        )
+    else:
+        out = fa_ops.flash_attention(
+            q.reshape(B, S, K, G, hd).contiguous(), k.contiguous(),
+            v.contiguous(), q_positions=positions, k_positions=positions,
+            window=window, scale=scale, logit_cap=cfg.attn_logit_softcap,
+            causal=causal,
+        )
     y = out.reshape(B, S, H * hd) @ p["wo"]
     if return_kv:
         return y, (k, v)

@@ -12,15 +12,17 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "ArchConfig",
+    "cross_entropy",
     "frozen",
     "resolve_device",
     "rms_norm",
@@ -29,10 +31,13 @@ __all__ = [
     "gated_mlp",
     "layer_windows",
     "layer_rope_bases",
+    "param_tree",
+    "remat_call",
     "scale_embedding",
     "softcap",
     "take_embedding",
     "torch_dtype",
+    "unstack_layers",
 ]
 
 # --------------------------------------------------------------------------
@@ -276,3 +281,61 @@ def layer_rope_bases(cfg: ArchConfig) -> np.ndarray:
     w = layer_windows(cfg)
     base_local = cfg.rope_base_local or cfg.rope_base
     return np.where(w > 0, base_local, cfg.rope_base).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# training: parameter trees, the loss, rematerialisation
+# --------------------------------------------------------------------------
+
+
+def param_tree(module: nn.Module) -> Dict[str, Any]:
+    """The module's weights as the reference's nested dict
+    (``{"layers": {"attn": {"wq": ...}}}``), each leaf a detached view
+    that shares the parameter's storage."""
+    tree: Dict[str, Any] = {}
+    for name, t in module.named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach()
+    return tree
+
+
+def unstack_layers(tree: Mapping[str, Any], L: int) -> List[Dict[str, Any]]:
+    """Split a tree of stacked ``(L, ...)`` leaves into L per-layer trees,
+    one ``unbind`` per leaf: its backward stacks the L gradients once,
+    where indexing ``t[l]`` per layer would allocate a zeroed copy of the
+    whole stacked gradient for each layer."""
+    if isinstance(tree, Mapping):
+        subs = {k: unstack_layers(v, L) for k, v in tree.items()}
+        return [{k: subs[k][l] for k in subs} for l in range(L)]
+    return list(tree.unbind(0))
+
+
+def remat_call(fn: Callable, *args):
+    """``fn(*args)``, under activation checkpointing when gradients are on
+    (the reference's default ``remat="full"``, a ``jax.checkpoint`` of
+    each layer): only the layer's inputs are kept, and its activations
+    are recomputed in the backward pass."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def cross_entropy(logits: torch.Tensor, batch: Mapping[str, Any]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's next-token loss: fp32 logits, ``logsumexp`` less the
+    target's logit, the mean over ``loss_mask`` (all ones if absent),
+    divided by ``max(sum(mask), 1)``.  Returns (ce, that divisor)."""
+    targets = batch["targets"].to(torch.int64)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None])[..., 0]
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    ce = torch.sum((lse - ll) * mask) / denom
+    return ce, denom

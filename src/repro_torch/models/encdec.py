@@ -16,7 +16,10 @@ Like the reference, the model runs through ``forward``, ``prefill`` and
 there too).  The decode state holds the self-attention cache and each
 layer's cross-attention K/V.  A decode step adds the learned position of
 slot 0 to every slot (``pos_embed[pos[0]]``), as the reference does.
-Weights live on the module; the functions take no ``params`` argument.
+Weights live on the module; the serving functions take no ``params``
+argument.  ``loss(params, batch)`` trains on ``batch["frames"]`` through
+the same layers, grad-enabled, each decoder layer under activation
+checkpointing, as the reference's default ``remat="full"``.
 """
 
 from __future__ import annotations
@@ -32,10 +35,13 @@ from torch import nn
 from .attention import NEG_INF, blockwise_attn, update_cache
 from .common import (
     ArchConfig,
+    cross_entropy,
     frozen,
+    remat_call,
     resolve_device,
     take_embedding,
     torch_dtype,
+    unstack_layers,
 )
 
 __all__ = ["EncDecLM", "layer_norm", "sinusoids"]
@@ -189,23 +195,31 @@ class EncDecLM(nn.Module):
 
     # ------------------------------------------------------------- encode
 
-    @torch.no_grad()
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, T_enc, D) precomputed embeddings (frontend stub) →
-        the encoder's output, in the model's dtype."""
+    def _encode(self, frames: torch.Tensor, layers, final_ln) -> torch.Tensor:
+        """The encoder over per-layer parameter dicts ``layers`` and the
+        final LayerNorm's ``{"scale", "bias"}``."""
         cfg = self.cfg
         pos = torch.from_numpy(sinusoids(frames.shape[1], cfg.d_model)).to(
             frames.device)
         h = (frames + pos).to(self.dtype)
-        for l in range(cfg.encoder_layers):
-            p = self._layer_params(self.enc_layers, l)
+        for p in layers:
             a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
             y, _ = _mha(a, a, p["attn"], cfg, causal=False)
             h = h + y
             m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
             m = _gelu(m @ p["mlp"]["w1"] + p["mlp"]["b1"])
             h = h + (m @ p["mlp"]["w2"] + p["mlp"]["b2"])
-        return layer_norm(h, self.enc_final_ln.scale, self.enc_final_ln.bias)
+        return layer_norm(h, final_ln["scale"], final_ln["bias"])
+
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, T_enc, D) precomputed embeddings (frontend stub) →
+        the encoder's output, in the model's dtype."""
+        layers = [self._layer_params(self.enc_layers, l)
+                  for l in range(self.cfg.encoder_layers)]
+        final = {"scale": self.enc_final_ln.scale,
+                 "bias": self.enc_final_ln.bias}
+        return self._encode(frames, layers, final)
 
     # ------------------------------------------------------------ decoder
 
@@ -229,18 +243,23 @@ class EncDecLM(nn.Module):
         h = take_embedding(self.embed, tokens) + self.pos_embed[:S]
         for l in range(cfg.num_layers):
             p = self._layer_params(self.dec_layers, l)
-            a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
-            y, kv = _mha(a, a, p["self_attn"], cfg, causal=True,
-                         positions=positions)
-            h = h + y
-            x = layer_norm(h, p["ln_x"]["scale"], p["ln_x"]["bias"])
-            y2, xkv = _mha(x, enc_out, p["cross_attn"], cfg, causal=False,
-                           positions=positions)
-            h = h + y2
-            m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
-            m = _gelu(m @ p["mlp"]["w1"] + p["mlp"]["b1"])
-            h = h + (m @ p["mlp"]["w2"] + p["mlp"]["b2"])
+            h, kv, xkv = self._dec_layer(h, p, enc_out, positions)
             yield h, kv, xkv
+
+    def _dec_layer(self, h, p, enc_out, positions):
+        """One decoder layer: (h, self-attention (k, v), cross (k, v))."""
+        cfg = self.cfg
+        a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
+        y, kv = _mha(a, a, p["self_attn"], cfg, causal=True,
+                     positions=positions)
+        h = h + y
+        x = layer_norm(h, p["ln_x"]["scale"], p["ln_x"]["bias"])
+        y2, xkv = _mha(x, enc_out, p["cross_attn"], cfg, causal=False,
+                       positions=positions)
+        h = h + y2
+        m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
+        m = _gelu(m @ p["mlp"]["w1"] + p["mlp"]["b1"])
+        return h + (m @ p["mlp"]["w2"] + p["mlp"]["b2"]), kv, xkv
 
     def _final(self, h: torch.Tensor) -> torch.Tensor:
         h = layer_norm(h, self.dec_final_ln.scale, self.dec_final_ln.bias)
@@ -258,6 +277,38 @@ class EncDecLM(nn.Module):
             pass
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return self._final(h), aux
+
+    # ------------------------------------------------------------ training
+
+    def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor,
+                      frames: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``forward(params, tokens, frames=)``:
+        teacher-forced (B, S, V) logits (+ the aux loss, 0),
+        differentiable in ``params``."""
+        cfg = self.cfg
+        frames = frames.to(self.device)
+        enc_out = self._encode(
+            frames, unstack_layers(params["enc_layers"], cfg.encoder_layers),
+            params["enc_final_ln"])
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=tokens.device)
+        h = take_embedding(params["embed"], tokens) + params["pos_embed"][:S]
+        layer = lambda h, p: self._dec_layer(h, p, enc_out, positions)[0]
+        for p in unstack_layers(params["dec_layers"], cfg.num_layers):
+            h = remat_call(layer, h, p)
+        h = layer_norm(h, params["dec_final_ln"]["scale"],
+                       params["dec_final_ln"]["bias"])
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return h @ params["embed"].T, aux
+
+    def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        """(ce, {"ce", "aux", "tokens"}), as the reference's ``loss``;
+        ``batch["frames"]`` is the encoder's input."""
+        logits, aux = self.train_forward(params, batch["tokens"],
+                                         batch["frames"])
+        ce, denom = cross_entropy(logits, batch)
+        return ce, {"ce": ce, "aux": aux, "tokens": denom}
 
     # ------------------------------------------------------------ serving
 

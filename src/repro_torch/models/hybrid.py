@@ -17,7 +17,13 @@ the reference, no TPU kernel).  A decode step runs the dense-cache
 attention and :func:`ssm_step`.  The engine serves this model in its
 dense mode (``init_decode_state`` / ``prefill`` / ``decode_step``); the
 state holds the K/V cache and each layer's fp32 SSM state.  Weights live
-on the module; the functions take no ``params`` argument.
+on the module; the serving functions take no ``params`` argument.
+
+``loss(params, batch)`` trains through the reference's training route:
+attention through :func:`~repro_torch.models.attention.blockwise_attn`
+(``impl="xla"``; the flash kernel has no backward) and the SSM through
+:func:`ssm_scan`, each layer under activation checkpointing (the
+reference's default ``remat="full"``).
 """
 
 from __future__ import annotations
@@ -39,12 +45,15 @@ from .attention import (
 )
 from .common import (
     ArchConfig,
+    cross_entropy,
     frozen,
     gated_mlp,
+    remat_call,
     resolve_device,
     rms_norm,
     take_embedding,
     torch_dtype,
+    unstack_layers,
 )
 
 __all__ = ["FP32_PARAMS", "HybridLM", "hymba_windows", "ssm_scan",
@@ -87,8 +96,10 @@ def ssm_scan(x, dt, Bp, Cp, A, h0, *, chunk: int = 64):
 
     Per chunk of up to ``chunk`` tokens the decays ``exp(dt·A)`` and inputs
     ``dt·x·B`` are formed at once, each token's state is one fused
-    multiply-add into the chunk's state buffer, and the outputs are one
-    product with ``C`` over the buffer, so memory stays O(chunk·di·N).
+    multiply-add, and the outputs are one product with ``C`` over the
+    chunk's stacked states, so memory stays O(chunk·di·N).  Each state is
+    a tensor of its own (not written into a buffer), so autograd can
+    differentiate the scan.
     """
     Bsz, T, di = x.shape
     # time-major, so each token's slice of a chunk buffer is contiguous
@@ -100,10 +111,12 @@ def ssm_scan(x, dt, Bp, Cp, A, h0, *, chunk: int = 64):
         e = min(s + chunk, T)
         dA = torch.exp(dtt[s:e, ..., None] * A)                # (c, B, di, N)
         dBx = (dtt[s:e] * xt[s:e])[..., None] * bt[s:e, :, None, :]
-        hs = torch.empty_like(dA)
+        states = []
         for t in range(e - s):
-            h = torch.addcmul(dBx[t], h, dA[t], out=hs[t])
-        ys.append(torch.einsum("tbdn,tbn->btd", hs, ct[s:e]))
+            h = torch.addcmul(dBx[t], h, dA[t])
+            states.append(h)
+        ys.append(torch.einsum("tbdn,tbn->btd", torch.stack(states),
+                               ct[s:e]))
     return h, torch.cat(ys, dim=1).to(x.dtype)
 
 
@@ -247,6 +260,39 @@ class HybridLM(nn.Module):
             pass
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return self._final(h), aux
+
+    # ------------------------------------------------------------ training
+
+    def _train_layer(self, h, p, l: int, positions):
+        cfg = self.cfg
+        a = rms_norm(h, p["ln1"], cfg.norm_eps)
+        attn_y = attention_block(
+            a, p["attn"], cfg, window=int(self.windows[l]),
+            rope_base=cfg.rope_base, positions=positions, impl="xla")
+        h0 = torch.zeros((h.shape[0], self.di, self.N), dtype=torch.float32,
+                         device=h.device)
+        ssm_y, _ = self._ssm_branch(a, p["ssm"], h0)
+        return self._fuse(h, attn_y, ssm_y, p)
+
+    def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``forward(params, tokens)``: (B, T, V) logits
+        (+ the aux loss, 0), differentiable in ``params``."""
+        cfg = self.cfg
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        h = take_embedding(params["embed"], tokens)
+        for l, p in enumerate(unstack_layers(params["layers"],
+                                             cfg.num_layers)):
+            h = remat_call(self._train_layer, h, p, l, positions)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return h @ params["embed"].T, aux
+
+    def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        """(ce, {"ce", "aux", "tokens"}), as the reference's ``loss``."""
+        logits, aux = self.train_forward(params, batch["tokens"])
+        ce, denom = cross_entropy(logits, batch)
+        return ce, {"ce": ce, "aux": aux, "tokens": denom}
 
     # ------------------------------------------------------------ serving
 

@@ -14,8 +14,13 @@ a decode step runs :func:`wkv6_step` in plain PyTorch, as the reference
 runs it outside any Pallas kernel.  Serving state is O(1) per sequence and
 there is no KV cache, so the engine serves this model in its dense mode
 (``init_decode_state`` / ``prefill`` / ``decode_step``).  Weights live on
-the module; the functions take no ``params`` argument.  ``loss`` comes with
-the training slice (ROADMAP.md queue 1, item 10).
+the module; the serving functions take no ``params`` argument.
+
+``loss(params, batch)`` trains through the reference's training route:
+the recurrence in :func:`wkv6_scan` (the XLA scan's counterpart,
+differentiable; the kernel has no backward, nor has the reference's
+Pallas kernel a VJP), each layer under activation checkpointing (the
+reference's default ``remat="full"``).
 """
 
 from __future__ import annotations
@@ -30,11 +35,14 @@ from torch import nn
 from ..kernels.wkv6.ops import wkv6
 from .common import (
     ArchConfig,
+    cross_entropy,
     frozen,
+    remat_call,
     resolve_device,
     rms_norm,
     take_embedding,
     torch_dtype,
+    unstack_layers,
 )
 
 __all__ = ["FP32_PARAMS", "RwkvLM", "wkv6_scan", "wkv6_step"]
@@ -179,7 +187,10 @@ class RwkvLM(nn.Module):
         mixed = x[:, :, None] + xx[:, :, None] * (p["mu_rkvwg"] + delta)
         return [mixed[:, :, i] for i in range(5)]
 
-    def _time_mix(self, x, p, state, prev):
+    def _time_mix(self, x, p, state, prev, impl: str = "kernel"):
+        """``impl="kernel"``: the recurrence through K3 (its plain version
+        on the CPU); ``impl="xla"``: :func:`wkv6_scan`, the training
+        route."""
         B, T, D = x.shape
         H, hd = self.H, self.hd
         xx = _token_shift(x, prev) - x
@@ -190,7 +201,8 @@ class RwkvLM(nn.Module):
         g = F.silu(xg @ p["wg"])
         dec = p["w0"] + torch.tanh(xw @ p["dw1"]) @ p["dw2"]
         w = torch.exp(-torch.exp(dec.float())).reshape(B, T, H, hd)
-        state, y = wkv6(r, k, v, w, p["u"], state)
+        recurrence = wkv6_scan if impl == "xla" else wkv6
+        state, y = recurrence(r, k, v, w, p["u"], state)
         y = _group_norm(y.reshape(B, T, D), p["lnx_scale"], p["lnx_bias"], H)
         return (y * g) @ p["wo"], state, x[:, -1]
 
@@ -232,6 +244,37 @@ class RwkvLM(nn.Module):
             pass
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return self._final(h), aux
+
+    # ------------------------------------------------------------ training
+
+    def _train_layer(self, h, p):
+        cfg = self.cfg
+        state0 = torch.zeros((h.shape[0], self.H, self.hd, self.hd),
+                             dtype=torch.float32, device=h.device)
+        a = rms_norm(h, p["ln1"], cfg.norm_eps)
+        a, _, _ = self._time_mix(a, p, state0, None, impl="xla")
+        h = h + a
+        m = rms_norm(h, p["ln2"], cfg.norm_eps)
+        m, _ = self._channel_mix(m, p, None)
+        return h + m
+
+    def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``forward(params, tokens)``: (B, T, V) logits
+        (+ the aux loss, 0), differentiable in ``params``."""
+        cfg = self.cfg
+        h = take_embedding(params["embed"], tokens)
+        for p in unstack_layers(params["layers"], cfg.num_layers):
+            h = remat_call(self._train_layer, h, p)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return h @ params["embed"].T, aux
+
+    def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        """(ce, {"ce", "aux", "tokens"}), as the reference's ``loss``."""
+        logits, aux = self.train_forward(params, batch["tokens"])
+        ce, denom = cross_entropy(logits, batch)
+        return ce, {"ce": ce, "aux": aux, "tokens": denom}
 
     # ------------------------------------------------------------ serving
 

@@ -43,6 +43,14 @@ need: the paged kernel has no window or softcap):
 States hold ``cache_k``/``cache_v`` of ``(L, B, max_seq, K, hd)`` and
 ``pos`` (B,) int32.  ``decode_step`` and ``prefill_chunk`` write the cache
 rows in place and return the same cache tensors.
+
+Training interface (``Trainer``): ``loss(params, batch)`` → (scalar,
+metrics), where ``params`` is the reference's nested dict of tensors
+(:func:`~repro_torch.models.common.param_tree` gives the module's own).
+It runs grad-enabled through the reference's training route
+(``impl="xla"``: :func:`~repro_torch.models.attention.blockwise_attn`,
+never the flash kernel, which has no backward), each layer under
+activation checkpointing, as the reference's default ``remat="full"``.
 """
 
 from __future__ import annotations
@@ -64,16 +72,19 @@ from .attention import (
 )
 from .common import (
     ArchConfig,
+    cross_entropy,
     frozen,
     gated_mlp,
     layer_rope_bases,
     layer_windows,
     resolve_device,
+    remat_call,
     rms_norm,
     scale_embedding,
     softcap,
     take_embedding,
     torch_dtype,
+    unstack_layers,
 )
 from .moe import FP32_PARAMS as MOE_FP32_PARAMS
 from .moe import moe_block, moe_params_shape
@@ -192,12 +203,14 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------ forward
 
     def _embed_inputs(self, tokens: torch.Tensor,
-                      patch_embeds: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-        """Token embeddings (gemma's scaling applied); with
-        ``patch_embeds`` (B, P, D) and a config that has patches, rows
-        ``[0, P)`` are the patch embeddings in the model's dtype."""
-        h = scale_embedding(take_embedding(self.embed, tokens), self.cfg)
+                      patch_embeds: Optional[torch.Tensor] = None,
+                      table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (gemma's scaling applied) from ``table`` (the
+        module's own by default); with ``patch_embeds`` (B, P, D) and a
+        config that has patches, rows ``[0, P)`` are the patch embeddings
+        in the model's dtype."""
+        table = self.embed if table is None else table
+        h = scale_embedding(take_embedding(table, tokens), self.cfg)
         if patch_embeds is not None and self.cfg.num_patches:
             n = patch_embeds.shape[1]
             h = torch.cat([patch_embeds.to(device=h.device, dtype=h.dtype),
@@ -240,8 +253,10 @@ class TransformerLM(nn.Module):
             h, aux = self._mlp_residual(self._attn_residual(h, a, p), p)
             yield h, kv, aux
 
-    def _unembed(self, h: torch.Tensor) -> torch.Tensor:
-        table = self.unembed if not self.cfg.tie_embeddings else self.embed
+    def _unembed(self, h: torch.Tensor,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if table is None:
+            table = self.unembed if not self.cfg.tie_embeddings else self.embed
         logits = h @ table.T
         if self.cfg.final_logit_softcap:
             logits = softcap(logits, self.cfg.final_logit_softcap)
@@ -265,6 +280,52 @@ class TransformerLM(nn.Module):
             if layer_aux is not None:
                 aux = aux + layer_aux
         return self._final(h), aux
+
+    # ------------------------------------------------------------ training
+
+    def _train_layer(self, h: torch.Tensor, p: Dict[str, Any], l: int,
+                     positions: torch.Tensor):
+        cfg = self.cfg
+        a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+        a = attention_block(
+            a, p["attn"], cfg, window=int(self.windows[l]),
+            rope_base=self._rope_base(l), positions=positions, impl="xla",
+        )
+        h, aux = self._mlp_residual(self._attn_residual(h, a, p), p)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return h, aux
+
+    def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor, *,
+                      patch_embeds: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``forward(params, tokens)`` on the training
+        route: (B, S, V) logits and the aux loss summed over layers,
+        differentiable in ``params``."""
+        cfg = self.cfg
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        h = self._embed_inputs(tokens, patch_embeds, table=params["embed"])
+        auxes = []
+        for l, p in enumerate(unstack_layers(params["layers"],
+                                             cfg.num_layers)):
+            h, aux = remat_call(self._train_layer, h, p, l, positions)
+            auxes.append(aux)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps,
+                     plus_one=cfg.post_norms)
+        table = params.get("unembed", params["embed"])
+        return self._unembed(h, table), torch.stack(auxes).sum()
+
+    def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        """(ce + ``router_aux_coef`` · aux, {"ce", "aux", "tokens"}), as the
+        reference's ``loss``; ``batch`` holds ``tokens``, ``targets``, and
+        optionally ``loss_mask`` and ``patch_embeds``."""
+        logits, aux = self.train_forward(
+            params, batch["tokens"], patch_embeds=batch.get("patch_embeds"))
+        ce, denom = cross_entropy(logits, batch)
+        total = ce + self.cfg.router_aux_coef * aux
+        return total, {"ce": ce, "aux": aux, "tokens": denom}
+
+    # ------------------------------------------------------------ serving
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None,

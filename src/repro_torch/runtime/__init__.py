@@ -1,5 +1,10 @@
+from .fault import (FailureInjector, HeartbeatMonitor, StragglerDetector,
+                    WorkerFailure)
 from .sampling import sample_token, sampler_method
 from .serve_loop import Request, Server, ServerConfig, ServingEngine
+from .train_loop import Trainer, TrainerConfig, TrainStepper
 
-__all__ = ["Request", "Server", "ServerConfig", "ServingEngine",
-           "sample_token", "sampler_method"]
+__all__ = ["FailureInjector", "HeartbeatMonitor", "Request", "Server",
+           "ServerConfig", "ServingEngine", "StragglerDetector", "Trainer",
+           "TrainerConfig", "TrainStepper", "WorkerFailure", "sample_token",
+           "sampler_method"]
