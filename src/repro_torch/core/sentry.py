@@ -32,9 +32,10 @@ threads that both yield inside user code (the scheduler's workers do) undo
 each other's state out of order and the later one fails
 (``AssertionError: CURRENT_PATCHER is None``).  Dispatch modes are
 thread-local: a trace records only its own thread's operations, whatever
-the engine or other tenants run meanwhile.  A control-flow body must take
-every traced tensor it reads as an operand (a body closing over a tensor
-traced outside it is refused at trace time).
+the engine or other tenants run meanwhile.  A control-flow body that reads
+a tensor traced outside it gets that tensor as an operand: ``torch.cond``,
+``while_loop`` and ``scan`` lift such closures before they dispatch, nested
+bodies included, as the reference's jaxpr carries them as operands.
 """
 
 from __future__ import annotations
@@ -265,11 +266,6 @@ class _Recorder(TorchDispatchMode):
         n = self._env.get(id(x))
         if n is not None:
             return n
-        if isinstance(x, torch._subclasses.fake_tensor.FakeTensor):
-            raise RuntimeError(
-                "a control-flow body reads a tensor traced outside it; "
-                "pass the tensor as an operand"
-            )
         n = self._attr("_tensor_constant", x)
         self.bind(x, n, self.fake_mode.from_tensor(x))
         return n

@@ -41,7 +41,8 @@ def head_dim_instance(hd: int, instances=INSTANCES) -> int:
             return inst
     raise ValueError(
         f"the kernel takes head dims up to {instances[-1]} (instances "
-        f"{', '.join(map(str, instances))}), got head dim {hd}")
+        f"{', '.join(map(str, instances))}), got head dim {hd}: a config "
+        f"with head_dim above {instances[-1]} needs a new instance")
 
 
 def flash_attention_cuda(q, k, v, window, *, scale, logit_cap=0.0,
@@ -59,12 +60,17 @@ def flash_attention_cuda(q, k, v, window, *, scale, logit_cap=0.0,
         raise ValueError(
             "flash_attention kernel takes float32 or bfloat16 q/k/v of one "
             f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd > INSTANCES[-1] or hd_k != hd or Bk != B \
-            or v.shape != k.shape or KG % K:
+    if hd_k != hd or Bk != B or v.shape != k.shape or KG % K:
+        raise ValueError(
+            f"flash_attention kernel takes GQA shapes, got q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if hd > INSTANCES[-1]:
+        # no config reaches this: gemma2/gemma3's 256 is the largest
         raise ValueError(
             f"flash_attention kernel takes head dims up to {INSTANCES[-1]} "
-            f"and GQA shapes, got q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}")
+            f"(instances {', '.join(map(str, INSTANCES))}), got head dim "
+            f"{hd}: a config with head_dim above {INSTANCES[-1]} needs a "
+            "new instance of csrc/flash_attention.cu")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous tensors")
     inst = head_dim_instance(hd)

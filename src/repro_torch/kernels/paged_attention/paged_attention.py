@@ -63,11 +63,19 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, lens, *, scale):
         raise ValueError(
             "paged_attention kernel takes float32 or bfloat16 q/k/v of one "
             f"dtype, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    if hd > INSTANCES[-1] or hd_k != hd or v_pages.shape != k_pages.shape:
+    if hd_k != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"paged_attention kernel takes matching pages, got q "
+            f"{tuple(q.shape)}, pages {tuple(k_pages.shape)}")
+    if hd > INSTANCES[-1]:
+        # no config reaches this: the head dims above 128 (gemma2/gemma3's
+        # 256) serve through the dense cache
         raise ValueError(
             f"paged_attention kernel takes head dims up to {INSTANCES[-1]} "
-            f"with matching pages, got q {tuple(q.shape)}, pages "
-            f"{tuple(k_pages.shape)}")
+            f"(instances {', '.join(map(str, INSTANCES))}), got head dim "
+            f"{hd}: a config with head_dim above {INSTANCES[-1]} needs a "
+            "new instance of csrc/paged_attention.cu to serve in "
+            "kv_mode='paged'")
     if KG % K or not 1 <= KG // K <= MAX_G:
         raise ValueError(
             f"paged_attention kernel takes 1..{MAX_G} query heads per kv "

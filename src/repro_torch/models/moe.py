@@ -2,7 +2,7 @@
 
 The counterpart of ``repro/models/moe.py`` on one device (its ``mesh is
 None`` branch): the expert-parallel ``shard_map`` branch waits for the
-port's mesh (ROADMAP.md queue 1, item 9).  The token path follows the
+port's mesh (ROADMAP.md queue 1, item 4e with 9c).  The token path follows the
 reference's ``_dispatch_compute_combine`` step by step, split into four
 functions that :func:`moe_block` calls in turn:
 

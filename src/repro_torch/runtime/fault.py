@@ -16,9 +16,11 @@ package.  The classes are unchanged:
   :class:`~repro_torch.runtime.serve_loop.ServingEngine`, and :meth:`arm`
   schedules node kills and slowdowns against
   :class:`~repro_torch.core.tasks.ServerlessScheduler` workers.  The
-  replica and autoscaler planes (:meth:`arm_replicas`,
-  :meth:`arm_orchestrator`) are duck-typed and have no counterpart in the
-  port yet (ROADMAP.md queue 1, item 9).
+  replica plane (:meth:`arm_replicas`: loud replica kills and silent
+  mesh-member deaths) drives
+  :class:`~repro_torch.runtime.replica.ReplicaSet`, and the autoscaler
+  plane (:meth:`arm_orchestrator`: ops-driven scale events) drives
+  :class:`~repro_torch.runtime.elastic.ElasticAutoscaler`.
 """
 
 from __future__ import annotations

@@ -1,20 +1,27 @@
-"""The scheduler invariants of ``helpers/invariants.py`` for the port.
+"""The scheduler and replica invariants of ``helpers/invariants.py`` for
+the port.
 
 :class:`AuditedPool` and :class:`WatchedScheduler` are the reference
 helpers' twins over ``repro_torch.core``'s pool and scheduler, and
 :func:`check_port_drain_invariants` runs the reference's own
 ``check_drain_invariants`` on a port scheduler, its task states read
 through the reference's ``TaskState`` by value.
+:func:`check_port_replica_invariants` is ``check_replica_invariants``'s
+twin for the port's ``ReplicaSet``: the reference's checks (exactly-once
+completion, exact token counts, empty planes, page and slot ledgers per
+replica and per shard) plus the port's whole-device replicas
+(``tp_shards`` 1 on every engine).
 """
 
 from types import SimpleNamespace
 
-from helpers.invariants import check_drain_invariants
+from helpers.invariants import check_drain_invariants, check_replica_invariants
 
 from repro.core import TaskState as JaxTaskState
 from repro_torch.core import SandboxPool, ServerlessScheduler
 
-__all__ = ["AuditedPool", "WatchedScheduler", "check_port_drain_invariants"]
+__all__ = ["AuditedPool", "WatchedScheduler", "check_port_drain_invariants",
+           "check_port_replica_invariants"]
 
 
 class AuditedPool(SandboxPool):
@@ -70,3 +77,11 @@ class _ReferenceView:
 def check_port_drain_invariants(sched, ids, *, quotas=None, ctx=""):
     """The reference's drain invariants, on the port's scheduler."""
     check_drain_invariants(_ReferenceView(sched), ids, quotas=quotas, ctx=ctx)
+
+
+def check_port_replica_invariants(replica_set, requests, *, ctx=""):
+    """The reference's replica invariants, on the port's ``ReplicaSet``."""
+    check_replica_invariants(replica_set, requests, ctx=ctx)
+    shards = [p["tp_shards"] for p in replica_set.replica_stats()["per_replica"]]
+    assert shards == [1] * len(replica_set.replicas), (shards, ctx)
+    assert all(e.tp_shards == 1 for e in replica_set.replicas), ctx

@@ -5,7 +5,9 @@ Each program of ``tests/test_sentry.py`` and ``tests/test_admission_pool.py``
 is paired with its torch twin: the scan of tanh, ``erf``, the matmul, a host
 callback (a ``torch.library`` custom op with a fake registration, the
 counterpart of ``jax.pure_callback``), that callback smuggled into a
-``cond`` branch, and a sort.  Both packages must reach the same verdict
+``cond`` branch, a sort, and four control-flow programs whose bodies read a
+tensor computed outside them (``cond``, ``while_loop``, ``scan`` and a
+``cond`` nested in a ``cond``).  Both packages must reach the same verdict
 under the legacy allowlist, the modern policy and the allowlist extended by
 the program's own names; the products must cost the same FLOPs; and the
 cache keys, budget refusals and interpret-equals-verify hold on both sides.
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from torch._higher_order_ops.scan import scan as torch_scan
+from torch._higher_order_ops.while_loop import while_loop as torch_while
 
 import repro.core as J
 import repro_torch.core as T
@@ -66,7 +69,59 @@ def _matmul(a, b):
     return a @ b
 
 
+# bodies that read y, computed outside them: both packages lift it into
+# the control-flow operator's operands
+
+
+def _jax_cond_closure(x):
+    y = x * 2
+    return jax.lax.cond(x.sum() > 0, lambda v: v + y, lambda v: v - y, x)
+
+
+def _torch_cond_closure(x):
+    y = x * 2
+    return torch.cond(x.sum() > 0, lambda v: v + y, lambda v: v - y, (x,))
+
+
+def _jax_while_closure(x):
+    y = x * 2
+    return jax.lax.while_loop(lambda c: c[0] < 3,
+                              lambda c: (c[0] + 1, c[1] + y), (0, x))[1]
+
+
+def _torch_while_closure(x):
+    y = x * 2
+    return torch_while(lambda i, c: i < 3, lambda i, c: (i + 1, c + y),
+                       (torch.zeros((), dtype=torch.int64), x))[1]
+
+
+def _jax_scan_closure(x):
+    y = x.sum() * 2
+    return jax.lax.scan(lambda c, t: (c + t * y, c), 0.0, x)[0]
+
+
+def _torch_scan_closure(x):
+    y = x.sum() * 2
+    return torch_scan(lambda c, t: (c + t * y, c.clone()), torch.zeros(()),
+                      x)[0]
+
+
+def _jax_nested_cond(x):
+    y = x * 2
+    inner = lambda v: jax.lax.cond(v.sum() > 1, lambda u: u + y,
+                                   lambda u: u * y, v)
+    return jax.lax.cond(x.sum() > 0, inner, lambda v: v - y, x)
+
+
+def _torch_nested_cond(x):
+    y = x * 2
+    inner = lambda v: torch.cond(v.sum() > 1, lambda u: u + y,
+                                 lambda u: u * y, (v,))
+    return torch.cond(x.sum() > 0, inner, lambda v: v - y, (x,))
+
+
 X16 = np.linspace(-1.0, 1.0, 16, dtype=np.float32)
+X4 = np.linspace(-1.0, 1.0, 4, dtype=np.float32)
 
 #: name -> (reference fn, torch fn, numpy args, the names ``extended``
 #: adds on each side)
@@ -86,7 +141,15 @@ PROGRAMS = {
                          (("pure_callback",), ("seepp_control_plane.leak",))),
     "sort": (lambda x: jnp.sort(x), lambda x: torch.sort(x).values,
              (np.array([3, 1, 2, 5, 4], np.int32),), ((), ())),
+    "cond_closure": (_jax_cond_closure, _torch_cond_closure, (X4,),
+                     ((), ())),
+    "while_closure": (_jax_while_closure, _torch_while_closure, (X4,),
+                      ((), ())),
+    "scan_closure": (_jax_scan_closure, _torch_scan_closure, (X4,),
+                     (("scan",), ("higher_order.scan",))),
+    "nested_cond": (_jax_nested_cond, _torch_nested_cond, (X4,), ((), ())),
 }
+CLOSURES = ("cond_closure", "while_closure", "scan_closure", "nested_cond")
 
 #: the verdicts both packages must reach: (legacy, modern, extended)
 EXPECTED = {
@@ -96,6 +159,10 @@ EXPECTED = {
     "callback": (False, False, False),
     "callback_in_cond": (False, False, False),
     "sort": (True, True, True),
+    "cond_closure": (True, True, True),
+    "while_closure": (True, True, True),
+    "scan_closure": (False, True, True),
+    "nested_cond": (True, True, True),
 }
 
 
@@ -125,6 +192,44 @@ def test_verdicts_match_reference(name, which):
                    _policy(T, which, tnames))
     assert got == ref == EXPECTED[name][
         ("legacy", "modern", "extended").index(which)]
+
+
+def _lifted_closures(node_operands, closure) -> int:
+    return sum(1 for a in node_operands if a is closure)
+
+
+@pytest.mark.parametrize("name", CLOSURES)
+def test_control_flow_closures_are_lifted_as_operands(name):
+    """The tensor a body reads from outside (the program's first product,
+    ``y``) is an operand of the outermost control-flow node on both sides:
+    an input of the reference's cond/while/scan equation, and of the
+    port's ``higher_order`` node; the bodies hold no tensor constant; and
+    the port's interpret mode gives the native values, which equal the
+    reference's."""
+    jfn, tfn, (x,), _ = PROGRAMS[name]
+    jaxpr = jax.make_jaxpr(jfn)(jnp.asarray(x)).jaxpr
+    y = next(e for e in jaxpr.eqns if e.primitive.name == "mul").outvars[0]
+    flow = next(e for e in jaxpr.eqns
+                if e.primitive.name in ("cond", "while", "scan"))
+    assert _lifted_closures(flow.invars, y) == 1
+
+    gm, _ = T.sentry.make_graph(tfn, (torch.from_numpy(x),))
+    nodes = [n for n in gm.graph.nodes if n.op == "call_function"]
+    y_node = next(n for n in nodes if n.target is torch.ops.aten.mul.Tensor)
+    hop = next(n for n in nodes
+               if isinstance(n.target, torch._ops.HigherOrderOperator))
+    operands = [a for arg in hop.args if isinstance(arg, (tuple, list))
+                for a in arg]
+    assert _lifted_closures(operands, y_node) == 1
+    assert not [n for n in gm.graph.nodes
+                if n.op == "get_attr" and "_tensor_constant" in n.target]
+
+    got = T.sandboxed(tfn, T.ModernEmulationPolicy(),
+                      mode="interpret")(torch.from_numpy(x))
+    want = tfn(torch.from_numpy(x))
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(want.numpy(), np.asarray(jfn(jnp.asarray(x))),
+                               rtol=1e-6)
 
 
 def _costs(core, fn, args):

@@ -1,4 +1,4 @@
-"""K1 and K2 at the head dims their CUDA kernels have no instance for.
+"""K1, K2 and K3 at the head dims their CUDA kernels have no instance for.
 
 K2's kernel has instances at head dims 64, 128 and 256, K1's at 64 and 128.
 The bindings zero-pad a smaller head dim (or one between two instances) up
@@ -16,9 +16,20 @@ reference's Pallas kernel (interpret mode) at the real head dim, within
 themselves run with the kernel loader replaced by a recorder: what they
 pass on (the instance's head dim, the padded scratch) and what they return
 (the real head dim).
+
+K3 (WKV6) has instances at head sizes 16, 32, 64 and 128; its binding pads
+r, k, v, u and state0 with zeros and w with ones up to the next one, and
+slices y and the state back.  Its binding runs end to end here through an
+emulated loader: the entry point reads the binding's CPU tensors through
+the pointers it is given, runs the bf16 route's emulation (or, for fp32,
+the per-token recurrence) at the instance's head size and writes y and the
+state back through theirs.  Past each kernel's largest instance the
+bindings refuse, naming the limit and the config field that would need a
+new instance (no config reaches any of them).
 """
 
 import contextlib
+import ctypes
 import sys
 import types
 from pathlib import Path
@@ -28,18 +39,22 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from helpers.torch_kernel_emul import flash_tc_emul, paged_split_emul
+from helpers.torch_kernel_emul import (flash_tc_emul, paged_split_emul,
+                                       wkv6_chunk_emul)
 from helpers.torch_port import to_torch
 
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention_pallas
 from repro.kernels.paged_attention.paged_attention import \
     paged_attention_pallas
+from repro.kernels.wkv6.wkv6 import wkv6_pallas
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fa_bind
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import paged_attention as pa_bind
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.wkv6 import wkv6 as wkv_bind
+from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import TOL  # noqa: E402
@@ -216,7 +231,9 @@ def test_paged_binding_pads_to_the_next_instance(hd, dtype, recorded):
 def test_flash_binding_refuses_past_head_dim_256(hd, recorded):
     q = torch.zeros((1, 9, 4, hd), dtype=torch.bfloat16)
     k = torch.zeros((1, 9, 2, hd), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match=f"up to 256 .*got head dim {hd}: "
+                       "a config with head_dim above 256 needs a new "
+                       "instance"):
         fa_bind.flash_attention_cuda(q, k, k, 0, scale=0.1)
     assert not recorded
 
@@ -225,9 +242,116 @@ def test_flash_binding_refuses_past_head_dim_256(hd, recorded):
 def test_paged_binding_refuses_past_head_dim_128(hd, recorded):
     q = torch.zeros((2, 4, hd))
     kp = torch.zeros((6, 16, 2, hd))
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match=f"up to 128 .*got head dim {hd}: "
+                       "a config with head_dim above 128 needs a new "
+                       "instance .*kv_mode='paged'"):
         pa_bind.paged_attention_cuda(q, kp, kp,
                                      torch.zeros((2, 3), dtype=torch.int32),
                                      torch.ones((2,), dtype=torch.int32),
                                      scale=0.1)
     assert not recorded
+
+
+# ------------------------------------------------------------ wkv6 (K3)
+
+WKV_SIZES = [8, 24, 48, 96]
+
+
+def _at(ptr, shape, dtype):
+    """The tensor of ``shape`` and ``dtype`` at host address ``ptr``
+    (writes go through to the tensor that lives there)."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = (ctypes.c_uint8 * n).from_address(ptr)
+    return torch.frombuffer(buf, dtype=dtype).view(shape)
+
+
+@pytest.fixture
+def emulated(monkeypatch):
+    """The kernel loader replaced by one whose ``repro_wkv6`` computes on
+    the binding's CPU tensors: bf16 through the chunked route's emulation,
+    fp32 through the per-token recurrence (the exact kernel's order), at
+    the head size it is given.  Records each launch's head size."""
+    sizes = []
+
+    def fake_kernel(name, argtypes):
+        assert name == "repro_wkv6" and len(argtypes) == len(wkv_bind._ARGS)
+
+        def fn(r, k, v, w, u, s0, y, state, states, dec, B, T, H, hd,
+               dtype, stream):
+            sizes.append(hd)
+            dt = torch.bfloat16 if dtype == 1 else torch.float32
+            seq = (B, T, H, hd)
+            ins = (_at(r, seq, dt), _at(k, seq, dt), _at(v, seq, dt),
+                   _at(w, seq, torch.float32), _at(u, (H, hd), torch.float32),
+                   _at(s0, (B, H, hd, hd), torch.float32))
+            run = wkv6_chunk_emul if dt == torch.bfloat16 else wkv6_ref
+            S, out = run(*ins)
+            _at(y, seq, dt).copy_(out)
+            _at(state, (B, H, hd, hd), torch.float32).copy_(S)
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "kernel", fake_kernel)
+    monkeypatch.setattr(wkv_bind, "KERNEL_DEVICE", "cpu")
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    return sizes
+
+
+def _wkv_inputs(seed, B, T, H, hd):
+    """The reference sweep's scales (k * 0.3, decays in (0.35, 0.95),
+    u * 0.2, state0 * 0.1), numpy-seeded."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)
+    r, k, v = n(B, T, H, hd), n(B, T, H, hd) * 0.3, n(B, T, H, hd)
+    w = (1 / (1 + np.exp(-n(B, T, H, hd))) * 0.6 + 0.35).astype(np.float32)
+    return r, k, v, w, n(H, hd) * 0.2, n(B, H, hd, hd) * 0.1
+
+
+@pytest.mark.parametrize("hd,inst", [(8, 16), (16, 16), (24, 32), (48, 64),
+                                     (64, 64), (96, 128), (128, 128)])
+def test_wkv6_head_size_instance_is_the_next_one_up(hd, inst):
+    assert wkv_bind.head_size_instance(hd) == inst
+
+
+@pytest.mark.parametrize("hd", WKV_SIZES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wkv6_binding_pads_to_the_next_instance(hd, dtype, emulated):
+    """The binding at a head size without an instance: one launch at the
+    next instance, y and the state sliced back to the real size, within
+    TOL (bf16: one ulp of y; the fp32 state: 1e-5 + 1e-4 |ref|) of the
+    plain version and of the reference's Pallas kernel (interpret mode) at
+    the real size; T = 64, one chunk of the bf16 route and of the Pallas
+    kernel."""
+    B, T, H = 2, 64, 2
+    r, k, v, w, u, s0 = _wkv_inputs(hd * 3 + (dtype == torch.float32),
+                                    B, T, H, hd)
+    jr, jk, jv = (jnp.asarray(x, jnp.dtype(str(dtype).split(".")[1]))
+                  for x in (r, k, v))
+    tr, tk, tv = (to_torch(np.asarray(x, np.float32)).to(dtype)
+                  for x in (jr, jk, jv))
+    tw, tu, ts0 = to_torch(w), to_torch(u), to_torch(s0)
+    S, y = wkv_bind.wkv6_cuda(tr, tk, tv, tw, tu, ts0)
+    assert emulated == [wkv_bind.head_size_instance(hd)]
+    assert y.shape == (B, T, H, hd) and y.dtype == dtype and y.is_contiguous()
+    assert S.shape == (B, H, hd, hd) and S.dtype == torch.float32
+    S_p, y_p = wkv6_ref(tr, tk, tv, tw, tu, ts0)
+    S_k, y_k = wkv6_pallas(jr, jk, jv, w, u, s0, interpret=True)
+    for S_ref, y_ref in ((S_p, y_p), (to_torch(np.asarray(S_k)),
+                                      to_torch(np.asarray(y_k, np.float32)))):
+        _within_tol(y, y_ref, dtype)
+        _within_tol(S, S_ref, torch.float32)
+
+
+@pytest.mark.parametrize("hd", [129, 192])
+def test_wkv6_binding_refuses_past_head_size_128(hd, emulated):
+    r = torch.zeros((1, 4, 1, hd), dtype=torch.bfloat16)
+    w = torch.ones((1, 4, 1, hd))
+    with pytest.raises(ValueError, match=f"up to 128 .*got head size {hd}: "
+                       "a config with rwkv_head_size above 128 needs a new "
+                       "instance"):
+        wkv_bind.wkv6_cuda(r, r, r, w, torch.zeros((1, hd)),
+                           torch.zeros((1, 1, hd, hd)))
+    assert not emulated

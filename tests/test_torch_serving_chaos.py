@@ -11,8 +11,8 @@ port's engine over the torch twin with the port's copy
 (``repro_torch.runtime.fault``).  Every seed must give the same trace,
 token streams, errors, latencies and counters, byte for byte, and the
 port's engine must hold the reference suite's invariants after every
-drain.  The replica and mesh cases wait for ``ReplicaSet`` (ROADMAP.md
-queue 1, item 9).
+drain.  The replica chaos plane (``mesh_chaos_run``) is paired in
+``tests/test_torch_replica.py``.
 """
 
 import random
