@@ -155,9 +155,31 @@ prints no result line):
    ``FailureInjector.arm_replicas``: each request once, the ledgers,
    re-homed greedy streams against the undisturbed ones, K1/K2 = decode
    steps / full prefills x layers (``[replica]`` lines).  ``--phases
-   1,2,16`` runs it alone.
+   1,2,16`` runs it alone;
+17. tensor-parallel serving on the card (``repro_torch.launch.mesh``: shard
+   worker processes in one gloo group, two ranks on ``cuda:0``; NCCL
+   refuses two ranks on one GPU): (a) ``paged_attention_sharded`` over 2
+   ranks at phase 3's K1 shapes (8 kv heads of 5 q, and qwen3-moe's 4 of
+   16) bit-identical to the unsharded K1 and within TOL of the plain
+   version, one K1 launch in each rank (``[tp-k1]``), and K2 in each rank
+   at its share of qwen2.5-32b's heads (20 q / 4 kv of 128, 2048 tokens,
+   causal) within TOL of the plain version, one launch each
+   (``[tp-k2]``); (b) phase 4's model
+   and 8 requests served paged by a no-mesh engine and by one on the
+   2-rank mesh (20 q / 4 kv heads per rank): every request done, no live
+   page after the drain, ``tp_shards`` 2, each rank's K1 = decode steps x
+   layers and K2 = full prefills x layers and none in the controller, the
+   logits of the two runs within ``TP_LOGIT_REL`` (relative L2) up to
+   each greedy stream's first fork and a fork only where that difference
+   can swap the top two; tokens/s, step p50 and each process's peak
+   memory, two ranks time-sharing one card, not a TP speed
+   (``[tp-serve]``); (c) a ``ReplicaSet`` of 2 replicas x 2 ranks (four
+   workers) at full width and 2 layers against a whole-device set,
+   undisturbed and under ``kill_replica`` and ``kill_mesh_member``, held
+   as (b) (``[tp-replica]``); every mesh closed and no worker left
+   (``[tp]``).  ``--phases 1,2,17`` runs it alone.
 
-With all sixteen, a summary follows: one ``{"kernels": [...]}`` line (each
+With all seventeen, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
 line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
 2, the kernels build at their first launch).  ``--src DIR`` imports
@@ -3690,6 +3712,350 @@ def phase_orchestration() -> dict:
     return total
 
 
+# --------------------------------------------------------------- phase 17
+
+# two ranks of each serving mesh on the one card (gloo: NCCL refuses two
+# ranks on one GPU); the replica set's depth (its 4 workers hold ~20 GB)
+TP_RANKS, TP_REPLICA_LAYERS = 2, 2
+# the relative L2 distance allowed between a mesh engine's and a no-mesh
+# engine's logits on the same inputs: bf16 partial products of wo summed
+# over ranks round differently from one GEMM.  Sound runs on the H100 read
+# at most 0.0152 (phase 4's model) and 0.0103 (the replica sets); with the
+# wo sum dropped the same run reads 1.31, so 0.03 sits 2x above the one
+# and 44x below the other
+TP_LOGIT_REL = 3e-2
+
+
+def _tp_mesh():
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    return make_serving_mesh(["cuda:0"] * TP_RANKS)
+
+
+def _tp_attention(mesh) -> None:
+    """Part (a): ``paged_attention_sharded`` over the 2-rank mesh at phase
+    3's K1 shapes (qwen2.5's 8 kv heads of 5, qwen3-moe's 4 of 16), bf16:
+    bit-identical to the unsharded K1, within TOL of the plain version."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_sharded)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    hd, page, dtype = 128, 16, torch.bfloat16
+    for B, K, G in ((4, 8, 5), (4, 4, 16)):
+        q, kp, vp, table, lens = _paged_case(B, K, G, hd, page, dtype,
+                                             seed=B if G == 5 else 1000 + G)
+        scale = hd ** -0.5
+        mesh.reset_counters()
+        out = paged_attention_sharded(q, kp, vp, table, lens, scale=scale,
+                                      mesh=mesh)
+        ranks = [c["paged_attention"] for c in mesh.counters()]
+        whole = paged_attention(q, kp, vp, table, lens, scale=scale)
+        what = f"[tp-k1] B={B} K={K} G={G}"
+        if not torch.equal(out, whole):
+            raise AssertionError(f"{what}: sharded K1 differs from the "
+                                 "unsharded K1")
+        if ranks != [1] * TP_RANKS:
+            raise AssertionError(f"{what}: K1 launches per rank {ranks}")
+        err, share = compare(out, paged_attention_ref(
+            q, kp, vp, table, lens, scale=scale), dtype, what)
+        log(f"{what} hd={hd} bf16 over {TP_RANKS} ranks ({K // TP_RANKS} kv "
+            f"heads each): bit-identical to the unsharded K1; against the "
+            f"plain version max|err|={err:.3g} ({share:.3f} x "
+            f"{tol_str(dtype)}); K1 launches per rank {ranks}")
+
+
+def _tp_flash(mesh) -> None:
+    """Part (a), K2: each rank runs K2 at its share of qwen2.5-32b's heads
+    (a 2048-token causal prefill of 40 q / 8 kv heads of 128 over 2
+    ranks: 20 / 4 each), bf16, as the prefills of part (b) run it; within
+    TOL of the plain version, one K2 launch in each rank."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, S, K, G, hd, dtype = 1, 2048, 8, 5, 128, torch.bfloat16
+    g = torch.Generator("cuda").manual_seed(S + K * G)
+    q = torch.randn((B, S, K, G, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, K, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, K, hd), generator=g, device="cuda").to(dtype)
+    kh, scale = K // TP_RANKS, hd ** -0.5
+    heads = [slice(r * kh, (r + 1) * kh) for r in range(TP_RANKS)]
+    mesh.reset_counters()
+    outs = mesh.run("flash", [(q[:, :, h], k[:, :, h], v[:, :, h], 0,
+                               scale, 0.0) for h in heads])
+    ranks = [c["flash_attention"] for c in mesh.counters()]
+    what = f"[tp-k2] B={B} S={S} H={kh * G} K={kh} hd={hd} bf16 causal"
+    if ranks != [1] * TP_RANKS:
+        raise AssertionError(f"{what}: K2 launches per rank {ranks}")
+    for r, (h, out) in enumerate(zip(heads, outs)):
+        if out.shape != q[:, :, h].shape:
+            raise AssertionError(f"{what} rank {r}: shape "
+                                 f"{tuple(out.shape)}")
+        ref = flash_attention_ref(q[:, :, h].reshape(B, S, kh * G, hd),
+                                  k[:, :, h], v[:, :, h], 0, scale=scale,
+                                  causal=True)
+        err, share = compare(out.reshape(B, S, kh * G, hd), ref, dtype,
+                             f"{what} rank {r}")
+        log(f"{what}, rank {r} (kv heads {h.start}-{h.stop - 1} of {K}): "
+            f"against the plain version max|err|={err:.3g} ({share:.3f} x "
+            f"{tol_str(dtype)}); K2 launches per rank {ranks}")
+
+
+def _judge_tp(tag: str, want, got, rows_want: dict, rows_got: dict) -> str:
+    """Greedy streams of a mesh run (``got``) against a no-mesh run's
+    (``want``) on the same requests.  Up to each stream's first fork both
+    ran on the same tokens, so their logits rows are compared there: the
+    relative L2 distance must stay under ``TP_LOGIT_REL``, and a fork is
+    allowed only where ``want``'s top-2 margin is under twice the largest
+    logit difference at that row (a swap the difference can explain).
+    Logs every fork; returns a summary."""
+    worst, forks, clear, greedy = 0.0, [], [], 0
+    for a, b in zip(want, got):
+        if a.temperature > 0:
+            continue
+        greedy += 1
+        j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                  if x != y), None)
+        for i in range(len(a.tokens) if j is None else j + 1):
+            ra = rows_want[(a.seed, i)].astype(np.float64)
+            rb = rows_got[(b.seed, i)].astype(np.float64)
+            worst = max(worst, np.linalg.norm(ra - rb) / np.linalg.norm(ra))
+        if j is None:
+            continue
+        ra = rows_want[(a.seed, j)].astype(np.float64)
+        diff = np.abs(ra - rows_got[(b.seed, j)]).max()
+        top2 = np.sort(ra)[-2:]
+        margin = top2[1] - top2[0]
+        log(f"[{tag}] request {a.request_id} forks at token {j} (want "
+            f"{a.tokens[j]}, got {b.tokens[j]}): top-2 margin {margin:.3g}, "
+            f"largest logit difference there {diff:.3g}")
+        forks.append(a.request_id)
+        if margin >= 2 * diff:
+            clear.append(a.request_id)
+    if worst > TP_LOGIT_REL or clear:
+        raise AssertionError(
+            f"[{tag}] logits {worst:.3g} apart in relative L2 (limit "
+            f"{TP_LOGIT_REL:g}), forks at clear margins {clear}")
+    sampled = sum(a.tokens == b.tokens for a, b in zip(want, got)
+                  if a.temperature > 0)
+    return (f"{greedy - len(forks)} of {greedy} greedy streams equal"
+            + (f", forks {forks} within the logit difference"
+               if forks else "")
+            + f"; {sampled} of {len(want) - greedy} sampled equal; logits "
+            f"at most {worst:.3g} apart (relative L2) before any fork")
+
+
+def _tp_counts(tag, engine, mesh, base, layers) -> tuple:
+    """Every rank of ``mesh`` launched K1 = decode steps x layers and K2 =
+    full prefills x layers of ``engine`` since ``base`` (its
+    ``_paged_counts``), K3 = K4 = 0: the launches summed over ranks."""
+    steps, prefills = (n - b for n, b in zip(_paged_counts(engine), base))
+    want = {"paged_attention": steps * layers,
+            "flash_attention": prefills * layers, "wkv6": 0,
+            "segment_zero": 0}
+    ranks = mesh.counters()
+    if any(c != want for c in ranks):
+        raise AssertionError(f"[{tag}] launches per rank {ranks}, want "
+                             f"{want} ({steps} decode steps, {prefills} "
+                             f"full prefills x {layers} layers)")
+    return {k: v * len(ranks) for k, v in want.items()}, steps, prefills
+
+
+def _tp_serve(cfg, model, mesh) -> dict:
+    """Part (b): phase 4's run on a no-mesh engine and on the 2-rank mesh
+    over the same weights."""
+    from repro_torch.runtime import ServerConfig, ServingEngine
+
+    runs = {}
+    for name in ("plain", "mesh"):
+        engine = ServingEngine(model, ServerConfig(
+            max_batch=4, max_seq=4096, prefix_cache_seqs=4),
+            mesh=mesh if name == "mesh" else None)
+        if engine.kv_mode != "paged":
+            raise AssertionError(f"[tp-serve] {name}: {engine.kv_mode}")
+        reqs = _orch_requests(cfg)
+        _warm_up(engine)
+        base = _paged_counts(engine)
+        rows = {}
+        if name == "mesh":
+            mesh.reset_counters()
+            mesh.memory(reset=True)
+        with _greedy_rows(rows):
+            run, launches, peak = _drive_counted(engine, reqs)
+        engine.flush_prefix_cache()
+        runs[name] = (engine, reqs, rows, run, launches, peak, base)
+    engine, reqs, rows, run, launches, peak, base = runs["mesh"]
+    _check_outputs(reqs, cfg.vocab_size)
+    stats = engine.serving_stats()
+    _check_ledgers(engine, stats)
+    if engine.kv.live_pages() or stats["tp_shards"] != TP_RANKS:
+        raise AssertionError(f"[tp-serve] live pages "
+                             f"{engine.kv.live_pages()}, stats {stats}")
+    if any(launches.values()):
+        raise AssertionError(f"[tp-serve] the controller launched {launches}")
+    total, steps, prefills = _tp_counts("tp-serve", engine, mesh, base,
+                                        cfg.num_layers)
+    if not steps or not prefills:
+        raise AssertionError(f"[tp-serve] {steps} decode steps, {prefills} "
+                             "full prefills on the mesh")
+    plain = runs["plain"]
+    verdict = _judge_tp("tp-serve", plain[1], reqs, plain[2], rows)
+    ranks = [c["paged_attention"] for c in mesh.counters()]
+    flash = [c["flash_attention"] for c in mesh.counters()]
+    mem = mesh.memory()
+    log(f"[tp-serve] {cfg.arch_id} x{cfg.num_layers} layers paged over "
+        f"{TP_RANKS} ranks ({cfg.num_heads // TP_RANKS} q / "
+        f"{cfg.num_kv_heads // TP_RANKS} kv heads each, G="
+        f"{cfg.num_heads // cfg.num_kv_heads}): 8 requests done, tp_shards "
+        f"{stats['tp_shards']}, live pages 0 after the drain; decode steps "
+        f"{steps}, full prefills {prefills}; K1 launches per rank {ranks} = "
+        f"{steps} x {cfg.num_layers}, K2 per rank {flash} = {prefills} x "
+        f"{cfg.num_layers}; the controller launched none; {verdict}")
+    note = (" -- two ranks time-sharing one card, gloo: not a TP speed")
+    for name in ("plain", "mesh"):
+        _, _, _, run, _, peak, _ = runs[name]
+        _log_timings(f"tp-serve {name}", run, peak,
+                     note if name == "mesh" else " (no mesh)")
+    log(f"[tp-serve] mesh peak memory: controller {peak / 2**30:.2f} GiB, "
+        f"ranks {[round(p / 2**30, 2) for _, p in mem]} GiB (allocated "
+        f"{[round(a / 2**30, 2) for a, _ in mem]} GiB){note}")
+    return total
+
+
+def _tp_replica_run(model, cfg, meshes, plan=None) -> tuple:
+    """Phase 4's requests on a ``ReplicaSet`` of 2 engines over ``model``
+    on one ``SimExecutor`` (replica i on ``meshes[i]``, or whole-device
+    with no meshes), under ``plan``: (set, requests, rows, launches, wall
+    s)."""
+    from repro_torch.core.sim import SimExecutor
+    from repro_torch.runtime import (FailureInjector, ReplicaSet,
+                                     ServerConfig, ServingEngine)
+
+    ex = SimExecutor(seed=0)
+    engines = [ServingEngine(model, ServerConfig(
+        max_batch=4, max_seq=4096, prefix_cache_seqs=4,
+        step_time_s=REPLICA_STEP_S), executor=ex,
+        mesh=meshes[i] if meshes else None) for i in range(2)]
+    rs = ReplicaSet(engines, heartbeat_timeout_s=REPLICA_HEARTBEAT_S)
+    if plan:
+        FailureInjector(**plan).arm_replicas(ex, rs)
+    reqs, rows = _orch_requests(cfg), {}
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    for m in meshes:
+        m.reset_counters()
+    t0 = time.perf_counter()
+    with _greedy_rows(rows):
+        for r in reqs:
+            rs.submit(r)
+        rs.drain(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return rs, reqs, rows, launches, wall
+
+
+def _tp_replicas(cfg, model, meshes) -> dict:
+    """Part (c): 2 replicas x 2 ranks on one card against a whole-device
+    set, undisturbed and under both kills."""
+    base_rs, base, base_rows, _, _ = _tp_replica_run(model, cfg, [])
+    _check_done_once("tp-replica whole-device", base_rs.completed, base,
+                     cfg.vocab_size)
+    total = {name: 0 for name in _launch_counters()}
+    for name, plan in (
+            ("undisturbed", None),
+            ("kill_replica", {"kill_replica_at_t": {REPLICA_KILL_T: [0]}}),
+            ("kill_mesh_member",
+             {"kill_mesh_member_at_t": {REPLICA_KILL_T: [0]}})):
+        tag = f"tp-replica {name}"
+        rs, reqs, rows, launches, wall = _tp_replica_run(model, cfg, meshes,
+                                                         plan)
+        _check_done_once(tag, rs.completed, reqs, cfg.vocab_size)
+        if any(launches.values()):
+            raise AssertionError(f"[{tag}] the controller launched "
+                                 f"{launches}")
+        counts = []
+        for e, m in zip(rs.replicas, meshes):
+            got, steps, prefills = _tp_counts(tag, e, m, (0, 0),
+                                              cfg.num_layers)
+            counts.append((steps, prefills))
+            for k, v in got.items():
+                total[k] += v
+        if not sum(s for s, _ in counts) or not sum(p for _, p in counts):
+            raise AssertionError(f"[{tag}] (decode steps, full prefills) "
+                                 f"per replica {counts}")
+        st = rs.replica_stats()
+        for i, e in enumerate(rs.replicas):
+            e.flush_prefix_cache()
+            if e.kv.pages_allocated != e.kv.pages_freed or \
+                    e.admission.slot_balance() or e.kv.live_pages():
+                raise AssertionError(f"[{tag}] replica {i} ledgers")
+        if [p["tp_shards"] for p in st["per_replica"]] != [TP_RANKS] * 2:
+            raise AssertionError(f"[{tag}] {st}")
+        if plan and (not rs.replicas[0].dead or st["rehomed_total"] < 1
+                     or st["orphaned"]):
+            raise AssertionError(f"[{tag}] {st}")
+        verdict = _judge_tp(tag, base, reqs, base_rows, rows)
+        log(f"[tp-replica] {name}: 2 replicas x {TP_RANKS} ranks "
+            f"(4 workers on one card), all 8 done once, kills "
+            f"{st['replica_kills']}, mesh kills {st['mesh_member_kills']}, "
+            f"heartbeat reaps {st['heartbeat_reaps']}, re-homed "
+            f"{st['rehomed_total']}, requests by replica "
+            f"{[[r.request_id for r in e.completed] for e in rs.replicas]}; "
+            f"per replica (decode steps, full prefills) {counts}, every "
+            f"rank's K1/K2 = those x {cfg.num_layers}; {verdict} against "
+            f"the whole-device set; "
+            f"{sum(len(r.tokens) for r in reqs) / wall:.1f} tokens/s "
+            f"({wall:.2f}s wall; two ranks time-sharing one card, gloo: "
+            f"not a TP speed)")
+        del rs
+        gc.collect()
+    return total
+
+
+def phase_tensor_parallel() -> dict:
+    """Phase 17: sharded K1 and K2, then qwen2.5-32b served paged over a
+    2-rank mesh on the card, then a DP x TP replica set; every mesh
+    closed."""
+    import multiprocessing
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    mesh = _tp_mesh()
+    meshes = []
+    try:
+        info = mesh.probe()
+        log(f"[tp] mesh {mesh!r}: workers {info}, started in "
+            f"{time.perf_counter() - t0:.1f}s")
+        if any(p["jax_imported"] for p in info):
+            raise AssertionError(f"[tp] a worker imported jax: {info}")
+        _tp_attention(mesh)
+        _tp_flash(mesh)
+        cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                                  num_layers=SERVE_LAYERS)
+        model = _model_on_card(cfg, "tp-serve", " (of 64)")
+        total = _tp_serve(cfg, model, mesh)
+        mesh.close()
+        del model
+        _free_card()
+        cfg = dataclasses.replace(cfg, num_layers=TP_REPLICA_LAYERS)
+        model = _model_on_card(cfg, "tp-replica", " (of 64)")
+        meshes = [_tp_mesh() for _ in range(2)]
+        for k, v in _tp_replicas(cfg, model, meshes).items():
+            total[k] += v
+    finally:
+        procs = [p for m in [mesh] + meshes for p in m.processes]
+        for m in [mesh] + meshes:
+            m.close()
+    left = [p.pid for p in procs if p.is_alive()] + [
+        p.pid for p in multiprocessing.active_children()
+        if p.name.startswith("repro-torch-shard")]
+    if left:
+        raise AssertionError(f"[tp] shard workers left after close: {left}")
+    log(f"[tp] {len(procs)} shard workers started and ended; none left")
+    return total
+
+
 def _free_card() -> None:
     """Frees what a serving phase left behind (its model and engine are
     garbage once it returns) and logs what stays allocated."""
@@ -3705,7 +4071,7 @@ def _free_card() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
@@ -3733,13 +4099,15 @@ def main(argv=None) -> int:
         results["segment_zero"] = check_segment_zero()
         log(f"[smoke] phase 3 took {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the serving paths, by phase (K1: phases 4,
-    # 8, 9, 11, 13 and 16; K2: 4, 7, 8, 9, 10, 11, 12, 13 and 16; K3: 6);
+    # 8, 9, 11, 13, 16 and 17; K2: 4, 7, 8, 9, 10, 11, 12, 13, 16 and 17,
+    # phase 17's summed over the shard workers; K3: 6);
     # K4 is on no path, and the paths of phases 14 and 15 have no kernel
     runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
             7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
             9: phase_moe_paged, 10: phase_moe_dense, 11: phase_server,
             12: phase_hybrid_serving, 13: phase_vlm, 14: phase_whisper,
-            15: phase_training, 16: phase_orchestration}
+            15: phase_training, 16: phase_orchestration,
+            17: phase_tensor_parallel}
     by_phase = {name: {} for name in _launch_counters()}
     for n, phase in runs.items():
         if n in phases:
@@ -3749,7 +4117,7 @@ def main(argv=None) -> int:
                     by_phase[name][n] = count
             _free_card()
             log(f"[smoke] phase {n} took {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 17)) <= phases:
+    if not set(range(3, 18)) <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {

@@ -9,8 +9,9 @@ The counterpart of ``repro/checkpoint/manager.py``:
 * publishes are atomic (Gofer tmp+rename) and recorded in a manifest —
   a crash mid-save can never corrupt the latest restorable step,
 * ``restore`` / ``restore_latest`` move the tree onto ``device`` (the
-  reference's ``shardings=`` is a ``device_put`` onto a mesh; the port has
-  no mesh yet, so a restore targets one device),
+  reference's ``shardings=`` is a ``device_put`` onto a mesh, which waits
+  for training on a mesh, ROADMAP.md queue 1, item 9c: a restore targets
+  one device),
 * retention keeps the newest K checkpoints plus every multiple of
   ``keep_every``.
 """

@@ -3,8 +3,8 @@
 The counterpart of ``repro.launch.train``: the fault-tolerant trainer with
 SELF checkpoints on a synthetic LM stream, with the reference's flags plus
 ``--device`` (default ``cuda``; CUDA asked for and absent is an error,
-never a silent CPU run).  There is no mesh: the model trains on one device
-(sharding is ROADMAP.md queue 1, item 4e with 9c).  Weights are random, drawn on
+never a silent CPU run).  The model trains on one device (training on a
+mesh is ROADMAP.md queue 1, item 9c).  Weights are random, drawn on
 the device from ``torch.Generator(device).manual_seed(0)``.  Checkpoints go
 to ``--ckpt-dir`` (by default ``repro_torch_ckpt`` under the temporary
 directory); ``--resume`` restarts from the newest one.  The enc-dec model

@@ -1,9 +1,11 @@
 """Shared model config and primitive layers, in PyTorch.
 
 The counterpart of ``repro/models/common.py``: the same
-:class:`ArchConfig` and the same primitive functions on tensors.  There is
-no mesh in this slice of the port, so ``constrain`` and the mesh-context
-helpers are not ported.  Per-layer heterogeneity (local/global windows,
+:class:`ArchConfig` and the same primitive functions on tensors.  The
+GSPMD constraints (``constrain`` and the mesh-context helpers) are not
+ported: serving on a mesh runs shard-local modules
+(:mod:`repro_torch.launch.mesh`), and training on a mesh waits
+(ROADMAP.md queue 1, item 9c).  Per-layer heterogeneity (local/global windows,
 per-layer RoPE bases) is carried by ``(L,)`` numpy vectors exactly as in
 the reference.
 """

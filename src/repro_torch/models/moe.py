@@ -1,8 +1,9 @@
 """Mixture-of-Experts block, one device, in PyTorch.
 
 The counterpart of ``repro/models/moe.py`` on one device (its ``mesh is
-None`` branch): the expert-parallel ``shard_map`` branch waits for the
-port's mesh (ROADMAP.md queue 1, item 4e with 9c).  The token path follows the
+None`` branch): the expert-parallel ``shard_map`` branch waits for
+training on a mesh (ROADMAP.md queue 1, item 9c; serving TP replicates the
+experts on every rank).  The token path follows the
 reference's ``_dispatch_compute_combine`` step by step, split into four
 functions that :func:`moe_block` calls in turn:
 

@@ -34,6 +34,14 @@ in the reference.  Where the reference donated the pool to a jitted
 function and got a new one back, the port updates the pool in place and
 returns the same dict.
 
+Tensor-parallel serving (``ServingEngine(mesh=...)``), as the reference's
+hooks: ``tp_supported(n)``, ``tp_param_specs()`` (a spec per parameter
+name), ``tp_pool_specs(pool)`` and ``tp_local(n)``, the class and config
+of one rank's module (H/n q and K/n kv heads).  Each rank of the mesh runs
+that module over its heads, K1 and K2 at the local head counts, and the
+wo products are summed over the ranks (``maybe_psum``, the identity on
+one device) before the residual.
+
 Dense serving interface (``ServingEngine`` in dense mode, which gemma2/3
 need: the paged kernel has no window or softcap):
   ``init_decode_state(batch, max_seq)``      → state dict
@@ -55,6 +63,7 @@ activation checkpointing, as the reference's default ``remat="full"``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -62,6 +71,8 @@ import torch
 from torch import nn
 
 from ..kernels.paged_attention.ops import paged_attention
+from ..parallel.collectives import maybe_psum
+from ..parallel.sharding import P
 from .attention import (
     NEG_INF,
     attention_block,
@@ -235,6 +246,10 @@ class TransformerLM(nn.Module):
 
     def _attn_residual(self, h: torch.Tensor, a: torch.Tensor,
                        p: Dict[str, Any]) -> torch.Tensor:
+        # ``a`` is the attention's product with wo: under serving TP, wo is
+        # row-sharded and the ranks' partial products are summed here,
+        # before any post-norm sees them (the identity on one device)
+        a = maybe_psum(a)
         if self.cfg.post_norms:
             a = rms_norm(a, p["ln1_post"], self.cfg.norm_eps, plus_one=True)
         return h + a
@@ -593,3 +608,54 @@ class TransformerLM(nn.Module):
             h, _ = self._mlp_residual(self._attn_residual(h, o, p), p,
                                       lossless=True)
         return pool, self._final(h)
+
+    # ------------------------------------------ tensor-parallel serving
+    #
+    # TP shards the kv-head axis: each rank of a serving mesh holds H/n q
+    # heads, K/n kv heads, the matching rows of wo and the head slice of
+    # every physical page.  Q heads are KV-major (head h serves kv head
+    # h // G), so contiguous H/n chunks align to group boundaries exactly
+    # when K % n == 0; the only cross-rank operation per layer is the sum
+    # after wo (``_attn_residual``).
+
+    def tp_supported(self, n: int) -> bool:
+        """Whether paged serving can shard over an ``n``-way model axis."""
+        return (n >= 1 and self.supports_paged_decode
+                and self.cfg.num_kv_heads % n == 0
+                and self.cfg.num_heads % n == 0)
+
+    def tp_param_specs(self) -> Dict[str, P]:
+        """A spec per parameter, by its name in ``named_parameters()``.
+
+        q/k/v projections split on the head axis, wo on its rows (summed
+        by ``maybe_psum``); norms, MLP/MoE and embeddings replicated: a
+        decode batch is tiny, so the replicated FFN is cheaper than two
+        more collectives per layer."""
+        attn_rules = {
+            "wq": P(None, None, "model", None),
+            "wk": P(None, None, "model", None),
+            "wv": P(None, None, "model", None),
+            "wo": P(None, "model", None),
+            "bq": P(None, "model", None),
+            "bk": P(None, "model", None),
+            "bv": P(None, "model", None),
+        }
+        specs = {}
+        for name, t in self.named_parameters():
+            keys = name.split(".")
+            specs[name] = (attn_rules[keys[-1]]
+                           if "attn" in keys and keys[-1] in attn_rules
+                           else P(*([None] * t.dim())))
+        return specs
+
+    def tp_pool_specs(self, store) -> Dict[str, P]:
+        """Page pools (L, P, page, K, hd) split the kv-head axis."""
+        return {k: P(None, None, None, "model", None) for k in store}
+
+    def tp_local(self, n: int):
+        """(class, kwargs) of one rank's module: the same config with H/n
+        q and K/n kv heads (the head dim pinned)."""
+        cfg = self.cfg
+        return type(self), {"cfg": dataclasses.replace(
+            cfg, num_heads=cfg.num_heads // n,
+            num_kv_heads=cfg.num_kv_heads // n, head_dim=cfg.hd)}

@@ -3,7 +3,8 @@
 The reference's ``repro/runtime/replica.py`` over the port's engine and
 ``HeartbeatMonitor``.  A :class:`ReplicaSet` fronts N independent
 :class:`~repro_torch.runtime.serve_loop.ServingEngine` replicas, each a
-whole-device engine (``tp_shards`` 1: the port's engine has no mesh yet).
+whole-device engine or a tensor-parallel one on its own sub-mesh
+(``make_serving_mesh(tp, offset=i * tp)``: DP x TP).
 Engines may share one model: each holds only a reference to the weights
 and has its own KV pool.  One routing decision: a tenant is *sticky* to
 the first replica it lands on, so its requests share that replica's prefix

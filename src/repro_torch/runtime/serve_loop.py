@@ -40,8 +40,16 @@ request's ``error`` and never takes down the batch.  :class:`Server` is
 the production wrapper that owns that pool, the scheduler and the
 metrics, as in the reference.
 
-Not ported yet: a ``mesh`` (ROADMAP.md queue 1, item 4e) raises
-``NotImplementedError`` that names its item.
+Tensor-parallel serving (``mesh=``, a
+:class:`~repro_torch.launch.mesh.ServingMesh`): in paged mode, a model
+whose heads (or ``d``) divide the mesh is served by the mesh's shard
+workers, each holding its head slice of the weights and of every page
+(``tp_shards`` reports the width); the engine, the allocator, the sampler
+and the clock stay in this process, which sends the workers each step's
+host inputs and reads rank 0's logits.  As in the reference, dense mode
+ignores the mesh, a model that does not divide it is served dense
+(``auto``) or unsharded (``paged``), and either fallback is traced
+(``tp_fallback``).
 
 The model owns its weights (an ``nn.Module``), so the engine and
 ``Server`` take no ``params`` argument; the reference's jitted, donating
@@ -78,12 +86,6 @@ from repro_torch.core.telemetry import TelemetrySink, resolve_sink
 from repro_torch.runtime.sampling import sample_token
 
 __all__ = ["Request", "ServerConfig", "Server", "ServingEngine"]
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item {item})"
-    )
 
 
 @dataclass
@@ -184,8 +186,6 @@ class ServingEngine:
         postprocess_tenant: str = "serving",
         mesh=None,
     ) -> None:
-        if mesh is not None:
-            raise _unported("tensor-parallel serving (mesh)", "4e")
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -219,18 +219,38 @@ class ServingEngine:
         self.completed: List[Request] = []
         self._trace: Deque[str] = deque(maxlen=cfg.trace_limit or None)
 
-        self.kv_mode = self._resolve_kv_mode(model, cfg)
-        self.tp_shards = 1                 # no mesh in this slice
+        self.kv_mode = self._resolve_kv_mode(model, cfg, mesh)
+        self.mesh = mesh if (
+            self.kv_mode == "paged" and self._tp_fits(model, mesh)
+        ) else None
+        self.tp_shards = self.mesh.size if self.mesh is not None else 1
+        self.kv.tp_shards = self.tp_shards
+        if mesh is not None and self.mesh is None:
+            # mesh requested but unusable: dense mode runs on one device,
+            # paged mode (explicit, non-dividing model) runs unsharded —
+            # traced, as the reference traces the fallback
+            self._trace.append(
+                f"{self._exec.now():.6f} tp_fallback kv_mode={self.kv_mode}"
+            )
+        #: the model's paged interface: the model itself, or its shards on
+        #: the mesh's workers (which hold the weights' and every page's
+        #: head slices; the engine sends them host inputs only)
+        self._paged = model
+        self._input_device = self.device
         if self.kv_mode == "paged":
             if self.kv.pool_pages is None:
                 raise ValueError(
                     "kv_mode='paged' needs a PagedKVAllocator with a "
                     "bounded pool (pool_pages) to size the device pages"
                 )
+            if self.mesh is not None:
+                self._paged = self.mesh.bind(model)
+                self._input_device = torch.device("cpu")
             # the arena *is* the backing store: the physical page tensors
             # are bound to the allocator and every prefill/decode updates
-            # them in place, addressed by kv's page tables
-            self.kv.bind_store(model.init_paged_state(
+            # them in place, addressed by kv's page tables (under a mesh
+            # the store is a handle to the workers' pool shards)
+            self.kv.bind_store(self._paged.init_paged_state(
                 self.kv.pool_pages, self.kv.tokens_per_page))
             self._state = None
             self._sharing = (
@@ -299,9 +319,29 @@ class ServingEngine:
     # ------------------------------------------------------------- helpers
 
     @staticmethod
-    def _resolve_kv_mode(model, cfg: ServerConfig) -> str:
+    def _tp_fits(model, mesh) -> bool:
+        """Whether the model can tensor-parallel over this mesh: the TP
+        spec interface *and* exact divisibility (uneven head counts must
+        not silently mis-slice)."""
+        if mesh is None:
+            return False
+        return (
+            hasattr(model, "tp_supported")
+            and hasattr(model, "tp_param_specs")
+            and hasattr(model, "tp_pool_specs")
+            and bool(model.tp_supported(mesh.size))
+        )
+
+    @staticmethod
+    def _resolve_kv_mode(model, cfg: ServerConfig, mesh=None) -> str:
         supports = bool(getattr(model, "supports_paged_decode", False))
         if cfg.kv_mode == "auto":
+            if mesh is not None and supports and cfg.incremental \
+                    and not ServingEngine._tp_fits(model, mesh):
+                # a mesh was requested but the model's heads don't divide
+                # it: fall back to dense serving rather than mis-sharding
+                # the page pool
+                return "dense"
             return "paged" if (supports and cfg.incremental) else "dense"
         if cfg.kv_mode == "paged":
             if not supports:
@@ -364,7 +404,8 @@ class ServingEngine:
         )
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self._input_device)
 
     def _note(self, event: str, r: Optional[Request], detail: str = "") -> None:
         rid = r.request_id if r is not None else "-"
@@ -620,7 +661,7 @@ class ServingEngine:
         if self.kv.page_writable(seq_id, logical):
             return
         src, dst = self.kv.cow_page(seq_id, logical)
-        self.kv.swap_store(self.model.paged_copy_page(self.kv.store, src, dst))
+        self.kv.swap_store(self._paged.paged_copy_page(self.kv.store, src, dst))
         self._note("cow", None, f"seq={seq_id} page {src}->{dst}")
 
     def _prefill_slot_paged(self, slot: int, r: Request,
@@ -640,12 +681,12 @@ class ServingEngine:
             if start:
                 table = self._bucketed_table([seq_id])
         if start:
-            rows, _ = self.model.paged_prefill_at(
+            rows, _ = self._paged.paged_prefill_at(
                 self._tensor(seq[None, start:]), self.kv.store,
                 self._tensor(table), start,
             )
         else:
-            rows, _ = self.model.paged_prefill(self._tensor(seq[None, :]))
+            rows, _ = self._paged.paged_prefill(self._tensor(seq[None, :]))
         with self._lock:
             if self._slots[slot] is not r:
                 return                     # evicted mid-prefill: discard
@@ -667,7 +708,7 @@ class ServingEngine:
             page_ids, offsets = self.kv.token_positions(
                 seq_id, start, seq.size - start
             )
-            self.kv.swap_store(self.model.paged_write_prefill(
+            self.kv.swap_store(self._paged.paged_write_prefill(
                 self.kv.store, rows, page_ids, offsets,
             ))
             if self._sharing:
@@ -719,12 +760,12 @@ class ServingEngine:
             if p:
                 table = self._bucketed_table([seq_id])
         if p:
-            rows, _ = self.model.paged_prefill_at(
+            rows, _ = self._paged.paged_prefill_at(
                 self._tensor(seq[None, p:p + n]), self.kv.store,
                 self._tensor(table), p,
             )
         else:
-            rows, _ = self.model.paged_prefill(self._tensor(seq[None, :n]))
+            rows, _ = self._paged.paged_prefill(self._tensor(seq[None, :n]))
         with self._lock:
             if self._slots[slot] is not r:
                 return                     # evicted mid-chunk: discard
@@ -741,7 +782,7 @@ class ServingEngine:
                 # a shared prefix) triggers COW before the scatter
                 self._cow_locked(seq_id, lp)
             page_ids, offsets = self.kv.token_positions(seq_id, p, n)
-            self.kv.swap_store(self.model.paged_write_prefill(
+            self.kv.swap_store(self._paged.paged_write_prefill(
                 self.kv.store, rows, page_ids, offsets,
             ))
             if p + n >= seq.size:
@@ -888,7 +929,7 @@ class ServingEngine:
         for i, r in live:
             last[i] = r.tokens[-1] if r.tokens else int(r.prompt[-1])
         if paged:
-            store, logits = self.model.paged_decode_step(
+            store, logits = self._paged.paged_decode_step(
                 self.kv.store, self._tensor(last), self._tensor(table),
                 self._tensor(pos),
             )

@@ -9,8 +9,8 @@ through the reference's ``TaskState`` by value.
 :func:`check_port_replica_invariants` is ``check_replica_invariants``'s
 twin for the port's ``ReplicaSet``: the reference's checks (exactly-once
 completion, exact token counts, empty planes, page and slot ledgers per
-replica and per shard) plus the port's whole-device replicas
-(``tp_shards`` 1 on every engine).
+replica and per shard) plus each replica's ``tp_shards``: its mesh's size,
+or 1 for a whole-device engine.
 """
 
 from types import SimpleNamespace
@@ -83,5 +83,6 @@ def check_port_replica_invariants(replica_set, requests, *, ctx=""):
     """The reference's replica invariants, on the port's ``ReplicaSet``."""
     check_replica_invariants(replica_set, requests, ctx=ctx)
     shards = [p["tp_shards"] for p in replica_set.replica_stats()["per_replica"]]
-    assert shards == [1] * len(replica_set.replicas), (shards, ctx)
-    assert all(e.tp_shards == 1 for e in replica_set.replicas), ctx
+    want = [e.mesh.size if e.mesh is not None else 1
+            for e in replica_set.replicas]
+    assert shards == want, (shards, want, ctx)

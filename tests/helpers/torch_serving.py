@@ -16,10 +16,32 @@ from helpers.torch_toy import TorchToyLM
 
 from repro_torch.core.sim import SimExecutor
 from repro_torch.core.tasks import TenantQuota
+from repro_torch.launch.mesh import make_serving_mesh, simulate_host_devices
 from repro_torch.runtime import Request, ServerConfig, ServingEngine
 
-__all__ = ["assert_engines_match", "make_port_engine", "port_request",
-           "port_requests", "streams"]
+__all__ = ["assert_engines_match", "close_port_meshes", "make_port_engine",
+           "port_mesh", "port_request", "port_requests", "streams"]
+
+#: open serving meshes by (size, offset): a test module's engines share
+#: their workers, as the reference's engines share the simulated devices
+_MESHES = {}
+
+
+def port_mesh(n: int, offset: int = 0):
+    """The open mesh over host slots [offset, offset + n), made at its first
+    use (the reference's 4-device split: 4 slots)."""
+    mesh = _MESHES.get((n, offset))
+    if mesh is None or mesh.closed:
+        simulate_host_devices(4)
+        mesh = _MESHES[(n, offset)] = make_serving_mesh(n, offset=offset)
+    return mesh
+
+
+def close_port_meshes() -> None:
+    """End every mesh ``port_mesh`` made (a module's teardown)."""
+    for mesh in _MESHES.values():
+        mesh.close()
+    _MESHES.clear()
 
 
 def port_request(r) -> Request:
@@ -38,11 +60,14 @@ def port_requests(reqs):
 def make_port_engine(seed=None, *, max_batch=3, max_seq=48, step_time_s=0.01,
                      quotas=None, incremental=True, executor=None,
                      kv_mode="auto", prefix_sharing=True, prefix_cache_seqs=0,
-                     prefill_chunk_tokens=0, model=None):
+                     prefill_chunk_tokens=0, model=None, mesh_devices=0,
+                     mesh_offset=0):
     """``make_engine``'s port twin: the port's ``ServingEngine`` over
     ``TorchToyLM(paged=True)`` (so ``kv_mode="auto"`` resolves as for the
     reference's ``ToyLM``), same config, on a seeded ``SimExecutor``.
-    Reference ``TenantQuota`` objects are converted field by field."""
+    Reference ``TenantQuota`` objects are converted field by field.
+    ``mesh_devices`` > 0 serves it on the mesh of that many host slots
+    from ``mesh_offset`` (:func:`port_mesh`)."""
     if quotas is not None:
         quotas = {t: TenantQuota(**dataclasses.asdict(q))
                   for t, q in quotas.items()}
@@ -54,8 +79,9 @@ def make_port_engine(seed=None, *, max_batch=3, max_seq=48, step_time_s=0.01,
         prefill_chunk_tokens=prefill_chunk_tokens,
     )
     executor = executor or SimExecutor(seed=seed or 0)
+    mesh = port_mesh(mesh_devices, mesh_offset) if mesh_devices else None
     engine = ServingEngine(model or TorchToyLM(paged=True), cfg,
-                           executor=executor)
+                           executor=executor, mesh=mesh)
     return engine, executor
 
 

@@ -13,28 +13,58 @@ the reference's ``ToyLM``.  The logits are an int64 sum of products:
 exact, and equal to the reference's int32 ``h @ out`` (which never
 overflows), so the port's engine must replay the reference engine's token
 streams byte for byte.
+
+Tensor-parallel serving, as the reference's ``ToyLM``: the recurrence is
+elementwise in ``d``, so TP splits ``d`` (``emb`` and ``out`` on it, the
+pool's rows on their last axis), and the only cross-shard operation is the
+integer, hence exact, logits sum (``maybe_psum`` in ``_logits``).  A serving
+mesh's workers build this class, so the module imports no jax: the
+weights are the reference's formula, held equal to its ``init()`` by
+``tests/test_torch_sharded_serving.py``.
 """
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
-from helpers.serving import ToyLM
 
-__all__ = ["TorchToyLM"]
+from repro_torch.parallel.collectives import maybe_psum
+from repro_torch.parallel.sharding import P
+
+__all__ = ["TorchToyLM", "toy_weights"]
+
+
+@dataclass(frozen=True)
+class _ToyCfg:
+    vocab_size: int = 31
+    num_kv_heads: int = 1
+    hd: int = 4
+
+
+def toy_weights(d: int, vocab: int = 31):
+    """(emb (V, d) int32, out (d, V) int64): the reference's fixed
+    weights, no RNG."""
+    emb = (np.arange(vocab * d, dtype=np.int64).reshape(vocab, d)
+           * 2654435761) & 0x7FFF
+    out = (np.arange(d * vocab, dtype=np.int64).reshape(d, vocab)
+           * 40503) & 0x7
+    return emb.astype(np.int32), out
 
 
 class TorchToyLM:
-    MASK = ToyLM.MASK
+    MASK = 0x7FFFFF                        # 23-bit state: h @ out fits int32
 
     def __init__(self, d: int = 8, device="cpu", *, paged: bool = False) -> None:
-        ref = ToyLM(d)
-        self.cfg = ref.cfg
+        self.cfg = _ToyCfg()
         self.d = d
         self.device = torch.device(device)
         self.supports_paged_decode = paged
-        params = ref.init()
-        self.emb = torch.from_numpy(np.array(params["emb"])).to(self.device)
-        self.out = torch.from_numpy(
-            np.array(params["out"], np.int64)).to(self.device)
+        emb, out = toy_weights(d, self.cfg.vocab_size)
+        self.emb = torch.from_numpy(emb).to(self.device)
+        self.out = torch.from_numpy(out).to(self.device)
+
+    def named_parameters(self):
+        return iter([("emb", self.emb), ("out", self.out)])
 
     def init_decode_state(self, batch_size: int, max_seq: int, dtype=None,
                           device=None):
@@ -49,7 +79,7 @@ class TorchToyLM:
         return (5 * h + self.emb[tokens.long()]) & self.MASK
 
     def _logits(self, h):
-        return (h.long()[:, :, None] * self.out[None]).sum(dim=1)
+        return maybe_psum((h.long()[:, :, None] * self.out[None]).sum(dim=1))
 
     def _scan(self, h, tokens):
         """(final state, the state after each token (B, S, d))."""
@@ -133,3 +163,17 @@ class TorchToyLM:
         live = (write_page >= 0) & (logical < width)
         pool["h_pages"][write_page[live], (pos % page)[live]] = h[live]
         return pool, self._logits(h)
+
+    # ------------------------------------------- tensor-parallel serving
+
+    def tp_supported(self, n: int) -> bool:
+        return n >= 1 and self.d % n == 0
+
+    def tp_param_specs(self):
+        return {"emb": P(None, "model"), "out": P("model", None)}
+
+    def tp_pool_specs(self, store):
+        return {"h_pages": P(None, None, "model")}
+
+    def tp_local(self, n: int):
+        return TorchToyLM, {"d": self.d // n, "paged": True}

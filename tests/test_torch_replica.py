@@ -7,15 +7,15 @@ reaped by the heartbeat, the ``/metrics`` families), ``add_replica`` and
 ``retire_replica``, and the replica chaos plane of
 ``tests/test_serving_chaos.py`` (``mesh_chaos_run``, seeds 0..19 of its
 window) run on both packages with the same seeded workload and fault plan
-on a ``SimExecutor`` of the same seed.  Where the reference runs without a
-mesh, every replica's trace, the token streams, errors and latencies, and
-``replica_stats()`` must be equal byte for byte.  The reference runs 2-way
-tensor parallelism on every third chaos seed and in its DP x TP case; the
-port has no mesh yet and serves those with whole-device replicas, so
-there the streams and the ``replica_stats()`` totals are compared (the
-reference holds its TP streams equal to its no-mesh ones,
-``tests/test_sharded_serving.py``).  The port's sets hold the reference's
-replica invariants (``helpers/torch_invariants.py``) after every drain.
+on a ``SimExecutor`` of the same seed: every replica's trace, the token
+streams, errors and latencies, and ``replica_stats()`` must be equal byte
+for byte.  That includes 2-way tensor parallelism, which the reference
+runs on every third chaos seed and in its DP x TP case: there each port
+replica serves on its own 2-rank sub-mesh of shard workers (host slots
+0-1 and 2-3, as the reference's replicas take devices 0-1 and 2-3), with
+``tp_shards`` 2 on both sides, and no worker outlives the set's meshes.
+The port's sets hold the reference's replica invariants
+(``helpers/torch_invariants.py``) after every drain.
 """
 
 import random
@@ -25,7 +25,8 @@ import pytest
 from helpers.invariants import check_replica_invariants
 from helpers.serving import make_engine, make_requests
 from helpers.torch_invariants import check_port_replica_invariants
-from helpers.torch_serving import make_port_engine, port_requests, streams
+from helpers.torch_serving import (close_port_meshes, make_port_engine,
+                                   port_requests, streams)
 from test_serving_chaos import (MESH_CHAOS_SEED_COUNT, MESH_SEEDS, QUOTAS,
                                 REPLAY_STRIDE, mesh_chaos_run)
 
@@ -43,6 +44,12 @@ SIDES = {
     "ref": (JS, JF, JR, JM, make_engine, list),
     "port": (TS, TF, TR, TM, make_port_engine, port_requests),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _meshes():
+    yield
+    close_port_meshes()
 
 
 def _make_set(side, *, dp=2, tp=0, seed=3, heartbeat_timeout_s=0.05):
@@ -131,22 +138,29 @@ def test_replica_set_matches_single_engine():
     assert sum(p["completed"] for p in stats["per_replica"]) == 12
 
 
-def _totals(stats):
-    return {k: v for k, v in stats.items() if k != "per_replica"} | {
-        "completed": sum(p["completed"] for p in stats["per_replica"])}
-
-
 def test_replica_set_against_the_references_dp_times_tp():
-    """The reference's 2 replicas x 2-way TP on disjoint sub-meshes; the
-    port's whole-device replicas decode the same streams, with the same
-    set-level totals."""
-    ref_rs, ref_reqs = _run_set("ref", tp=2)
-    rs, reqs = _run_set("port")
-    assert _tokens(reqs) == _tokens(ref_reqs)
-    assert _totals(rs.replica_stats()) == _totals(ref_rs.replica_stats())
-    assert all(p["tp_shards"] == 2
-               for p in ref_rs.replica_stats()["per_replica"])
-    assert all(p["tp_shards"] == 1 for p in rs.replica_stats()["per_replica"])
+    """2 replicas x 2-way TP on disjoint sub-meshes, on both sides: traces,
+    streams and ``replica_stats()`` byte for byte, and the streams equal
+    the plain DP run's."""
+    base = _tokens(_run_set("port")[1])
+    rs, reqs = _paired(tp=2)
+    assert _tokens(reqs) == base
+    assert all(p["tp_shards"] == 2 for p in rs.replica_stats()["per_replica"])
+    meshes = [e.mesh for e in rs.replicas]
+    assert meshes[0] is not meshes[1]
+    assert not set(meshes[0].devices) & set(meshes[1].devices)
+
+
+def test_no_worker_outlives_the_sets_meshes():
+    """A DP x TP set under a silent mesh-member kill: closing its meshes
+    ends all four workers; a kill strands a replica, it ends no process."""
+    rs, _ = _run_set("port", {"kill_mesh_member_at_t": {0.03: [0]}}, tp=2)
+    assert rs.replicas[0].dead and rs.heartbeat_reaps == 1
+    procs = [p for e in rs.replicas for p in e.mesh.processes]
+    assert len(procs) == 4 and all(p.is_alive() for p in procs)
+    for e in rs.replicas:
+        e.mesh.close()
+    assert all(not p.is_alive() and p.exitcode is not None for p in procs)
 
 
 def test_kill_replica_rehomes_and_completes():
@@ -257,8 +271,8 @@ def test_replica_set_refusals_match_reference():
 
 def port_mesh_chaos_run(seed):
     """``mesh_chaos_run`` of ``tests/test_serving_chaos.py`` on the port:
-    the same draws in the same order, whole-device replicas on the seeds
-    where the reference runs 2-way TP."""
+    the same draws in the same order, each replica on its own 2-rank
+    sub-mesh on the seeds where the reference runs 2-way TP."""
     rng = random.Random(seed * 7451 + 13)
     sim = TS.SimExecutor(seed=seed)
     tp = 2 if seed % 3 == 0 else 0
@@ -266,7 +280,8 @@ def port_mesh_chaos_run(seed):
     for i in range(2):
         engine, _ = make_port_engine(
             executor=sim, max_batch=3, max_seq=48, step_time_s=0.01,
-            quotas=QUOTAS, kv_mode="paged", prefix_cache_seqs=2)
+            quotas=QUOTAS, kv_mode="paged", prefix_cache_seqs=2,
+            mesh_devices=tp, mesh_offset=i * tp)
         engines.append(engine)
     rs = TR.ReplicaSet(engines, heartbeat_timeout_s=0.05)
     reqs = port_requests(make_requests(
@@ -319,14 +334,10 @@ def test_mesh_chaos_seed_matches_reference(seed):
     ref = mesh_chaos_run(seed)
     port = port_mesh_chaos_run(seed)
     ctx = f"seed={seed}"
-    if seed % 3 == 0:
-        # the reference served this seed 2-way TP: streams and totals
-        assert [r[:3] for r in port[1]] == [r[:3] for r in ref[1]], ctx
-        assert port[2] == ref[2], ctx
-    else:
-        assert port[0] == ref[0], f"traces differ [{ctx}]"
-        assert port[1] == ref[1], f"results differ [{ctx}]"
-        assert port[2] == ref[2], f"counters differ [{ctx}]"
+    assert port[0] == ref[0], f"traces differ [{ctx}]"
+    assert port[1] == ref[1], f"results differ [{ctx}]"
+    assert port[2] == ref[2], f"counters differ [{ctx}]"
+    assert port[2]["tp_runs"] == int(seed % 3 == 0), ctx
 
 
 def test_mesh_chaos_window_exercised_both_fault_planes_and_replays():

@@ -175,10 +175,25 @@ def test_chaos_hooks_on_an_idle_engine(tiny_model, hook, idle):
 
 
 def test_unported_mesh_and_postprocess_raise(tiny_model):
-    """A mesh still raises (item 4e); ``Request.postprocess`` is ported:
-    the retired stream goes through it, here reversed."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tiny_model, ServerConfig(), mesh=object())
+    """Both are ported.  ``mesh=`` is accepted and resolves as the
+    reference's: this model's one kv head does not divide 2 ranks, so
+    ``auto`` serves it dense, traces ``tp_fallback`` and never starts the
+    mesh's workers.  ``Request.postprocess``: the retired stream goes
+    through it, here reversed."""
+    from repro.launch.mesh import make_serving_mesh as jax_mesh
+    from repro_torch.launch.mesh import make_serving_mesh
+
+    jax_model, params, _ = model_pair(fp32_config("qwen2.5-32b",
+                                                  num_layers=1))
+    mesh = make_serving_mesh(["cpu", "cpu"])
+    engine = ServingEngine(tiny_model, ServerConfig(), mesh=mesh)
+    ref = jax_loop.ServingEngine(jax_model, params, JaxServerConfig(),
+                                 mesh=jax_mesh(2))
+    assert (engine.kv_mode, engine.mesh, engine.tp_shards) == (
+        ref.kv_mode, ref.mesh, ref.tp_shards) == ("dense", None, 1)
+    assert [x.split(" ", 1)[1] for x in engine.trace()] == \
+        [x.split(" ", 1)[1] for x in ref.trace()] == ["tp_fallback kv_mode=dense"]
+    assert not mesh.processes
     streams = []
     for post in (None, lambda t: torch.flip(t, (0,))):
         engine = ServingEngine(tiny_model, ServerConfig(max_seq=32))
