@@ -179,7 +179,28 @@ prints no result line):
    as (b) (``[tp-replica]``); every mesh closed and no worker left
    (``[tp]``).  ``--phases 1,2,17`` runs it alone.
 
-With all seventeen, a summary follows: one ``{"kernels": [...]}`` line (each
+18. training on a mesh (``Trainer(mesh=)``: every rank a process of its
+   own, gloo ranks on ``cuda:0``, parameters and AdamW moments stored
+   split by the reference's rules; the training route, no kernel): (b)
+   gemma2-9b at its published widths, 4 of 42 layers, bf16, global batch
+   2 of 1024 tokens, 4 steps on (data=2, model=2) against one device on
+   the card, each rank's resident parameters and moments against a
+   quarter of the whole, its peak memory, the median step
+   (``[mesh-train-dense]``); (d) the 1-layer cut saved from that mesh
+   after 2 steps by rank 0, restored onto one device, whose next step
+   equals the mesh's (``[mesh-train-ckpt]``); (c) qwen3-moe-235b-a22b at
+   its published widths, 1 of 94 layers, bf16, expert-parallel on
+   (data=1, model=2): 64 experts a rank, the copies dropped past each
+   rank's capacity, finite losses, peak memory (``[mesh-train-moe]``); (a)
+   phase 15's small fp32 configs of gemma2, qwen3-moe, RWKV6 and hymba and
+   llama4-scout's reduced one, with a ragged loss mask, 3 steps on a 2 x 2
+   mesh on the card against the same mesh of CPU ranks (phase 15's
+   limits) and, for the dense ones, against one device on the card
+   (``[mesh-train-small]``); no rank left.  The ranks time-share one
+   card: step times check the path and are not a data-parallel speed.
+   ``--phases 1,2,18`` runs it alone.
+
+With all eighteen, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
 line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
 2, the kernels build at their first launch).  ``--src DIR`` imports
@@ -2720,12 +2741,12 @@ def _train(model, cfg, seq: int, steps: int, *, accum: int = 1,
 @contextlib.contextmanager
 def _first_update(hook):
     """``hook(gradient leaves)`` on the first AdamW update inside the block
-    (``Trainer`` calls it through ``runtime.train_loop``), before it runs:
+    (``Trainer`` calls it through ``launch.steps``), before it runs:
     the hook may read the gradients or overwrite entries of them."""
-    import repro_torch.runtime.train_loop as train_loop
+    import repro_torch.launch.steps as steps
     from repro_torch.tree import tree_leaves
 
-    real = train_loop.adamw_update
+    real = steps.adamw_update
     calls = [0]
 
     def update(grads, *args, **kwargs):
@@ -2734,11 +2755,11 @@ def _first_update(hook):
         calls[0] += 1
         return real(grads, *args, **kwargs)
 
-    train_loop.adamw_update = update
+    steps.adamw_update = update
     try:
         yield
     finally:
-        train_loop.adamw_update = real
+        steps.adamw_update = real
 
 
 def _align_flips(card_grads, flips):
@@ -2942,11 +2963,11 @@ def _train_ranges(model, spans: dict):
     ``train.backward`` and ``train.optimizer`` around the trainer's steps,
     and CUDA events on the stream before and after each, appended to
     ``spans[name]`` as (start, end) pairs."""
-    import repro_torch.runtime.train_loop as train_loop
+    import repro_torch.launch.steps as steps
     from torch.profiler import record_function
 
-    real = {"backward": train_loop.backward,
-            "adamw_update": train_loop.adamw_update}
+    real = {"backward": steps.backward,
+            "adamw_update": steps.adamw_update}
 
     def ranged(name, fn):
         def call(*args, **kwargs):
@@ -2961,14 +2982,14 @@ def _train_ranges(model, spans: dict):
         return call
 
     model.loss = ranged("forward", model.loss)
-    train_loop.backward = ranged("backward", real["backward"])
-    train_loop.adamw_update = ranged("optimizer", real["adamw_update"])
+    steps.backward = ranged("backward", real["backward"])
+    steps.adamw_update = ranged("optimizer", real["adamw_update"])
     try:
         yield
     finally:
         del model.loss
-        train_loop.backward = real["backward"]
-        train_loop.adamw_update = real["adamw_update"]
+        steps.backward = real["backward"]
+        steps.adamw_update = real["adamw_update"]
 
 
 def _train_full_width() -> dict:
@@ -2982,7 +3003,7 @@ def _train_full_width() -> dict:
     more step under the profiler (busy share, device time of its forward,
     backward and optimizer spans) and a blocking checkpoint save and
     restore of the parameters."""
-    import repro_torch.runtime.train_loop as train_loop
+    import repro_torch.launch.steps as steps
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, Loader, SyntheticLM
     from repro_torch.models.common import param_tree
@@ -3004,7 +3025,7 @@ def _train_full_width() -> dict:
     params = param_tree(model)
     opt = adamw_init(params)
     step_fn = trainer._step_fn
-    real_update = train_loop.adamw_update
+    real_update = steps.adamw_update
     times, first = [], {}
 
     def checked_update(grads, *args, **kwargs):
@@ -3035,11 +3056,11 @@ def _train_full_width() -> dict:
     for fn in counters.values():
         fn.launches = 0
     trainer._step_fn = timed_step
-    train_loop.adamw_update = checked_update
+    steps.adamw_update = checked_update
     try:
         params, opt = trainer.run(params, opt)
     finally:
-        train_loop.adamw_update = real_update
+        steps.adamw_update = real_update
         loader.stop()
     launches = {n: fn.launches for n, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -4056,6 +4077,634 @@ def phase_tensor_parallel() -> dict:
     return total
 
 
+# --------------------------------------------------------------- phase 18
+
+# every mesh here is gloo ranks on the one card (NCCL refuses two ranks on
+# one GPU), each rank a process this script starts and ends
+#: (a): phase 15's small fp32 configs (and llama4-scout's reduced one) on a
+#: 2 x 2 mesh, 3 steps
+MESH_SMALL_SHAPE, MESH_SMALL_STEPS = (2, 2), 3
+#: (b): gemma2-9b at its published widths, 4 of 42 layers (phase 16's train
+#: lane), bf16, global batch 2 of 1024 tokens, 4 steps on (data=2, model=2)
+MESH_DENSE_LAYERS, MESH_B, MESH_S, MESH_STEPS = 4, 2, 1024, 4
+#: (c): qwen3-moe-235b-a22b at its published widths, 1 of 94 layers (both
+#: ranks resident: ~7.5 GB of bf16 weights and ~30 GB of fp32 moments
+#: across them, ~28 GB a rank with the gathered weights and gradients),
+#: bf16, global batch 2 of 512 tokens, 3 steps on (data=1, model=2)
+MESH_MOE_LAYERS, MESH_MOE_B, MESH_MOE_S, MESH_MOE_STEPS = 1, 2, 512, 3
+#: (d): (b)'s model at 1 of 42 layers, 2 steps on (b)'s mesh, saved, then
+#: one more step on the mesh and on one device from the checkpoint.  Not
+#: (b)'s 4 layers: the SELF writer builds the image in host memory at
+#: ~4.2x the tree's bytes (a 1 GiB tree peaks at 4.2 GiB on the CPU), so
+#: (b)'s 17 GB of weights and moments would need ~70 GB of the host's
+MESH_CKPT_LAYERS, MESH_CKPT_STEPS = 1, 2
+#: (b) and (d): a mesh run's loss and gradient norm against one device's,
+#: relative, the largest over the steps.  bf16 rounds each rank's
+#: half-batch products where one device rounds the whole batch's, and
+#: AdamW's normalised steps carry rounding-level sign flips of the gradient
+#: into the weights.  Sound runs on the H100 read 0.00399 and 0.0123 in
+#: (b) (7.4e-8 and 4.9e-6 in (d)); a copy of src/ with the gradient
+#: reduction over the batch axes dropped reads 0.0168 and 0.306 in (b).
+#: The limits sit 2x and 2.4x above the sound readings, 2.1x and 10x
+#: below the broken ones
+MESH_LOSS_RTOL, MESH_GNORM_RTOL = 8e-3, 3e-2
+#: seconds a rank may take to report before the phase fails (a rank that
+#: dies is seen at once), and a collective's own timeout
+MESH_TIMEOUT_S, MESH_COLLECTIVE_S = 900, 300
+
+_SRC = str(ROOT / "src")
+
+
+def _mesh_rank(rank, n, port, src, job, args, out) -> None:
+    """One rank: joins the gloo group on the card, runs ``job(*args)`` and
+    sends its result or its traceback."""
+    import datetime
+    import traceback
+
+    sys.path.insert(0, src)
+    try:
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0)
+        torch.set_num_threads(2)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=n,
+            timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_S))
+        try:
+            result = job(*args)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, "ok", result))
+    except Exception:
+        out.put((rank, "err", traceback.format_exc()))
+
+
+def _run_mesh(job, n: int, *args) -> list:
+    """``job(*args)`` on ``n`` ranks: their results in rank order.  A rank
+    that raises or dies fails the phase; every rank is ended before this
+    returns."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank, name=f"repro-torch-rank-{r}",
+                         args=(r, n, port, _SRC, job, args, out), daemon=True)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    results, t0 = {}, time.perf_counter()
+    try:
+        while len(results) < n:
+            try:
+                rank, status, value = out.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and p.exitcode is not None]
+                if dead or time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    raise AssertionError(
+                        f"[mesh] ranks {dead or 'all'} of {job.__name__} "
+                        f"died or gave no result (exit codes "
+                        f"{[p.exitcode for p in procs]})") from None
+                continue
+            if status == "err":
+                raise AssertionError(f"[mesh] rank {rank} of {job.__name__} "
+                                     f"failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    return [results[r] for r in range(n)]
+
+
+class _RaggedLM:
+    """``SyntheticLM`` with a seeded ragged loss mask: each row keeps its
+    own share of the tokens, so the data shards' mask counts differ."""
+
+    def __init__(self, dc):
+        from repro_torch.data import SyntheticLM
+
+        self.base = SyntheticLM(dc)
+
+    def batch_at(self, step):
+        b = self.base.batch_at(step)
+        rng = np.random.default_rng(2000 + step)
+        B, S = b["tokens"].shape
+        keep = rng.random((B, 1)) * 0.8 + 0.1
+        b["loss_mask"] = (rng.random((B, S)) < keep).astype(np.float32)
+        return b
+
+
+def _mesh_trainer(model, mesh, steps, batch, seq, *, ragged=False,
+                  start=0, ckpt=None):
+    """A ``Trainer`` (on ``mesh`` if given) over seeded batches, peak lr
+    3e-3 after a 1-step warmup, and its loader."""
+    from repro_torch.data import DataConfig, Loader, SyntheticLM
+    from repro_torch.optim import ScheduleConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    dc = DataConfig(global_batch=batch, seq_len=seq,
+                    vocab_size=model.cfg.vocab_size)
+    data = _RaggedLM(dc) if ragged else SyntheticLM(dc)
+    loader = Loader(data, dc, start_step=start)
+    tr = Trainer(model, loader, TrainerConfig(
+        total_steps=steps, log_every=1, ckpt_every=10 ** 9,
+        schedule=ScheduleConfig(peak_lr=3e-3, warmup_steps=1,
+                                decay_steps=100)), ckpt=ckpt, mesh=mesh)
+    return tr, loader
+
+
+def _curve(tr) -> list:
+    return [(r["loss"], r["gnorm"]) for r in tr.metrics_log]
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _whole_bytes(tree, shardings) -> int:
+    """The bytes of the whole leaves whose shards are ``tree``."""
+    from repro_torch.tree import tree_leaves
+
+    return sum(int(np.prod(s.global_shape(tuple(t.shape)))) * t.element_size()
+               for t, s in zip(tree_leaves(tree), tree_leaves(shardings)))
+
+
+def _whole_numpy(tree, shardings) -> dict:
+    """Every leaf gathered whole (a collective), by path, on the host."""
+    from repro_torch.parallel.sharding import gather_leaf
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    return {"/".join(map(str, p)): gather_leaf(
+                "/".join(map(str, p)), t, s, whole=True).float().cpu().numpy()
+            for (p, t), s in zip(tree_flatten_with_path(tree),
+                                 tree_leaves(shardings))}
+
+
+def _timed(tr, times: list) -> None:
+    """Times each step of ``tr`` (synchronised) into ``times``."""
+    step_fn = tr._step_fn
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*a)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    tr._step_fn = timed
+
+
+def _zero_counters() -> dict:
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def _job_small(cells, states) -> dict:
+    """(a) in a rank: each cell on the 2 x 2 mesh on the card, then on the
+    CPU, from the same weights: curves, launches, and on rank 0 the
+    trained whole weights."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import param_tree
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.tree import tree_map
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        mesh = make_host_mesh(*MESH_SMALL_SHAPE, device=device)
+        for tag, cfg, seq in cells:
+            model = build_model(cfg, device=device)
+            model.load_state_dict(states[tag])
+            tr, loader = _mesh_trainer(model, mesh, MESH_SMALL_STEPS, 4, seq,
+                                       ragged=True)
+            params = tree_map(torch.clone, shard_tree(
+                param_tree(model), tr.shardings["params"]))
+            counters = _zero_counters()
+            mesh.staged_bytes = 0
+            params, _ = tr.run(params, adamw_init(params))
+            launches = {k: fn.launches for k, fn in counters.items()}
+            loader.stop()
+            whole = _whole_numpy(params, tr.shardings["params"])
+            out[f"{device}/{tag}"] = {
+                "curve": _curve(tr), "launches": launches,
+                "staged": mesh.staged_bytes,
+                "params": whole if mesh.rank == 0 else None}
+    return out
+
+
+def _job_dense(ckpt_dir: str) -> dict:
+    """(b) and (d) in a rank: gemma2-9b's 4-layer cut on (2, 2), then its
+    1-layer cut saved after 2 steps and stepped once more."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.gofer import Gofer
+    from repro_torch.data import DataConfig, Loader, SyntheticLM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+
+    mesh = make_host_mesh(2, 2, device="cuda")
+    cfg = dataclasses.replace(get_config("gemma2-9b"),
+                              num_layers=MESH_DENSE_LAYERS)
+    model = build_model(cfg, device="cuda")
+    tr, loader = _mesh_trainer(model, mesh, MESH_STEPS, MESH_B, MESH_S)
+    params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
+    sh = tr.shardings
+    out = {"p_bytes": _tree_bytes(params),
+           "m_bytes": _tree_bytes(opt["mu"]) + _tree_bytes(opt["nu"]),
+           "p_whole": _whole_bytes(params, sh["params"]),
+           "m_whole": 2 * _whole_bytes(opt["mu"], sh["opt"]["mu"])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times: list = []
+    _timed(tr, times)
+    counters = _zero_counters()
+    mesh.staged_bytes = 0
+    params, opt = tr.run(params, opt)
+    loader.stop()
+    out.update(curve=_curve(tr), times=times,
+               launches={k: fn.launches for k, fn in counters.items()},
+               staged=mesh.staged_bytes / MESH_STEPS,
+               peak=torch.cuda.max_memory_allocated())
+    del params, opt, tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d): the 1-layer cut, saved from the mesh after 2 steps
+    cfg = dataclasses.replace(cfg, num_layers=MESH_CKPT_LAYERS)
+    model = build_model(cfg, device="cuda")
+    ckpt = CheckpointManager(Gofer.for_root("ckpt", ckpt_dir, write=True))
+    tr, loader = _mesh_trainer(model, mesh, MESH_CKPT_STEPS, MESH_B, MESH_S,
+                               ckpt=ckpt)
+    params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
+    counters = _zero_counters()
+    t0 = time.perf_counter()
+    params, opt = tr.run(params, opt)         # the last step saves, blocking
+    loader.stop()
+    run_s = time.perf_counter() - t0
+    dc = DataConfig(global_batch=MESH_B, seq_len=MESH_S,
+                    vocab_size=cfg.vocab_size)
+    tr.loader = Loader(SyntheticLM(dc), dc, start_step=MESH_CKPT_STEPS)
+    tr.ckpt = None
+    tr.cfg.total_steps = MESH_CKPT_STEPS + 1
+    params, opt = tr.run(params, opt, start_step=MESH_CKPT_STEPS)
+    tr.loader.stop()
+    out["ckpt"] = {"curve": _curve(tr), "run_s": run_s,
+                   "launches": {k: fn.launches
+                                for k, fn in counters.items()},
+                   "save": ckpt.save_log[-1] if ckpt.save_log else None,
+                   "steps": ckpt.all_steps()}
+    return out
+
+
+def _job_moe() -> dict:
+    """(c) in a rank: qwen3-moe's 1-layer cut on (1, 2), expert-parallel:
+    its curve, its experts, the copies its routing dropped, its memory."""
+    import repro_torch.models.moe as moe
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+
+    mesh = make_host_mesh(1, 2, device="cuda")
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"),
+                              num_layers=MESH_MOE_LAYERS)
+    model = build_model(cfg, device="cuda")
+    tr, loader = _mesh_trainer(model, mesh, MESH_MOE_STEPS, MESH_MOE_B,
+                               MESH_MOE_S)
+    params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
+    out = {"experts": int(params["layers"]["moe"]["wg"].shape[1]),
+           "p_bytes": _tree_bytes(params),
+           "m_bytes": _tree_bytes(opt["mu"]) + _tree_bytes(opt["nu"]),
+           "p_whole": _whole_bytes(params, tr.shardings["params"])}
+    real, routed = moe.route, []
+
+    def spy(x, *a, **kw):
+        r = real(x, *a, **kw)
+        routed.append((int(r.keep.numel()), int((~r.keep).sum())))
+        return r
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times: list = []
+    _timed(tr, times)
+    counters = _zero_counters()
+    mesh.staged_bytes = 0
+    moe.route = spy
+    try:
+        params, opt = tr.run(params, opt)
+    finally:
+        moe.route = real
+        loader.stop()
+    out.update(curve=_curve(tr), times=times, routed=routed,
+               launches={k: fn.launches for k, fn in counters.items()},
+               staged=mesh.staged_bytes / MESH_MOE_STEPS,
+               peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _curve_drift(got, want) -> tuple:
+    """(max loss rel, max gnorm rel) over the steps of two curves."""
+    if len(got) != len(want):
+        raise AssertionError(f"curves of {len(got)} and {len(want)} steps")
+    return (max(_rel(g[0], w[0]) for g, w in zip(got, want)),
+            max(_rel(g[1], w[1]) for g, w in zip(got, want)))
+
+
+def _param_drift(got: dict, want: dict, start: dict) -> float:
+    """The largest leaf's |got - want| over |want - start| (relative L2)."""
+    worst = 0.0
+    for key, ref in want.items():
+        ref = ref.astype(np.float64)
+        moved = np.linalg.norm(ref - start[key])
+        worst = max(worst, np.linalg.norm(got[key] - ref) / max(moved, 1e-30))
+    return worst
+
+
+def _check_launches(tag: str, ranks) -> None:
+    bad = [(r, x) for r, x in enumerate(ranks) if any(x.values())]
+    if bad:
+        raise AssertionError(f"[{tag}] kernels launched on the training "
+                             f"route: {bad}")
+
+
+def _mesh_small_cells():
+    """(tag, config, seq): phase 15's gemma2, qwen3-moe, RWKV6 and hymba
+    cells, and llama4-scout's reduced config."""
+    from repro_torch.configs import get_reduced
+
+    cells = {tag: (tag, cfg, seq) for tag, cfg, seq in _train_cells()}
+    scout = dataclasses.replace(get_reduced("llama4-scout-17b-a16e"),
+                                dtype="float32")
+    return [cells["gemma2"], cells["qwen3-moe"],
+            ("llama4-scout", scout, 32), cells["rwkv6"], cells["hymba"]]
+
+
+def _mesh_small() -> None:
+    """(a) ``[mesh-train-small]``: the card's mesh against the CPU's mesh,
+    and for the dense families against one device on the card."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import param_tree
+    from repro_torch.optim import adamw_init
+
+    cells = _mesh_small_cells()
+    states = {tag: build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(31)).state_dict()
+        for tag, cfg, _ in cells}
+    t0 = time.perf_counter()
+    ranks = _run_mesh(_job_small, 4, cells, states)
+    mesh_s = time.perf_counter() - t0
+    l_tol, g_tol, u_tol = TRAIN_UNALIGNED_RTOLS
+    for tag, cfg, seq in cells:
+        card, cpu = ranks[0][f"cuda/{tag}"], ranks[0][f"cpu/{tag}"]
+        _check_launches(f"mesh-train-small {tag}",
+                        [r[f"cuda/{tag}"]["launches"] for r in ranks])
+        curves = [card["curve"]] + [cpu["curve"]]
+        if not np.isfinite(np.array(curves)).all():
+            raise AssertionError(f"[mesh-train-small] {tag}: {curves}")
+        start = {k.replace(".", "/"): v.double().numpy()
+                 for k, v in states[tag].items()}
+        pairs = {"cpu mesh": (cpu["curve"], cpu["params"])}
+        if not cfg.is_moe:
+            model = build_model(cfg, device="cuda")
+            model.load_state_dict(states[tag])
+            tr, loader = _mesh_trainer(model, None, MESH_SMALL_STEPS, 4, seq,
+                                       ragged=True)
+            params = param_tree(model)
+            params, _ = tr.run(params, adamw_init(params))
+            loader.stop()
+            pairs["card, one device"] = (_curve(tr), {
+                "/".join(k.split(".")): v.float().cpu().numpy()
+                for k, v in model.state_dict().items()})
+            del model, params, tr
+        reads = []
+        for what, (curve, params) in pairs.items():
+            loss, gnorm = _curve_drift(card["curve"], curve)
+            upd = _param_drift(card["params"], params, start)
+            first = _rel(card["curve"][0][0], curve[0][0])
+            reads.append(f"vs {what}: step-0 loss rel {first:.2g}, loss "
+                         f"max rel {loss:.2g}, gnorm max rel {gnorm:.2g}, "
+                         f"worst leaf update {upd:.2g}")
+            if not (first <= TRAIN_LOSS_RTOL0 and loss <= l_tol
+                    and gnorm <= g_tol and upd <= u_tol):
+                raise AssertionError(
+                    f"[mesh-train-small] {tag} on the card's 2 x 2 mesh "
+                    f"{reads[-1]} (limits {TRAIN_LOSS_RTOL0:g}, {l_tol:g}, "
+                    f"{g_tol:g}, {u_tol:g}); card {card['curve']}, other "
+                    f"{curve}")
+        log(f"[mesh-train-small] {tag} ({cfg.arch_id} at d_model "
+            f"{cfg.d_model}, {cfg.num_layers} layers, seq {seq}, fp32, "
+            f"ragged mask, 2 x 2 mesh of 4 gloo ranks on cuda:0, "
+            f"{MESH_SMALL_STEPS} steps): losses "
+            f"{[round(c[0], 6) for c in card['curve']]}; " + "; ".join(reads)
+            + f"; {card['staged'] / 1e6:.1f} MB staged through the host on "
+            "rank 0; launches 0 on every rank")
+    log(f"[mesh-train-small] {len(cells)} cells x (card, CPU) on 4 ranks in "
+        f"{mesh_s:.1f}s (limits: step-0 loss {TRAIN_LOSS_RTOL0:g}, then "
+        f"phase 15's card-against-CPU {l_tol:g} / {g_tol:g} / {u_tol:g})")
+
+
+def _one_device_dense(layers: int, steps: int, start: int = 0,
+                      state=None) -> list:
+    """gemma2-9b's ``layers``-layer cut trained on one device on the card
+    from seed 0 (or from ``state``, a restored {"params", "opt"} at
+    ``start``): its curve."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-9b"), num_layers=layers)
+    model = build_model(cfg, device="cuda")
+    tr, loader = _mesh_trainer(model, None, steps, MESH_B, MESH_S,
+                               start=start)
+    if state is None:
+        params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
+    else:
+        params, opt = state["params"], state["opt"]
+    times: list = []
+    _timed(tr, times)
+    tr.run(params, opt, start_step=start)
+    loader.stop()
+    return _curve(tr), times
+
+
+def _restore_one_device(ckpt_dir: str) -> tuple:
+    """(d) on one device: the mesh's checkpoint restored onto the card,
+    then its next step.  Returns (curve, restore seconds, GB)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.gofer import Gofer
+    from repro_torch.models import build_model
+    from repro_torch.models.common import param_tree
+
+    cfg = dataclasses.replace(get_config("gemma2-9b"),
+                              num_layers=MESH_CKPT_LAYERS)
+    shapes = param_tree(build_model(cfg, device="meta"))
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    like = {"params": shapes, "opt": {"mu": shapes, "nu": shapes,
+                                      "step": step}}
+    ckpt = CheckpointManager(Gofer.for_root("ckpt", ckpt_dir))
+    t0 = time.perf_counter()
+    got, tree, _ = ckpt.restore_latest(like, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if got != MESH_CKPT_STEPS:
+        raise AssertionError(f"[mesh-train-ckpt] restored step {got}")
+    gb = _tree_bytes(tree) / 1e9
+    curve, _ = _one_device_dense(MESH_CKPT_LAYERS, MESH_CKPT_STEPS + 1,
+                                 start=MESH_CKPT_STEPS, state=tree)
+    return curve, restore_s, gb
+
+
+def _mesh_dense() -> None:
+    """(b) ``[mesh-train-dense]`` and (d) ``[mesh-train-ckpt]``."""
+    import tempfile
+
+    want, one_times = _one_device_dense(MESH_DENSE_LAYERS, MESH_STEPS)
+    _free_card()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ranks = _run_mesh(_job_dense, 4, d)
+        mesh_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        _check_launches("mesh-train-dense", [r["launches"] for r in ranks])
+        loss, gnorm = _curve_drift(r0["curve"], want)
+        med = float(np.median(r0["times"][1:]))
+        tokens = MESH_B * MESH_S
+        log(f"[mesh-train-dense] gemma2-9b x{MESH_DENSE_LAYERS} layers bf16 "
+            f"on (data=2, model=2), 4 gloo ranks on cuda:0, B={MESH_B} "
+            f"S={MESH_S}, {MESH_STEPS} steps: losses "
+            f"{[round(c[0], 4) for c in r0['curve']]} against one device's "
+            f"{[round(c[0], 4) for c in want]}, gnorms "
+            f"{[round(c[1], 3) for c in r0['curve']]} against "
+            f"{[round(c[1], 3) for c in want]}: loss max rel {loss:.3g}, "
+            f"gnorm max rel {gnorm:.3g} (limits {MESH_LOSS_RTOL:g}, "
+            f"{MESH_GNORM_RTOL:g})")
+        for r, x in enumerate(ranks):
+            log(f"[mesh-train-dense] rank {r}: parameters "
+                f"{x['p_bytes'] / 1e9:.3f} GB of {x['p_whole'] / 1e9:.3f} "
+                f"({x['p_bytes'] / x['p_whole']:.3f}; 1/4 = 0.25), moments "
+                f"{x['m_bytes'] / 1e9:.3f} GB of {x['m_whole'] / 1e9:.3f} "
+                f"({x['m_bytes'] / x['m_whole']:.3f}); peak "
+                f"{x['peak'] / 1e9:.2f} GB; step times "
+                f"{[round(t, 3) for t in x['times']]} s; "
+                f"{x['staged'] / 1e9:.2f} GB a step staged through the host")
+        log(f"[mesh-train-dense] median step {med * 1e3:.1f} ms ({tokens / med:.0f} "
+            f"tokens/s, four ranks time-sharing one card: not a "
+            f"data-parallel speed) against one device's "
+            f"{np.median(one_times[1:]) * 1e3:.1f} ms; launches 0 on every "
+            f"rank; the spawn, init and run took {mesh_s:.1f}s")
+        if not (np.isfinite(np.array(r0["curve"])).all()
+                and loss <= MESH_LOSS_RTOL and gnorm <= MESH_GNORM_RTOL):
+            raise AssertionError(
+                f"[mesh-train-dense] the mesh's curve {r0['curve']} is off "
+                f"one device's {want}")
+        shares = [x["p_bytes"] / x["p_whole"] for x in ranks]
+        if max(shares) > 0.3:
+            raise AssertionError(f"[mesh-train-dense] ranks hold {shares} of "
+                                 "the parameters")
+
+        ck = r0["ckpt"]
+        _check_launches("mesh-train-ckpt", [r["ckpt"]["launches"]
+                                            for r in ranks])
+        if ck["steps"] != [MESH_CKPT_STEPS] or ck["save"] is None:
+            raise AssertionError(f"[mesh-train-ckpt] checkpoints "
+                                 f"{ck['steps']}, save {ck['save']}")
+        _free_card()
+        curve, restore_s, gb = _restore_one_device(d)
+    mesh_next, one_next = ck["curve"][-1], curve[-1]
+    loss, gnorm = _rel(one_next[0], mesh_next[0]), _rel(one_next[1],
+                                                          mesh_next[1])
+    log(f"[mesh-train-ckpt] gemma2-9b x{MESH_CKPT_LAYERS} layer bf16 on "
+        f"(2, 2): {MESH_CKPT_STEPS} steps, saved by rank 0 "
+        f"({ck['save']['bytes'] / 1e9:.2f} GB SELF image in "
+        f"{ck['save']['secs']:.1f}s), restored onto one device "
+        f"({gb:.2f} GB in {restore_s:.1f}s); step {MESH_CKPT_STEPS} on the "
+        f"mesh: loss {mesh_next[0]:.5f} gnorm {mesh_next[1]:.4f}, on one "
+        f"device from the checkpoint: loss {one_next[0]:.5f} gnorm "
+        f"{one_next[1]:.4f} (rel {loss:.3g} / {gnorm:.3g}, limits "
+        f"{MESH_LOSS_RTOL:g} / {MESH_GNORM_RTOL:g})")
+    if not (loss <= MESH_LOSS_RTOL and gnorm <= MESH_GNORM_RTOL):
+        raise AssertionError("[mesh-train-ckpt] the restored step is off the "
+                             "mesh's")
+
+
+def _mesh_moe() -> None:
+    """(c) ``[mesh-train-moe]``."""
+    from repro_torch.configs import get_config
+
+    E = get_config("qwen3-moe-235b-a22b").num_experts
+    t0 = time.perf_counter()
+    ranks = _run_mesh(_job_moe, 2)
+    mesh_s = time.perf_counter() - t0
+    _check_launches("mesh-train-moe", [r["launches"] for r in ranks])
+    curve = ranks[0]["curve"]
+    if not np.isfinite(np.array(curve)).all():
+        raise AssertionError(f"[mesh-train-moe] curve {curve}")
+    if [r["experts"] for r in ranks] != [E // 2] * 2:
+        raise AssertionError(f"[mesh-train-moe] experts a rank "
+                             f"{[r['experts'] for r in ranks]}")
+    for r, x in enumerate(ranks):
+        copies = sum(c for c, _ in x["routed"])
+        dropped = sum(d for _, d in x["routed"])
+        log(f"[mesh-train-moe] rank {r}: {x['experts']} of {E} experts; "
+            f"{len(x['routed'])} routings (forward and recompute) of "
+            f"{x['routed'][0][0]} copies each (its "
+            f"{MESH_MOE_B * MESH_MOE_S // 2} tokens x k), {dropped} of "
+            f"{copies} dropped past capacity ({100 * dropped / copies:.1f} "
+            f"%); parameters {x['p_bytes'] / 1e9:.2f} GB of "
+            f"{x['p_whole'] / 1e9:.2f}, moments {x['m_bytes'] / 1e9:.2f} "
+            f"GB; peak {x['peak'] / 1e9:.2f} GB; step times "
+            f"{[round(t, 3) for t in x['times']]} s; "
+            f"{x['staged'] / 1e9:.2f} GB a step staged through the host")
+    log(f"[mesh-train-moe] qwen3-moe-235b-a22b x{MESH_MOE_LAYERS} layer "
+        f"bf16 on (data=1, model=2), B={MESH_MOE_B} S={MESH_MOE_S}: losses "
+        f"{[round(c[0], 4) for c in curve]}, gnorms "
+        f"{[round(c[1], 3) for c in curve]}, finite; median step "
+        f"{np.median(ranks[0]['times'][1:]) * 1e3:.1f} ms (two ranks "
+        f"time-sharing one card: not an expert-parallel speed); launches 0 "
+        f"on both ranks; {mesh_s:.1f}s with the spawn and init")
+
+
+def phase_mesh_training() -> dict:
+    """Phase 18: training on a mesh of gloo ranks on the card — (b) dense
+    at full width against one device, (d) its checkpoint across mesh
+    shapes, (c) expert-parallel MoE at full width, (a) every family's
+    small config against the CPU's mesh.  Returns the launches (none)."""
+    import multiprocessing
+
+    _mesh_dense()
+    _free_card()
+    _mesh_moe()
+    _free_card()
+    _mesh_small()
+    left = [p.pid for p in multiprocessing.active_children()
+            if p.name.startswith("repro-torch-rank")]
+    if left:
+        raise AssertionError(f"[mesh] ranks left: {left}")
+    log("[mesh] every rank started here has ended")
+    return {name: 0 for name in _launch_counters()}
+
+
 def _free_card() -> None:
     """Frees what a serving phase left behind (its model and engine are
     garbage once it returns) and logs what stays allocated."""
@@ -4071,7 +4720,7 @@ def _free_card() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
@@ -4082,7 +4731,9 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(args.src).resolve()))
+    global _SRC
+    _SRC = str(Path(args.src).resolve())
+    sys.path.insert(0, _SRC)
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     log(f"[smoke] repro_torch from {Path(repro_torch.__file__).parent}")
@@ -4101,13 +4752,13 @@ def main(argv=None) -> int:
     # each kernel's launches on the serving paths, by phase (K1: phases 4,
     # 8, 9, 11, 13, 16 and 17; K2: 4, 7, 8, 9, 10, 11, 12, 13, 16 and 17,
     # phase 17's summed over the shard workers; K3: 6);
-    # K4 is on no path, and the paths of phases 14 and 15 have no kernel
+    # K4 is on no path, and the paths of phases 14, 15 and 18 have no kernel
     runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
             7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
             9: phase_moe_paged, 10: phase_moe_dense, 11: phase_server,
             12: phase_hybrid_serving, 13: phase_vlm, 14: phase_whisper,
             15: phase_training, 16: phase_orchestration,
-            17: phase_tensor_parallel}
+            17: phase_tensor_parallel, 18: phase_mesh_training}
     by_phase = {name: {} for name in _launch_counters()}
     for n, phase in runs.items():
         if n in phases:
@@ -4117,7 +4768,7 @@ def main(argv=None) -> int:
                     by_phase[name][n] = count
             _free_card()
             log(f"[smoke] phase {n} took {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 18)) <= phases:
+    if not set(range(3, 19)) <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {

@@ -8,10 +8,16 @@ The counterpart of ``repro/checkpoint/manager.py``:
   updates the parameters in place right after cannot reach the write,
 * publishes are atomic (Gofer tmp+rename) and recorded in a manifest —
   a crash mid-save can never corrupt the latest restorable step,
-* ``restore`` / ``restore_latest`` move the tree onto ``device`` (the
-  reference's ``shardings=`` is a ``device_put`` onto a mesh, which waits
-  for training on a mesh, ROADMAP.md queue 1, item 9c: a restore targets
-  one device),
+* ``restore`` / ``restore_latest`` move the tree onto ``device``, or with
+  ``shardings=`` (a tree of ``parallel.sharding.NamedSharding`` on a
+  training mesh, as the reference's ``device_put``) cut each leaf to this
+  rank's shard, on the mesh's device: a checkpoint saved on one mesh
+  shape restores onto another, or onto one device,
+* a save with ``shardings=`` is collective: every rank gathers each leaf
+  whole, rank 0 alone writes the image (byte-identical to a one-device
+  save of the same values) and keeps the retention, and the ranks meet at
+  a barrier once the write is done (at the save if blocking, else at the
+  next ``wait``), so every rank reads a finished file,
 * retention keeps the newest K checkpoints plus every multiple of
   ``keep_every``.
 """
@@ -27,11 +33,30 @@ import numpy as np
 import torch
 
 from repro_torch.core.gofer import Gofer
-from repro_torch.tree import tree_map
+from repro_torch.parallel.sharding import gather_leaf, shard_tree
+from repro_torch.tree import (
+    tree_flatten_with_path,
+    tree_leaves,
+    tree_map,
+    tree_unflatten_like,
+)
 
 from .ckpt import load_tree, records_to_tree, save_tree
 
 __all__ = ["CheckpointManager"]
+
+
+def _key(path) -> str:
+    return "/".join(map(str, path))
+
+
+def _mesh_of(shardings):
+    """The training mesh of a sharding tree (None without one, or for a
+    mesh of one rank)."""
+    if shardings is None:
+        return None
+    mesh = tree_leaves(shardings)[0].mesh
+    return mesh if mesh.size > 1 else None
 
 
 def _host_copy(leaf):
@@ -55,15 +80,35 @@ class CheckpointManager:
         self.keep_every = keep_every
         self._lock = threading.Lock()
         self._inflight: Optional[threading.Thread] = None
+        #: the mesh whose ranks meet once the write in flight is done
+        self._pending_mesh = None
         self.save_log: List[Dict[str, Any]] = []
 
     # ------------------------------------------------------------- saving
 
     def save(self, step: int, tree, *, extra: Optional[dict] = None,
-             blocking: bool = False) -> None:
-        """Snapshot to host memory synchronously, write asynchronously."""
-        host_tree = tree_map(_host_copy, tree)        # device → host copy now
+             blocking: bool = False, shardings=None) -> None:
+        """Snapshot to host memory synchronously, write asynchronously;
+        with ``shardings``, ``tree`` holds this rank's shards (every rank
+        calls this)."""
+        mesh = _mesh_of(shardings)
+        if mesh is None:
+            host_tree = tree_map(_host_copy, tree)    # device → host copy now
+        else:
+            # a leaf at a time, so no rank holds more than one whole leaf
+            # beyond its shards; rank 0 keeps the host copies
+            leaves = []
+            for (p, t), s in zip(tree_flatten_with_path(tree),
+                                 tree_leaves(shardings)):
+                t = gather_leaf(_key(p), t, s, whole=True)
+                leaves.append(None if mesh.rank else _host_copy(t))
+            host_tree = tree_unflatten_like(tree, leaves)
         self.wait()                                   # one save in flight max
+        if mesh is not None and mesh.rank:
+            self._pending_mesh = mesh
+            if blocking:
+                self.wait()
+            return
 
         def _write():
             t0 = time.time()
@@ -75,16 +120,23 @@ class CheckpointManager:
                 {"step": step, "bytes": len(blob), "secs": time.time() - t0}
             )
 
+        self._pending_mesh = mesh
         if blocking:
             _write()
+            self.wait()
         else:
             self._inflight = threading.Thread(target=_write, daemon=True)
             self._inflight.start()
 
     def wait(self) -> None:
+        """Until the save in flight is written (on a mesh: on rank 0, and
+        every rank has met the others)."""
         if self._inflight is not None:
             self._inflight.join()
             self._inflight = None
+        mesh, self._pending_mesh = self._pending_mesh, None
+        if mesh is not None:
+            mesh.barrier()
 
     def _publish(self, step: int) -> None:
         with self._lock:
@@ -118,19 +170,35 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like, *, device=None):
+    def restore(self, step: int, like, *, device=None, shardings=None):
         """The tree saved at ``step`` in ``like``'s structure, its leaves
-        CPU tensors or, with ``device``, tensors moved there."""
+        CPU tensors or, with ``device``, tensors moved there; with
+        ``shardings``, each leaf cut to this rank's shard (``like`` holds
+        shards, or anything of the structure) on the mesh's device."""
         blob = self.gofer.read_bytes(self.cap, f"step_{step:08d}.self")
         records, manifest = load_tree(blob)
-        tree = records_to_tree(records, like)
-        if device is not None:
-            tree = tree_map(lambda t: t.to(device), tree)
-        return tree, manifest
+        del blob
+        mesh = _mesh_of(shardings)
+        if mesh is None:
+            tree = records_to_tree(records, like)
+            if device is not None:
+                tree = tree_map(lambda t: t.to(device), tree)
+            return tree, manifest
+        keys = [_key(path) for path, _ in tree_flatten_with_path(shardings)]
+        missing = [k for k in keys if k not in records]
+        if missing:
+            raise KeyError(f"checkpoint missing tensors {missing[:4]}")
+        whole = tree_unflatten_like(shardings, [records.pop(k) for k in keys])
+        shards = tree_leaves(shard_tree(whole, shardings))
+        del whole
+        dev = mesh.device if device is None else device
+        local = {k: t.clone().to(dev) for k, t in zip(keys, shards)}
+        return records_to_tree(local, like), manifest
 
-    def restore_latest(self, like, *, device=None):
+    def restore_latest(self, like, *, device=None, shardings=None):
         step = self.latest_step()
         if step is None:
             return None
-        tree, manifest = self.restore(step, like, device=device)
+        tree, manifest = self.restore(step, like, device=device,
+                                      shardings=shardings)
         return step, tree, manifest

@@ -1,8 +1,25 @@
-"""Serving meshes: shard worker processes joined in one ``torch.distributed``
-group.
+"""Meshes: training meshes over the ``torch.distributed`` world, and serving
+meshes of shard worker processes joined in one group.
 
-The counterpart of ``repro/launch/mesh.py`` for tensor-parallel serving.
-The reference is single-controller: one process holds the engine, the
+The counterpart of ``repro/launch/mesh.py``.
+
+**Training** is SPMD: every rank of the world runs the trainer, as JAX's
+one program runs on every device.  :func:`make_host_mesh` lays the world
+out as a ``(data, model)`` :class:`TrainMesh` (a 2-D ``DeviceMesh`` with
+one process group per axis), and :func:`make_production_mesh` as the
+reference's pod, ``(data=16, model=16)``, or two pods, ``(pod=2, data=16,
+model=16)``, refusing any other world.  Under ``torchrun`` (a
+``WORLD_SIZE`` in the environment and no group yet) the mesh starts the
+group itself: NCCL where each rank has a GPU of its own, gloo otherwise
+(NCCL refuses two ranks on one GPU).  With no group and no ``torchrun``
+it is a 1 x 1 mesh of the one device, as the reference's mesh is built
+from the devices it sees.  The mesh's collectives (``all_gather``,
+``all_reduce``, ``reduce_scatter``, ``all_to_all``) are those the
+training step and the MoE block run over one axis's group; on a gloo
+group a CUDA tensor goes through host memory, and the bytes it moves
+there are counted in ``staged_bytes``.
+
+**Serving**: the reference is single-controller: one process holds the engine, the
 allocator, the sampler and the virtual clock, and ``shard_map`` sends only
 the model's step to N devices.  Here a :class:`ServingMesh` is N **shard
 worker processes** (started with ``spawn``, so no worker inherits a CUDA
@@ -37,14 +54,13 @@ devices) or CUDA devices listed explicitly, so that two ranks may share
 device (NCCL refuses two ranks on one GPU); NCCL where every rank has its
 own CUDA device.
 
-Training on a mesh (``make_production_mesh``, ``make_host_mesh``) is not
-ported yet (ROADMAP.md queue 1, item 9c).
 """
 
 from __future__ import annotations
 
 import datetime
 import itertools
+import math
 import multiprocessing as mp
 import os
 import shutil
@@ -61,13 +77,17 @@ import torch
 from torch import nn
 
 from ..parallel.collectives import bind_axis
-from ..parallel.sharding import gather_shards, serving_tp_shards
+from ..parallel.sharding import AbstractMesh, gather_shards, serving_tp_shards
 
-__all__ = ["MESH_AXES", "SERVING_AXIS", "MeshError", "MeshModel",
-           "ServingMesh", "host_devices", "make_serving_mesh",
+__all__ = ["MESH_AXES", "PRODUCTION_AXES", "SERVING_AXIS", "MeshError",
+           "MeshModel", "ServingMesh", "TrainMesh", "host_devices",
+           "make_host_mesh", "make_production_mesh", "make_serving_mesh",
            "simulate_host_devices"]
 
 MESH_AXES = ("data", "model")
+
+#: the multi-pod production mesh's axes (the pod is pure data parallelism)
+PRODUCTION_AXES = ("pod", "data", "model")
 
 #: the tensor-parallel axis sharded serving decodes over (1-D mesh)
 SERVING_AXIS = "model"
@@ -77,6 +97,220 @@ HOST_DEVICES_ENV = "REPRO_TORCH_HOST_DEVICES"
 
 #: seconds a collective may wait for its peers before it raises
 COLLECTIVE_TIMEOUT_S = 120
+
+
+# ------------------------------------------------------------ training
+
+
+class TrainMesh(AbstractMesh):
+    """A training mesh over the ``torch.distributed`` world: axis names and
+    sizes (row-major over the ranks, as ``DeviceMesh`` lays them out),
+    this rank's ``coords`` on each axis, its ``device``, and one process
+    group per axis.  Every rank calls each collective, in the same order.
+    """
+
+    def __init__(self, axis_sizes: Sequence[int], axis_names: Sequence[str],
+                 device, *, owns_group: bool = False) -> None:
+        import torch.distributed as dist
+
+        super().__init__(axis_sizes, axis_names)
+        self.device = torch.device(device)
+        live = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if live else 1
+        if world != self.size:
+            raise ValueError(f"a {self.shape} mesh needs {self.size} ranks; "
+                             f"the world has {world}")
+        self.rank = dist.get_rank() if live else 0
+        self.backend = dist.get_backend() if live else None
+        self.coords: Dict[str, int] = dict(zip(self.axis_names, map(
+            int, np.unravel_index(self.rank, tuple(self.shape.values())))))
+        self.staged_bytes = 0
+        self._owns_group = owns_group
+        self._groups: Dict[str, Any] = {}
+        self.device_mesh = None
+        if self.size > 1:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            self.device_mesh = DeviceMesh(
+                self.device.type,
+                np.arange(world).reshape(tuple(self.shape.values())),
+                mesh_dim_names=self.axis_names)
+            self._groups = {a: self.device_mesh.get_group(a)
+                            for a in self.axis_names}
+
+    def __repr__(self) -> str:
+        return (f"TrainMesh({self.shape}, rank {self.rank} at {self.coords}, "
+                f"{self.device}, {self.backend})")
+
+    def close(self) -> None:
+        """Ends the process group if this mesh started it."""
+        import torch.distributed as dist
+
+        if self._owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self._owns_group = False
+
+    # --------------------------------------------------- collectives
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` where the group can take it: host memory for a CUDA
+        tensor on gloo (counted)."""
+        if self.backend == "gloo" and t.is_cuda:
+            self.staged_bytes += t.numel() * t.element_size()
+            return t.cpu()
+        return t
+
+    def _back(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        if like.is_cuda and not t.is_cuda:
+            self.staged_bytes += t.numel() * t.element_size()
+            return t.to(like.device)
+        return t
+
+    def _group(self, axis: str):
+        return self._groups[axis]
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int
+                   ) -> torch.Tensor:
+        """The chunks of ``axis``'s ranks joined along ``dim``, rank
+        order."""
+        import torch.distributed as dist
+
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        x = self._out(t.contiguous())
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self._group(axis))
+        return self._back(torch.cat(parts, dim=dim), t)
+
+    def all_reduce(self, t: torch.Tensor, axes: Sequence[str]
+                   ) -> torch.Tensor:
+        """The sum of ``t`` over the ranks of ``axes``, in a new tensor."""
+        import torch.distributed as dist
+
+        axes = [a for a in axes if self.shape.get(a, 1) > 1]
+        if not axes:
+            return t.clone()
+        x = self._out(t)
+        x = x.clone() if x is t else x
+        x = x.contiguous()
+        for a in axes:
+            dist.all_reduce(x, group=self._group(a))
+        return self._back(x, t)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        """The sum of ``t`` over ``axis``'s ranks, this rank's chunk of it
+        along ``dim``."""
+        import torch.distributed as dist
+
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        x = self._out(t.movedim(dim, 0).contiguous())
+        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        # ``reduce_scatter_tensor`` is deprecated under this name in newer
+        # torch releases
+        scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+        scatter(out, x, group=self._group(axis))
+        return self._back(out, t).movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """``jax.lax.all_to_all(tiled=True)``: ``t`` cut into ``n`` chunks
+        along ``split_dim``, chunk j sent to rank j, and the chunks
+        received joined along ``concat_dim`` in rank order."""
+        import torch.distributed as dist
+
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        x = self._out(t.movedim(split_dim, 0).contiguous())
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self._group(axis))
+        out = torch.cat([b.movedim(0, split_dim) for b in out.chunk(n)],
+                        dim=concat_dim)
+        return self._back(out, t)
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+
+        if self.size > 1:
+            dist.barrier()
+
+
+def _train_device(device) -> torch.device:
+    """This rank's device: for CUDA, its local rank's card (modulo the
+    cards there are, so ranks may share one)."""
+    from ..models.common import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+    return dev
+
+
+def _join_world(dev: torch.device) -> bool:
+    """Starts the process group from ``torchrun``'s environment if there is
+    one and no group yet; True if it started it."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ["WORLD_SIZE"]))
+    own_cards = (dev.type == "cuda"
+                 and local_world <= torch.cuda.device_count())
+    dist.init_process_group(
+        "nccl" if own_cards else "gloo",
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    return True
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def make_host_mesh(data: Optional[int] = None, model: int = 1, *,
+                   device="cuda") -> TrainMesh:
+    """A ``(data, model)`` mesh over the world (``data`` = world / model by
+    default); 1 x 1 with no process group.  On ``device`` (CUDA unless
+    the caller asks for the CPU; CUDA asked for and absent raises)."""
+    dev = _train_device(device)
+    world = _world_size()
+    data = world // model if data is None else data
+    if data < 1 or data * model != world:
+        raise ValueError(f"a (data={data}, model={model}) mesh needs "
+                         f"{data * model} ranks; the world has {world}")
+    owns = _join_world(dev)
+    return TrainMesh((data, model), MESH_AXES, dev, owns_group=owns)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"
+                         ) -> TrainMesh:
+    """The reference's production mesh: one pod ``(data=16, model=16)`` or
+    two ``(pod=2, data=16, model=16)``; any other world raises."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = PRODUCTION_AXES if multi_pod else MESH_AXES
+    world = _world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"the production mesh {dict(zip(axes, shape))} "
+                         f"needs {math.prod(shape)} ranks; the world has "
+                         f"{world}")
+    dev = _train_device(device)
+    owns = _join_world(dev)
+    return TrainMesh(shape, axes, dev, owns_group=owns)
+
+
+# ------------------------------------------------------------- serving
 
 
 def simulate_host_devices(n: int = 4) -> None:

@@ -10,8 +10,9 @@ on every device.  Decode attention over the page pool lives in
 :meth:`repro_torch.models.transformer.TransformerLM.paged_decode_step`;
 decode over a dense (B, max_seq) cache is :func:`update_cache` and
 :func:`decode_attn`, plain PyTorch as the reference computed them in XLA
-(no TPU kernel).  The reference's ``layout`` knob (a sharding choice
-for training on a mesh, ROADMAP.md queue 1, item 9c) is not ported.  :func:`blockwise_attn` is the
+(no TPU kernel).  The reference's ``layout`` knob (the decode cache's
+sharding, which only its dry run sets: ROADMAP.md queue 1, item 11) is
+not ported.  :func:`blockwise_attn` is the
 reference's XLA online-softmax attention over KV chunks, in plain PyTorch:
 the enc-dec model's self- and cross-attention run through it, as they do
 in the reference (no TPU kernel computes it).

@@ -1,17 +1,26 @@
-"""Shared model config and primitive layers, in PyTorch.
+"""Shared model config, primitive layers and the mesh context, in PyTorch.
 
 The counterpart of ``repro/models/common.py``: the same
-:class:`ArchConfig` and the same primitive functions on tensors.  The
-GSPMD constraints (``constrain`` and the mesh-context helpers) are not
-ported: serving on a mesh runs shard-local modules
-(:mod:`repro_torch.launch.mesh`), and training on a mesh waits
-(ROADMAP.md queue 1, item 9c).  Per-layer heterogeneity (local/global windows,
-per-layer RoPE bases) is carried by ``(L,)`` numpy vectors exactly as in
-the reference.
+:class:`ArchConfig` and the same primitive functions on tensors.
+Per-layer heterogeneity (local/global windows, per-layer RoPE bases) is
+carried by ``(L,)`` numpy vectors exactly as in the reference.
+
+The mesh context is the reference's: :func:`mesh_context` binds a
+training mesh (``launch.mesh.TrainMesh``, or any object with ``.shape``)
+that :func:`current_mesh` and :func:`axis_size` read, and :func:`fit_spec`
+(defined beside the rules in ``parallel/sharding.py``) fits a spec to it.
+The mesh changes one model body: the MoE block's expert-parallel branch
+(``models/moe.py``).  The reference's ``constrain`` is not ported: under
+GSPMD it only lays values out, and here the ranks of a training mesh run
+the one-device arithmetic on gathered weights, so its 51 call sites would
+all be the identity.  Serving on a mesh runs shard-local modules instead
+(:mod:`repro_torch.launch.mesh`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -22,9 +31,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import fit_spec
+
 __all__ = [
     "ArchConfig",
+    "axis_size",
     "cross_entropy",
+    "current_mesh",
+    "fit_spec",
+    "mesh_context",
     "frozen",
     "resolve_device",
     "rms_norm",
@@ -146,6 +161,34 @@ class ArchConfig:
             total += self.encoder_layers * (4 * D * D + 2 * D * F_ + 2 * D)
             total += L * (D * (H * hd) + 2 * D * (K * hd) + (H * hd) * D + 2 * D)
         return int(total)
+
+
+# --------------------------------------------------------------------------
+# mesh context: the MoE block reads the training mesh without threading it
+# --------------------------------------------------------------------------
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh():
+    return _MESH.get()
+
+
+def axis_size(name: str) -> int:
+    mesh = _MESH.get()
+    if mesh is None:
+        return 1
+    return dict(mesh.shape).get(name, 1)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -319,10 +362,17 @@ def remat_call(fn: Callable, *args):
     """``fn(*args)``, under activation checkpointing when gradients are on
     (the reference's default ``remat="full"``, a ``jax.checkpoint`` of
     each layer): only the layer's inputs are kept, and its activations
-    are recomputed in the backward pass."""
-    if torch.is_grad_enabled():
+    are recomputed in the backward pass.  The recompute binds the mesh
+    bound here: on a CUDA device the backward runs on the autograd
+    engine's own thread, which does not see this thread's context
+    variables."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    mesh = current_mesh()
+    if mesh is None:
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), mesh_context(mesh)))
 
 
 def cross_entropy(logits: torch.Tensor, batch: Mapping[str, Any]

@@ -1,9 +1,7 @@
-"""Mixture-of-Experts block, one device, in PyTorch.
+"""Mixture-of-Experts block with expert-parallel all-to-all dispatch, in
+PyTorch.
 
-The counterpart of ``repro/models/moe.py`` on one device (its ``mesh is
-None`` branch): the expert-parallel ``shard_map`` branch waits for
-training on a mesh (ROADMAP.md queue 1, item 9c; serving TP replicates the
-experts on every rank).  The token path follows the
+The counterpart of ``repro/models/moe.py``.  The token path follows the
 reference's ``_dispatch_compute_combine`` step by step, split into four
 functions that :func:`moe_block` calls in turn:
 
@@ -23,7 +21,37 @@ A shared expert (llama4) runs densely on every token and is added after.
 The load-balance auxiliary loss is the Switch form ``E · Σ_e f_e · p_e``.
 Nothing here is a TPU kernel in the reference (it is XLA), so the products
 are ``torch.bmm``.  Decode reads every expert's weights, as the
-reference's layout does.
+reference's layout does; serving TP replicates the experts on every rank.
+
+**On a training mesh** (bound with ``mesh_context``, more than one rank)
+the block takes the reference's ``shard_map`` branch
+(``repro/models/moe.py:146-229``).  The batch arrives split over ``pod``
+and ``data`` by the trainer (``parallel.sharding.batch_rows``, the
+reference's rule: the axes whose product divides B), so ``x`` is this
+rank's rows, alike on the ``model`` ranks.  Then, as the reference:
+
+1. the sequence splits over ``model`` where ``S % model == 0`` (else each
+   model rank routes all of its rows);
+2. each rank routes its own tokens, capacity from its local T;
+3. ``all_to_all`` over ``model`` sends each expert's buffer to the rank
+   that holds it (split 0 / concat 1), and back after the FFN (split 1 /
+   concat 0), where ``E % model == 0``; else every rank holds every
+   expert and nothing is exchanged;
+4. the aux loss is averaged over the token axes.
+
+The expert weights arrive as this rank's ``E / model`` experts, whole in
+``F``: the reference's all-gather of their ``F`` shards over ``data``
+happens in the trainer, where every other leaf is gathered (its reduce-
+scatter is the trainer's gradient reduction; ``F % data != 0``, the
+reference's other fallback, leaves them replicated over ``data`` there).
+The backward passes are ``shard_map``'s transpose
+(``parallel.collectives``): the gradients of the router, of experts
+every rank holds whole and, without the sequence split, of ``x`` are
+summed over ``model``; the gathered output's
+gradient is cut to this rank's chunk; and without the split, where the
+model ranks compute the same tokens, the output's gradient is divided by
+``model``.  The returned aux is the mean over the token axes, alike on
+every rank; the output is whole, alike on the model ranks.
 """
 
 from __future__ import annotations
@@ -33,7 +61,15 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from .common import ArchConfig, _act, gated_mlp
+from ..parallel.collectives import (
+    all_to_all,
+    gather_over,
+    mean_over,
+    scale_grad,
+    split_over,
+    sum_grads_over,
+)
+from .common import ArchConfig, _act, current_mesh, gated_mlp
 
 __all__ = ["FP32_PARAMS", "moe_params_shape", "moe_block", "route",
            "dispatch", "expert_ffn", "combine"]
@@ -149,20 +185,80 @@ def _aux_loss(r: Routing) -> torch.Tensor:
     return E * torch.sum(f_e * p_e)
 
 
+def _routed(xt: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+            wu: torch.Tensor, wd: torch.Tensor, cfg: ArchConfig, *,
+            lossless: bool, exchange=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts on ``xt`` (T, D) → (out (T, D), aux); with
+    ``exchange`` (mesh, axis), each expert's buffer goes to the rank of
+    the axis that holds it and back."""
+    r = route(xt, router, cfg, lossless=lossless)
+    buf = dispatch(xt, r, cfg.num_experts)
+    if exchange is not None:
+        buf = all_to_all(buf, *exchange, 0, 1)         # (E/M, C·M, D)
+    y = expert_ffn(buf, wg, wu, wd, cfg.activation)
+    if exchange is not None:
+        y = all_to_all(y, *exchange, 1, 0)             # (E, C, D)
+    return combine(y, r, xt.shape[0]), _aux_loss(r)
+
+
+def _expert_parallel(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                     cfg: ArchConfig, mesh, *, lossless: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``shard_map`` branch on this rank's rows ``x`` (B,
+    S, D) of the batch."""
+    B, S, D = x.shape
+    E = cfg.num_experts
+    b_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    M = mesh.shape.get("model", 1)
+    s_axis = "model" if "model" in mesh.shape and S % M == 0 else None
+    token_axes = b_axes + ((s_axis,) if s_axis else ())
+    model_axis = "model" if "model" in mesh.shape and E % M == 0 else None
+    local_e = E // M if model_axis else E
+    if p["wg"].shape[0] != local_e:
+        raise ValueError(f"expert weights hold {p['wg'].shape[0]} experts; "
+                         f"this rank of a {mesh.shape} mesh holds {local_e}")
+    router, experts = p["router"], [p["wg"], p["wu"], p["wd"]]
+    if M > 1:
+        # weights every model rank holds whole: each rank's gradient is
+        # its own tokens' part
+        router = sum_grads_over(router, mesh, ("model",))
+        if not model_axis:
+            experts = [sum_grads_over(t, mesh, ("model",)) for t in experts]
+        x = split_over(x, mesh, "model", 1) if s_axis else \
+            sum_grads_over(x, mesh, ("model",))
+    bl, sl, _ = x.shape
+    out, aux = _routed(
+        x.reshape(bl * sl, D), router, *experts, cfg, lossless=lossless,
+        exchange=(mesh, model_axis) if model_axis and M > 1 else None)
+    out = out.reshape(bl, sl, D)
+    aux = mean_over(aux, mesh, token_axes)
+    if M > 1:
+        if s_axis:
+            out = gather_over(out, mesh, "model", 1)
+        else:
+            out, aux = scale_grad(out, M), scale_grad(aux, M)
+    return out, aux
+
+
 def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
               *, lossless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., D) → (out (..., D), aux loss scalar fp32).
 
     The leading dims flatten to the T tokens that share one capacity: the
     B·S rows of a prefill, the B lanes of a decode step.  ``lossless``
-    (decode) gives every copy a slot.
+    (decode) gives every copy a slot.  On a training mesh of more than one
+    rank, ``x`` is (B, S, D), this rank's rows, and the block is expert-
+    parallel (the module docstring).
     """
-    shape, D = x.shape, x.shape[-1]
-    xt = x.reshape(-1, D)
-    r = route(xt, p["router"], cfg, lossless=lossless)
-    buf = dispatch(xt, r, cfg.num_experts)
-    y = expert_ffn(buf, p["wg"], p["wu"], p["wd"], cfg.activation)
-    out = combine(y, r, xt.shape[0]).reshape(shape)
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        out, aux = _expert_parallel(x, p, cfg, mesh, lossless=lossless)
+    else:
+        shape, D = x.shape, x.shape[-1]
+        out, aux = _routed(x.reshape(-1, D), p["router"], p["wg"], p["wu"],
+                           p["wd"], cfg, lossless=lossless)
+        out = out.reshape(shape)
     if cfg.num_shared_experts:
         out = out + gated_mlp(x, p["swu"], p["swg"], p["swd"], cfg.activation)
-    return out, _aux_loss(r)
+    return out, aux

@@ -14,6 +14,12 @@ the layers are stacked, a per-layer vector is 2-D, and ``"/u"`` can never
 match a keystr, so RWKV's ``u``, ``w0``, ``mu_x`` and ``mu_rkvwg`` and the
 hybrid's ``A_log`` and ``D_skip`` decay, as they do in the reference.
 
+On a training mesh the update runs on each rank's shards: it is
+elementwise, and the decay mask reads only a leaf's path and rank.  The
+gradient norm is that of the whole gradient, :func:`sharded_global_norm`:
+each leaf's sum of squares over its shards, a leaf held alike by several
+ranks counted once, so clipping is the one-device clipping.
+
 ``adamw_update(..., inplace=True)`` writes the new parameters and moments
 into the given tensors (the trainer's counterpart of the reference's
 buffer donation), a chunk of each leaf at a time, so the update's fp32
@@ -23,7 +29,7 @@ temporaries stay small beside a full-width embedding.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -35,7 +41,8 @@ from repro_torch.tree import (
     tree_unflatten_like,
 )
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "clip_by_global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "clip_by_global_norm",
+           "sharded_global_norm"]
 
 #: elements of a leaf updated at once
 _CHUNK = 1 << 26
@@ -69,6 +76,33 @@ def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
 
 
+def sharded_global_norm(grads, shardings) -> torch.Tensor:
+    """The global norm of the gradient whose shards on this rank are
+    ``grads``, laid out by ``shardings`` (a tree of
+    ``parallel.sharding.NamedSharding`` on one training mesh).  Each
+    leaf's sum of squares comes from the ranks that hold its distinct
+    shards (the first rank of every axis it is not split over), one
+    all-reduce sums them, and the leaves add up in the reference's
+    order."""
+    leaves, shards = tree_leaves(grads), tree_leaves(shardings)
+    if len(leaves) != len(shards):
+        raise ValueError("grads and shardings differ in structure")
+    mesh = shards[0].mesh
+
+    def counted(s) -> bool:
+        split = {a for e in s.spec if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,))}
+        return all(mesh.coords[a] == 0 for a in mesh.axis_names
+                   if a not in split)
+
+    sq = torch.stack([
+        torch.sum(torch.square(g.float())) if counted(s)
+        else torch.zeros((), dtype=torch.float32, device=g.device)
+        for g, s in zip(leaves, shards)])
+    sq = mesh.all_reduce(sq, mesh.axis_names)
+    return torch.sqrt(sum(sq.unbind()))
+
+
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
@@ -91,11 +125,14 @@ def _decay_mask(params, no_decay: Tuple[str, ...]):
 @torch.no_grad()
 def adamw_update(
     grads, opt_state, params, lr, cfg: AdamWConfig = AdamWConfig(), *,
-    inplace: bool = False,
+    inplace: bool = False, gnorm: Optional[torch.Tensor] = None,
 ):
     """Returns (new_params, new_opt_state, gnorm); with ``inplace`` the new
-    parameters and moments are the given tensors, overwritten."""
-    gnorm = _global_norm(grads)
+    parameters and moments are the given tensors, overwritten.  ``gnorm``
+    is the gradient's global norm where the caller took it (over shards:
+    :func:`sharded_global_norm`), else it is taken from ``grads``."""
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     step = opt_state["step"] + 1
     t = step.to(torch.float32)

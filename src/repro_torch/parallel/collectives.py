@@ -1,4 +1,5 @@
-"""Collectives of tensor-parallel serving and compressed gradient reduction.
+"""Collectives of tensor-parallel serving, of the expert-parallel MoE
+block, and compressed gradient reduction.
 
 The counterpart of ``repro/parallel/collectives.py`` over
 ``torch.distributed``.  ``maybe_psum`` is the one cross-shard operation of
@@ -9,12 +10,28 @@ name with :func:`bind_axis` around each step, and a model body that calls
 over the group; with no group bound (one device, training, the tests) it
 is the identity, as the reference's is under plain ``jit``.
 
+The differentiable collectives of the MoE block's expert-parallel branch
+(``models/moe.py``) run over one axis of a training mesh
+(``launch.mesh.TrainMesh``).  Their backward passes are those of
+``shard_map``'s transpose, for values that the ranks of the axis hold
+alike (every layer outside the block computes the same thing on each of
+them): :func:`split_over` takes this rank's chunk and gathers the chunks'
+gradients; :func:`gather_over` gathers the chunks and takes this rank's
+chunk of the gradient (a sum there would count the gradient once per
+rank); :func:`sum_grads_over` is the identity whose gradient is summed
+over the axis (a weight each rank applied to its own tokens);
+:func:`mean_over` averages a value over the axes, and :func:`scale_grad`
+divides the gradient of a value each rank computed whole; :func:`all_to_all`
+is ``jax.lax.all_to_all(tiled=True)``, its own transpose with the two
+dimensions swapped.
+
 ``compressed_psum`` is the int8 all-reduce for the bandwidth-starved hop:
 every member all-gathers the per-block int8 payloads and scales and sums
 the dequantized blocks itself.  ``ErrorFeedback`` carries the quantization
 residual into the next step's gradient.  ``compressed_grad_tree`` applies
-it over one named dimension of a ``DeviceMesh``; training on a mesh, which
-would call it, is not ported yet (ROADMAP.md queue 1, item 9c).
+it over one named dimension of a ``DeviceMesh``.  As in the reference,
+nothing calls it: the reference's trainer reduces gradients at full
+precision.
 """
 
 from __future__ import annotations
@@ -28,9 +45,10 @@ import torch.distributed as dist
 
 from ..tree import tree_leaves, tree_map, tree_unflatten_like
 
-__all__ = ["BLOCK", "ErrorFeedback", "bind_axis", "bound_group",
-           "compressed_grad_tree", "compressed_psum", "dequantize_int8",
-           "maybe_psum", "quantize_int8"]
+__all__ = ["BLOCK", "ErrorFeedback", "all_to_all", "bind_axis",
+           "bound_group", "compressed_grad_tree", "compressed_psum",
+           "dequantize_int8", "gather_over", "maybe_psum", "mean_over",
+           "quantize_int8", "scale_grad", "split_over", "sum_grads_over"]
 
 BLOCK = 256
 
@@ -71,6 +89,126 @@ def maybe_psum(x: torch.Tensor, axis_name: str = "model") -> torch.Tensor:
     out = x.contiguous().clone()
     dist.all_reduce(out, group=group)
     return out
+
+
+# ------------------------------------------ expert-parallel collectives
+
+
+def _chunk_of(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    n = mesh.shape[axis]
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.coords[axis] * size, size)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _chunk_of(x, mesh, axis, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return mesh.all_gather(g, axis, dim), None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return _chunk_of(g, mesh, axis, dim).contiguous(), None, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return mesh.all_reduce(g, axes), None, None
+
+
+class _Mean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        n = 1
+        for a in axes:
+            n *= mesh.shape[a]
+        ctx.n = n
+        return mesh.all_reduce(x, axes) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return mesh.all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return (mesh.all_to_all(g.contiguous(), axis, concat_dim, split_dim),
+                None, None, None, None)
+
+
+def split_over(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``dim`` (``x`` alike on the ranks
+    of ``axis``); the backward all-gathers the chunks' gradients."""
+    return _Split.apply(x, mesh, axis, dim)
+
+
+def gather_over(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' chunks joined along ``dim``; the backward keeps this
+    rank's chunk of the gradient."""
+    return _Gather.apply(x, mesh, axis, dim)
+
+
+def sum_grads_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x``, with its gradient summed over the ranks of ``axes``."""
+    return _SumGrads.apply(x, mesh, tuple(axes))
+
+
+def mean_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``axes`` (``jax.lax.pmean``)."""
+    return _Mean.apply(x, mesh, tuple(axes))
+
+
+def scale_grad(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x``, with its gradient divided by ``n``."""
+    return _ScaleGrad.apply(x, n)
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``,
+    differentiable."""
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+# ------------------------------------------------ compressed reduction
 
 
 def quantize_int8(x: torch.Tensor, block: int = BLOCK):

@@ -17,6 +17,21 @@ the learning rate at the optimizer's step before it increments, as the
 reference's does.  Batches arrive as numpy arrays and move to the model's
 device.
 
+**On a training mesh** (``Trainer(..., mesh=)``, a ``launch.mesh.TrainMesh``
+of more than one rank) every rank runs the trainer (SPMD).  The
+parameters and AdamW moments are stored split by the reference's rules
+(``parallel.sharding.param_shardings(mode="train")``): ``init_state``
+draws the one-device initialisation from the same seed, keeps this rank's
+shard of each leaf and frees the module's weights (its parameters move to
+``meta``; the loss reads only the tree it is given).  The step is
+``launch.steps.make_train_step``'s: it gathers the leaves, runs the loss
+on this rank's rows, reduces the gradients over the batch axes and
+updates the local shards.  Checkpoints are saved from the gathered
+leaves by rank 0 and restored onto the mesh by slicing
+(``CheckpointManager(..., shardings=)``), so a checkpoint moves between
+mesh shapes and to one device.  The global batch must split over the
+batch axes (after ``accum_steps``).  A mesh of one rank is one device.
+
 Recovery is the reference's: a :class:`WorkerFailure` restores the latest
 checkpoint (its leaves moved to the model's device) and resumes the loop
 at the checkpoint's step with the loader's next batch, or, before the
@@ -35,13 +50,13 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.launch.steps import backward, make_train_step
 from repro_torch.models.common import param_tree
-from repro_torch.optim import (
-    AdamWConfig,
-    ScheduleConfig,
-    adamw_init,
-    adamw_update,
-    lr_at,
+from repro_torch.optim import AdamWConfig, ScheduleConfig, adamw_init
+from repro_torch.parallel.sharding import (
+    opt_state_shardings,
+    param_shardings,
+    shard_tree,
 )
 from repro_torch.runtime.fault import (
     FailureInjector,
@@ -49,7 +64,7 @@ from repro_torch.runtime.fault import (
     StragglerDetector,
     WorkerFailure,
 )
-from repro_torch.tree import tree_leaves, tree_unflatten_like
+from repro_torch.tree import tree_map
 
 __all__ = ["TrainerConfig", "Trainer", "TrainStepper", "backward"]
 
@@ -64,15 +79,6 @@ class TrainerConfig:
     opt: AdamWConfig = field(default_factory=AdamWConfig)
 
 
-def backward(loss: torch.Tensor, leaves: List[torch.Tensor]
-             ) -> List[torch.Tensor]:
-    """d loss / d leaves; a leaf the loss does not reach gets zeros, as
-    ``jax.grad`` gives it."""
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(t) if g is None else g
-            for t, g in zip(leaves, grads)]
-
-
 class Trainer:
     """Runs ``model.loss`` and AdamW over ``loader``'s batches.
 
@@ -81,7 +87,8 @@ class Trainer:
     place, where the reference donated the buffers to its jitted step, so
     the caller's tensors hold the new state afterwards.  ``donate=False``
     leaves them as they were and returns new ones.  There is no
-    ``torch.compile``: the step runs eagerly.
+    ``torch.compile``: the step runs eagerly.  ``mesh``: a training mesh
+    (the module docstring).
     """
 
     def __init__(
@@ -95,6 +102,7 @@ class Trainer:
         stragglers: Optional[StragglerDetector] = None,
         injector: Optional[FailureInjector] = None,
         donate: bool = True,
+        mesh=None,
     ) -> None:
         self.model = model
         self.loader = loader
@@ -103,7 +111,25 @@ class Trainer:
         self.monitor = monitor
         self.stragglers = stragglers
         self.injector = injector
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = model.device
+        #: ``{"params": ..., "opt": ...}`` NamedSharding trees on the mesh
+        self.shardings = None
+        if self.mesh is not None:
+            if (self.device.type, self.device.index or 0) != (
+                    self.mesh.device.type, self.mesh.device.index or 0):
+                raise ValueError(f"the model is on {self.device}, this "
+                                 f"rank's mesh device {self.mesh.device}")
+            shapes = param_tree(model)
+            # as the reference's dry run lays out its training cells
+            hd_div = model.cfg.num_heads % self.mesh.shape.get("model", 1) == 0
+            step = torch.empty((), dtype=torch.int32, device="meta")
+            self.shardings = {
+                "params": param_shardings(shapes, self.mesh,
+                                          heads_divisible=hd_div),
+                "opt": opt_state_shardings(
+                    {"mu": shapes, "nu": shapes, "step": step}, self.mesh,
+                    heads_divisible=hd_div)}
         self.metrics_log: List[Dict[str, float]] = []
         self.restarts = 0
         self._step_fn = self._build_step(donate)
@@ -111,49 +137,11 @@ class Trainer:
     # ------------------------------------------------------------- step fn
 
     def _build_step(self, donate: bool) -> Callable:
-        cfg = self.cfg
-        model = self.model
-
-        def single(params, batch):
-            leaves = [t.detach().requires_grad_(True)
-                      for t in tree_leaves(params)]
-            with torch.enable_grad():
-                loss, metrics = model.loss(
-                    tree_unflatten_like(params, leaves), batch)
-                grads = backward(loss, leaves)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-            return loss.detach(), metrics, grads
-
-        def step(params, opt_state, batch):
-            if cfg.accum_steps > 1:
-                n = cfg.accum_steps
-                acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
-                       for p in tree_leaves(params)]
-                loss_sum = 0.0
-                for i in range(n):
-                    mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                          for k, v in batch.items()}
-                    loss, metrics, grads = single(params, mb)
-                    for a, g in zip(acc, grads):
-                        a.add_(g)
-                    del grads
-                    loss_sum = loss_sum + loss
-                grads = [a / n for a in acc]
-                loss = loss_sum / n
-            else:
-                loss, metrics, grads = single(params, batch)
-            grads = tree_unflatten_like(params, grads)
-
-            lr = lr_at(opt_state["step"], cfg.schedule)
-            params, opt_state, gnorm = adamw_update(
-                grads, opt_state, params, lr, cfg.opt, inplace=donate
-            )
-            metrics = dict(metrics)
-            metrics.update(loss=loss, gnorm=gnorm, lr=lr)
-            return params, opt_state, metrics
-
-        return step
+        return make_train_step(
+            self.model, self.cfg.schedule, self.cfg.opt,
+            accum_steps=self.cfg.accum_steps, donate=donate,
+            shardings=None if self.mesh is None
+            else self.shardings["params"])
 
     def _on_device(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device)
@@ -164,12 +152,25 @@ class Trainer:
     def init_state(self, rng):
         """(params, optimizer state) from ``model.init``: ``rng`` is a
         seed or a ``torch.Generator`` on the model's device.  The params
-        are views of the module's weights (:func:`param_tree`)."""
+        are views of the module's weights (:func:`param_tree`); on a mesh,
+        this rank's shards of them, and the module's weights are freed."""
         if not isinstance(rng, torch.Generator):
             rng = torch.Generator(self.device).manual_seed(int(rng))
-        self.model.init(rng)
-        params = param_tree(self.model)
+        model = self.model
+        if self.mesh is not None and any(t.is_meta
+                                         for t in model.parameters()):
+            model.to_empty(device=self.device)      # freed by an earlier call
+        model.init(rng)
+        params = param_tree(model)
+        if self.mesh is not None:
+            params = tree_map(torch.clone,
+                              shard_tree(params, self.shardings["params"]))
+            model.to_empty(device="meta")
         return params, adamw_init(params)
+
+    def _save(self, step: int, params, opt_state, **kw) -> None:
+        self.ckpt.save(step, {"params": params, "opt": opt_state},
+                       shardings=self.shardings, **kw)
 
     def run(self, params, opt_state, *, start_step: int = 0):
         step = start_step
@@ -197,11 +198,10 @@ class Trainer:
                 row.update(step=step, secs=dt)
                 self.metrics_log.append(row)
             if self.ckpt is not None and step and step % self.cfg.ckpt_every == 0:
-                self.ckpt.save(step, {"params": params, "opt": opt_state})
+                self._save(step, params, opt_state)
             step += 1
         if self.ckpt is not None:
-            self.ckpt.save(step, {"params": params, "opt": opt_state},
-                           blocking=True)
+            self._save(step, params, opt_state, blocking=True)
         return params, opt_state
 
     # ------------------------------------------------------------ stepping
@@ -232,8 +232,8 @@ class Trainer:
             raise failure
         self.ckpt.wait()
         restored = self.ckpt.restore_latest(
-            {"params": params, "opt": opt_state}, device=self.device
-        )
+            {"params": params, "opt": opt_state}, device=self.device,
+            shardings=self.shardings)
         if restored is None:
             # failure before the first checkpoint: restart from scratch
             # (what a production job does on step-0 loss), deterministic
@@ -304,10 +304,8 @@ class TrainStepper:
             tr.metrics_log.append(row)
         if (tr.ckpt is not None and self.step
                 and self.step % tr.cfg.ckpt_every == 0):
-            tr.ckpt.save(self.step, {"params": self.params,
-                                     "opt": self.opt_state})
+            tr._save(self.step, self.params, self.opt_state)
         self.step += 1
         if tr.ckpt is not None and self.done():
-            tr.ckpt.save(self.step, {"params": self.params,
-                                     "opt": self.opt_state}, blocking=True)
+            tr._save(self.step, self.params, self.opt_state, blocking=True)
         return row
