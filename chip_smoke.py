@@ -183,12 +183,14 @@ prints no result line):
    own, gloo ranks on ``cuda:0``, parameters and AdamW moments stored
    split by the reference's rules; the training route, no kernel): (b)
    gemma2-9b at its published widths, 4 of 42 layers, bf16, global batch
-   2 of 1024 tokens, 4 steps on (data=2, model=2) against one device on
+   2 of 1024 tokens, 3 steps on (data=2, model=2) against one device on
    the card, each rank's resident parameters and moments against a
    quarter of the whole, its peak memory, the median step
    (``[mesh-train-dense]``); (d) the 1-layer cut saved from that mesh
-   after 2 steps by rank 0, restored onto one device, whose next step
-   equals the mesh's (``[mesh-train-ckpt]``); (c) qwen3-moe-235b-a22b at
+   after 1 step by rank 0 and restored onto one device: each rank's
+   shard of the restored parameters, moments and step count equal to the
+   rank's at the save (digests), and the next 2 steps on one device
+   equal to the mesh's (``[mesh-train-ckpt]``); (c) qwen3-moe-235b-a22b at
    its published widths, 1 of 94 layers, bf16, expert-parallel on
    (data=1, model=2): 64 experts a rank, the copies dropped past each
    rank's capacity, finite losses, peak memory (``[mesh-train-moe]``); (a)
@@ -4085,29 +4087,39 @@ def phase_tensor_parallel() -> dict:
 #: 2 x 2 mesh, 3 steps
 MESH_SMALL_SHAPE, MESH_SMALL_STEPS = (2, 2), 3
 #: (b): gemma2-9b at its published widths, 4 of 42 layers (phase 16's train
-#: lane), bf16, global batch 2 of 1024 tokens, 4 steps on (data=2, model=2)
-MESH_DENSE_LAYERS, MESH_B, MESH_S, MESH_STEPS = 4, 2, 1024, 4
+#: lane), bf16, global batch 2 of 1024 tokens, 3 steps on (data=2, model=2)
+#: (gloo moves ~10 GB a rank a step through the host: ~12 s a step)
+MESH_DENSE_LAYERS, MESH_B, MESH_S, MESH_STEPS = 4, 2, 1024, 3
 #: (c): qwen3-moe-235b-a22b at its published widths, 1 of 94 layers (both
 #: ranks resident: ~7.5 GB of bf16 weights and ~30 GB of fp32 moments
 #: across them, ~28 GB a rank with the gathered weights and gradients),
 #: bf16, global batch 2 of 512 tokens, 3 steps on (data=1, model=2)
 MESH_MOE_LAYERS, MESH_MOE_B, MESH_MOE_S, MESH_MOE_STEPS = 1, 2, 512, 3
-#: (d): (b)'s model at 1 of 42 layers, 2 steps on (b)'s mesh, saved, then
-#: one more step on the mesh and on one device from the checkpoint.  Not
-#: (b)'s 4 layers: the SELF writer builds the image in host memory at
+#: (d): (b)'s model at 1 of 42 layers, 1 step on (b)'s mesh, saved, then
+#: 2 more steps on the mesh and on one device from the checkpoint (the
+#: second reads the restored moments and step count through the update).
+#: Not (b)'s 4 layers: the SELF writer builds the image in host memory at
 #: ~4.2x the tree's bytes (a 1 GiB tree peaks at 4.2 GiB on the CPU), so
 #: (b)'s 17 GB of weights and moments would need ~70 GB of the host's
-MESH_CKPT_LAYERS, MESH_CKPT_STEPS = 1, 2
-#: (b) and (d): a mesh run's loss and gradient norm against one device's,
+MESH_CKPT_LAYERS, MESH_CKPT_STEPS, MESH_CKPT_NEXT = 1, 1, 2
+#: (b): a mesh run's loss and gradient norm against one device's,
 #: relative, the largest over the steps.  bf16 rounds each rank's
 #: half-batch products where one device rounds the whole batch's, and
 #: AdamW's normalised steps carry rounding-level sign flips of the gradient
-#: into the weights.  Sound runs on the H100 read 0.00399 and 0.0123 in
-#: (b) (7.4e-8 and 4.9e-6 in (d)); a copy of src/ with the gradient
-#: reduction over the batch axes dropped reads 0.0168 and 0.306 in (b).
-#: The limits sit 2x and 2.4x above the sound readings, 2.1x and 10x
-#: below the broken ones
+#: into the weights.  Sound runs on the H100 read 0.00399 and 0.0123 over
+#: 4 steps; a copy of src/ with the gradient reduction over the batch axes
+#: dropped reads 0.0168 and 0.306.  The limits sit 2x and 2.4x above the
+#: sound readings, 2.1x and 10x below the broken ones
 MESH_LOSS_RTOL, MESH_GNORM_RTOL = 8e-3, 3e-2
+#: (d): the 2 steps after the checkpoint on one device from it against the
+#: mesh's own, loss and gradient norm, relative, the largest of the two.
+#: Both start from equal values (the digests below); they differ only
+#: where the mesh sums two half-batch bf16 gradients and one device takes
+#: the whole batch's.  Sound runs on the H100 read 2.33e-5 and 6.78e-5; a
+#: copy of src/ whose restore zeroes the moments reads 1.56e-3 and 7.7e-3
+#: (and fails the digests).  The limits sit 4.3x and 4.4x above the sound
+#: readings, 16x and 26x below the broken ones
+MESH_CKPT_LOSS_RTOL, MESH_CKPT_GNORM_RTOL = 1e-4, 3e-4
 #: seconds a rank may take to report before the phase fails (a rank that
 #: dies is seen at once), and a collective's own timeout
 MESH_TIMEOUT_S, MESH_COLLECTIVE_S = 900, 300
@@ -4310,9 +4322,33 @@ def _job_small(cells, states) -> dict:
     return out
 
 
+def _digest(t: torch.Tensor) -> tuple:
+    """(sum x, sum x * w) in fp64 over ``t``'s elements in row-major order,
+    w running 1 .. 65521 with the flat index: equal tensors give equal
+    digests, and a changed, zeroed or misplaced element moves them."""
+    flat = t.detach().contiguous().reshape(-1)
+    s0 = torch.zeros((), dtype=torch.float64, device=t.device)
+    s1 = torch.zeros_like(s0)
+    for lo in range(0, flat.numel(), 1 << 24):
+        x = flat[lo:lo + (1 << 24)].double()
+        w = torch.arange(lo, lo + x.numel(), dtype=torch.float64,
+                         device=t.device).remainder_(65521).add_(1)
+        s0 += x.sum()
+        s1 += (x * w).sum()
+    return s0.item(), s1.item()
+
+
+def _tree_digests(tree) -> dict:
+    from repro_torch.tree import tree_flatten_with_path
+
+    return {"/".join(map(str, p)): _digest(t)
+            for p, t in tree_flatten_with_path(tree)}
+
+
 def _job_dense(ckpt_dir: str) -> dict:
     """(b) and (d) in a rank: gemma2-9b's 4-layer cut on (2, 2), then its
-    1-layer cut saved after 2 steps and stepped once more."""
+    1-layer cut saved after 1 step, its shards' digests, and 2 more
+    steps."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.core.gofer import Gofer
@@ -4325,9 +4361,11 @@ def _job_dense(ckpt_dir: str) -> dict:
                               num_layers=MESH_DENSE_LAYERS)
     model = build_model(cfg, device="cuda")
     tr, loader = _mesh_trainer(model, mesh, MESH_STEPS, MESH_B, MESH_S)
+    t0 = time.perf_counter()
     params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
     sh = tr.shardings
-    out = {"p_bytes": _tree_bytes(params),
+    out = {"init_s": time.perf_counter() - t0,
+           "p_bytes": _tree_bytes(params),
            "m_bytes": _tree_bytes(opt["mu"]) + _tree_bytes(opt["nu"]),
            "p_whole": _whole_bytes(params, sh["params"]),
            "m_whole": 2 * _whole_bytes(opt["mu"], sh["opt"]["mu"])}
@@ -4347,7 +4385,7 @@ def _job_dense(ckpt_dir: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (d): the 1-layer cut, saved from the mesh after 2 steps
+    # (d): the 1-layer cut, saved from the mesh after 1 step
     cfg = dataclasses.replace(cfg, num_layers=MESH_CKPT_LAYERS)
     model = build_model(cfg, device="cuda")
     ckpt = CheckpointManager(Gofer.for_root("ckpt", ckpt_dir, write=True))
@@ -4359,14 +4397,23 @@ def _job_dense(ckpt_dir: str) -> dict:
     params, opt = tr.run(params, opt)         # the last step saves, blocking
     loader.stop()
     run_s = time.perf_counter() - t0
+    from repro_torch.tree import tree_flatten_with_path
+
+    saved = {"params": params, "opt": opt}
+    digests = _tree_digests(saved)
+    specs = {"/".join(map(str, p)): tuple(s.spec) for p, s in
+             tree_flatten_with_path({"params": tr.shardings["params"],
+                                     "opt": tr.shardings["opt"]})}
     dc = DataConfig(global_batch=MESH_B, seq_len=MESH_S,
                     vocab_size=cfg.vocab_size)
     tr.loader = Loader(SyntheticLM(dc), dc, start_step=MESH_CKPT_STEPS)
     tr.ckpt = None
-    tr.cfg.total_steps = MESH_CKPT_STEPS + 1
+    tr.cfg.total_steps = MESH_CKPT_STEPS + MESH_CKPT_NEXT
     params, opt = tr.run(params, opt, start_step=MESH_CKPT_STEPS)
     tr.loader.stop()
-    out["ckpt"] = {"curve": _curve(tr), "run_s": run_s,
+    out["ckpt"] = {"curve": _curve(tr)[-MESH_CKPT_NEXT:], "run_s": run_s,
+                   "digests": digests, "specs": specs,
+                   "coords": dict(mesh.coords),
                    "launches": {k: fn.launches
                                 for k, fn in counters.items()},
                    "save": ckpt.save_log[-1] if ckpt.save_log else None,
@@ -4547,14 +4594,24 @@ def _one_device_dense(layers: int, steps: int, start: int = 0,
     return _curve(tr), times
 
 
-def _restore_one_device(ckpt_dir: str) -> tuple:
+def _restore_one_device(ckpt_dir: str, ranks: list) -> tuple:
     """(d) on one device: the mesh's checkpoint restored onto the card,
-    then its next step.  Returns (curve, restore seconds, GB)."""
+    each mesh rank's shard of it cut out and digested, then the next
+    steps.  Returns (curve, restore seconds, GB, digests that differ from
+    the ranks', digests compared)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.core.gofer import Gofer
+    from repro_torch.launch.mesh import MESH_AXES
     from repro_torch.models import build_model
     from repro_torch.models.common import param_tree
+    from repro_torch.parallel.sharding import (
+        AbstractMesh,
+        NamedSharding,
+        P,
+        shard_tree,
+    )
+    from repro_torch.tree import tree_flatten_with_path, tree_unflatten_like
 
     cfg = dataclasses.replace(get_config("gemma2-9b"),
                               num_layers=MESH_CKPT_LAYERS)
@@ -4570,9 +4627,23 @@ def _restore_one_device(ckpt_dir: str) -> tuple:
     if got != MESH_CKPT_STEPS:
         raise AssertionError(f"[mesh-train-ckpt] restored step {got}")
     gb = _tree_bytes(tree) / 1e9
-    curve, _ = _one_device_dense(MESH_CKPT_LAYERS, MESH_CKPT_STEPS + 1,
+    paths = ["/".join(map(str, p)) for p, _ in tree_flatten_with_path(tree)]
+    differ, compared = [], 0
+    for r, x in enumerate(ranks):
+        ck = x["ckpt"]
+        mesh = AbstractMesh((2, 2), MESH_AXES)
+        mesh.coords = ck["coords"]
+        local = shard_tree(tree, tree_unflatten_like(tree, [
+            NamedSharding(mesh, P(*ck["specs"][p])) for p in paths]))
+        for p, t in tree_flatten_with_path(local):
+            key = "/".join(map(str, p))
+            compared += 1
+            if _digest(t) != ck["digests"][key]:
+                differ.append(f"rank {r} {key}")
+    curve, _ = _one_device_dense(MESH_CKPT_LAYERS,
+                                 MESH_CKPT_STEPS + MESH_CKPT_NEXT,
                                  start=MESH_CKPT_STEPS, state=tree)
-    return curve, restore_s, gb
+    return curve, restore_s, gb, differ, compared
 
 
 def _mesh_dense() -> None:
@@ -4612,7 +4683,8 @@ def _mesh_dense() -> None:
             f"tokens/s, four ranks time-sharing one card: not a "
             f"data-parallel speed) against one device's "
             f"{np.median(one_times[1:]) * 1e3:.1f} ms; launches 0 on every "
-            f"rank; the spawn, init and run took {mesh_s:.1f}s")
+            f"rank; the spawn, init and run of (b) and (d) took "
+            f"{mesh_s:.1f}s, (b)'s init_state {r0['init_s']:.1f}s")
         if not (np.isfinite(np.array(r0["curve"])).all()
                 and loss <= MESH_LOSS_RTOL and gnorm <= MESH_GNORM_RTOL):
             raise AssertionError(
@@ -4630,22 +4702,31 @@ def _mesh_dense() -> None:
             raise AssertionError(f"[mesh-train-ckpt] checkpoints "
                                  f"{ck['steps']}, save {ck['save']}")
         _free_card()
-        curve, restore_s, gb = _restore_one_device(d)
-    mesh_next, one_next = ck["curve"][-1], curve[-1]
-    loss, gnorm = _rel(one_next[0], mesh_next[0]), _rel(one_next[1],
-                                                          mesh_next[1])
+        curve, restore_s, gb, differ, compared = _restore_one_device(d,
+                                                                     ranks)
+    loss, gnorm = _curve_drift(curve, ck["curve"])
     log(f"[mesh-train-ckpt] gemma2-9b x{MESH_CKPT_LAYERS} layer bf16 on "
-        f"(2, 2): {MESH_CKPT_STEPS} steps, saved by rank 0 "
+        f"(2, 2): {MESH_CKPT_STEPS} step, saved by rank 0 "
         f"({ck['save']['bytes'] / 1e9:.2f} GB SELF image in "
-        f"{ck['save']['secs']:.1f}s), restored onto one device "
-        f"({gb:.2f} GB in {restore_s:.1f}s); step {MESH_CKPT_STEPS} on the "
-        f"mesh: loss {mesh_next[0]:.5f} gnorm {mesh_next[1]:.4f}, on one "
-        f"device from the checkpoint: loss {one_next[0]:.5f} gnorm "
-        f"{one_next[1]:.4f} (rel {loss:.3g} / {gnorm:.3g}, limits "
-        f"{MESH_LOSS_RTOL:g} / {MESH_GNORM_RTOL:g})")
-    if not (loss <= MESH_LOSS_RTOL and gnorm <= MESH_GNORM_RTOL):
-        raise AssertionError("[mesh-train-ckpt] the restored step is off the "
-                             "mesh's")
+        f"{ck['save']['secs']:.1f}s; the step and the save "
+        f"{ck['run_s']:.1f}s), restored onto one device "
+        f"({gb:.2f} GB in {restore_s:.1f}s); the restored parameters, "
+        f"moments and step count cut to each rank's shards: "
+        f"{compared - len(differ)} of {compared} digests equal the ranks' "
+        f"at the save{': differ ' + ', '.join(differ[:8]) if differ else ''}"
+        f"; steps {MESH_CKPT_STEPS}..{MESH_CKPT_STEPS + MESH_CKPT_NEXT - 1} "
+        f"on the mesh: losses {[round(c[0], 6) for c in ck['curve']]} gnorms "
+        f"{[round(c[1], 5) for c in ck['curve']]}, on one device from the "
+        f"checkpoint: losses {[round(c[0], 6) for c in curve]} gnorms "
+        f"{[round(c[1], 5) for c in curve]} (max rel {loss:.3g} / "
+        f"{gnorm:.3g}, limits {MESH_CKPT_LOSS_RTOL:g} / "
+        f"{MESH_CKPT_GNORM_RTOL:g})")
+    if differ:
+        raise AssertionError(f"[mesh-train-ckpt] {len(differ)} restored "
+                             "shards differ from the mesh's at the save")
+    if not (loss <= MESH_CKPT_LOSS_RTOL and gnorm <= MESH_CKPT_GNORM_RTOL):
+        raise AssertionError("[mesh-train-ckpt] the steps after the restore "
+                             "are off the mesh's")
 
 
 def _mesh_moe() -> None:

@@ -13,9 +13,10 @@ The counterpart of ``repro/checkpoint/manager.py``:
   training mesh, as the reference's ``device_put``) cut each leaf to this
   rank's shard, on the mesh's device: a checkpoint saved on one mesh
   shape restores onto another, or onto one device,
-* a save with ``shardings=`` is collective: every rank gathers each leaf
-  whole, rank 0 alone writes the image (byte-identical to a one-device
-  save of the same values) and keeps the retention, and the ranks meet at
+* a save with ``shardings=`` is collective: each leaf's distinct shards
+  go to rank 0 alone, which assembles the leaf in host memory, writes the
+  image (byte-identical to a one-device save of the same values) and
+  keeps the retention, and the ranks meet at
   a barrier once the write is done (at the save if blocking, else at the
   next ``wait``), so every rank reads a finished file,
 * retention keeps the newest K checkpoints plus every multiple of
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.gofer import Gofer
-from repro_torch.parallel.sharding import gather_leaf, shard_tree
+from repro_torch.parallel.sharding import gather_leaf_to_host0, shard_tree
 from repro_torch.tree import (
     tree_flatten_with_path,
     tree_leaves,
@@ -95,14 +96,10 @@ class CheckpointManager:
         if mesh is None:
             host_tree = tree_map(_host_copy, tree)    # device → host copy now
         else:
-            # a leaf at a time, so no rank holds more than one whole leaf
-            # beyond its shards; rank 0 keeps the host copies
-            leaves = []
-            for (p, t), s in zip(tree_flatten_with_path(tree),
-                                 tree_leaves(shardings)):
-                t = gather_leaf(_key(p), t, s, whole=True)
-                leaves.append(None if mesh.rank else _host_copy(t))
-            host_tree = tree_unflatten_like(tree, leaves)
+            # a leaf at a time, into rank 0's host memory alone
+            host_tree = tree_unflatten_like(tree, [
+                gather_leaf_to_host0(t, s) for t, s in
+                zip(tree_leaves(tree), tree_leaves(shardings))])
         self.wait()                                   # one save in flight max
         if mesh is not None and mesh.rank:
             self._pending_mesh = mesh

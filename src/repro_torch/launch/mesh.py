@@ -15,7 +15,8 @@ group itself: NCCL where each rank has a GPU of its own, gloo otherwise
 it is a 1 x 1 mesh of the one device, as the reference's mesh is built
 from the devices it sees.  The mesh's collectives (``all_gather``,
 ``all_reduce``, ``reduce_scatter``, ``all_to_all``) are those the
-training step and the MoE block run over one axis's group; on a gloo
+training step and the MoE block run over one axis's group (``send`` and
+``recv``, between two ranks, carry a checkpoint's shards); on a gloo
 group a CUDA tensor goes through host memory, and the bytes it moves
 there are counted in ``staged_bytes``.
 
@@ -211,11 +212,7 @@ class TrainMesh(AbstractMesh):
             return t
         x = self._out(t.movedim(dim, 0).contiguous())
         out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-        # ``reduce_scatter_tensor`` is deprecated under this name in newer
-        # torch releases
-        scatter = getattr(dist, "reduce_scatter_single",
-                          dist.reduce_scatter_tensor)
-        scatter(out, x, group=self._group(axis))
+        dist.reduce_scatter_tensor(out, x, group=self._group(axis))
         return self._back(out, t).movedim(0, dim)
 
     def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
@@ -234,6 +231,22 @@ class TrainMesh(AbstractMesh):
         out = torch.cat([b.movedim(0, split_dim) for b in out.chunk(n)],
                         dim=concat_dim)
         return self._back(out, t)
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        """``t`` to rank ``dst``, which calls :meth:`recv`."""
+        import torch.distributed as dist
+
+        dist.send(self._out(t.contiguous()), dst)
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        """A tensor of ``like``'s shape and dtype from rank ``src``; on gloo
+        it stays in host memory."""
+        import torch.distributed as dist
+
+        dev = "cpu" if self.backend == "gloo" else like.device
+        out = torch.empty(like.shape, dtype=like.dtype, device=dev)
+        dist.recv(out, src)
+        return out
 
     def barrier(self) -> None:
         import torch.distributed as dist
@@ -294,10 +307,10 @@ def make_host_mesh(data: Optional[int] = None, model: int = 1, *,
     return TrainMesh((data, model), MESH_AXES, dev, owns_group=owns)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda"
-                         ) -> TrainMesh:
+def make_production_mesh(*, multi_pod: bool = False) -> TrainMesh:
     """The reference's production mesh: one pod ``(data=16, model=16)`` or
-    two ``(pod=2, data=16, model=16)``; any other world raises."""
+    two ``(pod=2, data=16, model=16)``, each rank on its card; any other
+    world raises."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = PRODUCTION_AXES if multi_pod else MESH_AXES
     world = _world_size()
@@ -305,7 +318,7 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"
         raise ValueError(f"the production mesh {dict(zip(axes, shape))} "
                          f"needs {math.prod(shape)} ranks; the world has "
                          f"{world}")
-    dev = _train_device(device)
+    dev = _train_device("cuda")
     owns = _join_world(dev)
     return TrainMesh(shape, axes, dev, owns_group=owns)
 

@@ -32,6 +32,17 @@ as the loader yields it:
 The MoE block runs expert-parallel inside the step (``mesh_context``).
 Where the reference's values differ on a mesh (MoE capacity per shard),
 this one's do too.
+
+**What the mesh splits.** Only the stored state: parameters and moments
+rest split by the rules, so a rank holds about 1/n of them between steps.
+Within a step a rank holds every leaf whole (experts: their ``model``
+shard) and the whole gradient tree until step 4, and every ``model`` rank
+of a dense model computes the same forward and backward.  So a rank's
+peak holds the full parameters plus the full gradients: the step does not
+scale to a model whose weights and gradients outgrow one card, such as
+the production ``train_4k`` cell of the larger archs on 16 x 16.  Gathering
+each layer inside its ``remat_call`` and freeing it after use would lift
+that.
 """
 
 from __future__ import annotations

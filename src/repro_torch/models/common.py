@@ -369,8 +369,6 @@ def remat_call(fn: Callable, *args):
     if not torch.is_grad_enabled():
         return fn(*args)
     mesh = current_mesh()
-    if mesh is None:
-        return checkpoint(fn, *args, use_reentrant=False)
     return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
         contextlib.nullcontext(), mesh_context(mesh)))
 

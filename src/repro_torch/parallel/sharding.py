@@ -21,7 +21,9 @@ reference's does; its ``placements`` are the same layout as DTensor's
 
 Below the rules, the functions that move trees between layouts on a
 ``TrainMesh``: :func:`shard_tree` (this rank's slice of each whole leaf),
-:func:`gather_tree` (the whole leaves back, all-gathered) and
+:func:`gather_tree` (the whole leaves back, all-gathered),
+:func:`gather_leaf_to_host0` (one whole leaf on rank 0 alone, for a
+checkpoint) and
 :func:`reduce_tree` (a gradient computed on every rank from its rows,
 summed over the batch axes and scattered to the leaf's shard).  Slices
 are contiguous chunks, in the rank order of the axes, as JAX lays out a
@@ -56,6 +58,7 @@ __all__ = [
     "fit_spec",
     "gather_leaf",
     "gather_shards",
+    "gather_leaf_to_host0",
     "gather_tree",
     "named",
     "opt_state_shardings",
@@ -447,12 +450,14 @@ def decode_state_shardings(state_shape, mesh, *, layout: str = "seq",
 # trees on a training mesh
 # --------------------------------------------------------------------------
 
-def _chunk(t: torch.Tensor, dim: int, names, mesh) -> torch.Tensor:
-    """This rank's contiguous chunk of ``t`` along ``dim`` over the axes
-    ``names`` (the first the major one)."""
+def _chunk(t: torch.Tensor, dim: int, names, mesh,
+           coords: Optional[Mapping[str, int]] = None) -> torch.Tensor:
+    """This rank's (or the rank at ``coords``') contiguous chunk of ``t``
+    along ``dim`` over the axes ``names`` (the first the major one)."""
+    coords = mesh.coords if coords is None else coords
     index, n = 0, 1
     for a in names:
-        index = index * mesh.shape[a] + mesh.coords[a]
+        index = index * mesh.shape[a] + coords[a]
         n *= mesh.shape[a]
     if n == 1:
         return t
@@ -503,6 +508,40 @@ def gather_leaf(path: str, t: torch.Tensor, s: NamedSharding, *,
             if a not in keep:
                 t = s.mesh.all_gather(t, a, d)
     return t
+
+
+def _coords_of(mesh, rank: int) -> Dict[str, int]:
+    """The coordinates of ``rank`` (row-major over the mesh's axes)."""
+    out = {}
+    for a in reversed(mesh.axis_names):
+        rank, out[a] = divmod(rank, mesh.shape[a])
+    return out
+
+
+def gather_leaf_to_host0(t: torch.Tensor, s: NamedSharding
+                         ) -> Optional[torch.Tensor]:
+    """The whole leaf in rank 0's host memory, None on the other ranks.
+    Each distinct shard (that of the ranks at coordinate 0 on every axis
+    the leaf is not split over) is sent to rank 0 alone: no other rank
+    receives or holds the whole leaf, and a replicated leaf moves
+    nothing.  Every rank calls this, leaf by leaf in the same order."""
+    mesh = s.mesh
+    split = s._split(t.shape)
+    used = {a for names in split for a in names}
+    holders = [r for r in range(mesh.size)
+               if all(c == 0 for a, c in _coords_of(mesh, r).items()
+                      if a not in used)]
+    if mesh.rank:
+        if mesh.rank in holders:
+            mesh.send(t, 0)
+        return None
+    whole = torch.empty(s.global_shape(tuple(t.shape)), dtype=t.dtype)
+    for r in holders:
+        view = whole
+        for d, names in enumerate(split):
+            view = _chunk(view, d, names, mesh, _coords_of(mesh, r))
+        view.copy_(t if r == 0 else mesh.recv(t, r))
+    return whole
 
 
 def gather_tree(tree, shardings):

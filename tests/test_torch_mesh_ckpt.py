@@ -185,4 +185,4 @@ def test_launcher_under_torchrun_trains_and_resumes_as_one_process(tmp_path):
 def test_production_mesh_refuses_another_world(multi_pod, size):
     with pytest.raises(ValueError, match=f"needs {size} ranks; the world "
                                          "has 1"):
-        make_production_mesh(multi_pod=multi_pod, device="cpu")
+        make_production_mesh(multi_pod=multi_pod)
