@@ -202,7 +202,22 @@ prints no result line):
    card: step times check the path and are not a data-parallel speed.
    ``--phases 1,2,18`` runs it alone.
 
-With all eighteen, a summary follows: one ``{"kernels": [...]}`` line (each
+19. the cost model and the dry run (``repro_torch.launch.hlo_cost``,
+   ``launch/dryrun.py``): (a) phase 15's full-width gemma2-9b step (8
+   layers, bf16, batch 4 of 1024) traced on fake CUDA tensors under the
+   cost model: its FLOPs within 2 % of ``FlopCounterMode`` on the real
+   step, its traced peak within 10 % of ``max_memory_allocated``, and its
+   roofline bound on the H100 SXM datasheet constants beside the measured
+   median step, the share at most 1.05 (``[cost-train]``); (b) phase 4's
+   qwen2.5-32b (8 layers) decoding 4 lanes of 2048 tokens in paged mode:
+   the plain step counted on the card's tensors, held the same way, and
+   its bound beside the median of the kernel step, K1 once per layer
+   (``[cost-decode]``); (c) gemma2-9b ``train_4k`` and whisper-tiny
+   ``decode_32k`` dry-run as rank 0 of a fake world of 16 x 16: per-rank
+   FLOPs, bytes, wire bytes by collective, the peak against 80 GB and the
+   useful-FLOP ratio (``[dryrun]``).  ``--phases 1,2,19`` runs it alone.
+
+With all nineteen, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
 line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
 2, the kernels build at their first launch).  ``--src DIR`` imports
@@ -219,6 +234,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -230,9 +246,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel and
+# of each whole step, one set for both: set in main from
+# repro_torch.launch.hlo_cost (HBM_BW, PEAK_FLOPS by dtype)
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = None
 # kernel vs plain version, elementwise |out - ref| <= atol + rtol * |ref|.
 # Both compute in fp32 and round once to the output dtype, so in bf16 they
 # may differ by one bf16 ulp (at most 2**-7 * |ref|); in fp32 they differ by
@@ -4786,6 +4804,246 @@ def phase_mesh_training() -> dict:
     return {name: 0 for name in _launch_counters()}
 
 
+# ------------------------------------------------------------- phase 19
+
+#: a whole-step bound above the measured step is a wrong count
+COST_SHARE_MAX = 1.05
+#: the cost model's FLOPs against torch's FlopCounterMode on the same step
+COST_FLOP_REL = 0.02
+#: the traced peak against torch.cuda.max_memory_allocated of the step
+COST_PEAK_REL = 0.10
+#: phase 4's decode batch and its longest prompt, in pages of 16 rows
+COST_DECODE_B, COST_DECODE_S, COST_PAGE = 4, 2048, 16
+#: the production cells phase 19 dry-runs as rank 0 of a fake world
+DRYRUN_CELLS = (("gemma2-9b", "train_4k"), ("whisper-tiny", "decode_32k"))
+_CARD = ""
+
+
+def _median_step_ms(fn, steps: int) -> tuple:
+    """(median ms, every ms) of ``fn`` on the host clock, each call ended
+    by a synchronise (a step's time, its launches included)."""
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def _real_peak(fn) -> tuple:
+    """(max_memory_allocated over one call of ``fn``, memory_allocated
+    before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), base
+
+
+def _judge_cost(tag: str, cost, fc_flops: float, real_peak: int,
+                base: int, med_ms: float, times) -> dict:
+    """Holds the count to FlopCounterMode and the traced peak to the real
+    one, logs the roofline terms beside the measured step, and fails a
+    bound above the measured time."""
+    rf = cost.roofline()
+    flop_rel = abs(cost.flops - fc_flops) / fc_flops
+    peak_rel = abs(cost.peak_bytes - real_peak) / real_peak
+    bound_ms = rf["step_s_lower_bound"] * 1e3
+    share = bound_ms / med_ms
+    log(f"[{tag}] {_CARD}: cost model {cost.flops:.4e} FLOPs "
+        f"({ {d: f'{f:.3e}' for d, f in cost.flops_by_dtype.items()} }) vs "
+        f"FlopCounterMode {fc_flops:.4e} on the real step: rel "
+        f"{flop_rel:.2e} (limit {COST_FLOP_REL}); bytes {cost.bytes:.4e} "
+        f"fused, {cost.bytes_eager:.4e} eager; {cost.ops} ops counted")
+    log(f"[{tag}] peak: traced {cost.peak_bytes / 1e9:.3f} GB (resident "
+        f"{cost.resident_bytes / 1e9:.3f} GB) vs max_memory_allocated "
+        f"{real_peak / 1e9:.3f} GB (allocated before the step "
+        f"{base / 1e9:.3f} GB): rel {peak_rel:.3f} (limit {COST_PEAK_REL})")
+    log(f"[{tag}] roofline on H100 SXM datasheet constants: compute "
+        f"{rf['compute_s'] * 1e3:.3f} ms, memory {rf['memory_s'] * 1e3:.3f} "
+        f"ms -> bound {bound_ms:.3f} ms ({rf['dominant']}); measured median "
+        f"{med_ms:.3f} ms of {[round(t, 3) for t in times]}; whole-step "
+        f"roofline share {share:.3f} (limit {COST_SHARE_MAX})")
+    if not flop_rel <= COST_FLOP_REL:
+        raise AssertionError(f"[{tag}] FLOPs off FlopCounterMode by "
+                             f"{flop_rel:.3g}")
+    if not peak_rel <= COST_PEAK_REL:
+        raise AssertionError(f"[{tag}] traced peak off the real one by "
+                             f"{peak_rel:.3g}")
+    if not share <= COST_SHARE_MAX:
+        raise AssertionError(f"[{tag}] bound {bound_ms:.3f} ms above the "
+                             f"measured {med_ms:.3f} ms: a wrong count")
+    return {"bound_ms": bound_ms, "ms": med_ms, "share": share,
+            "flops": cost.flops, "bytes": cost.bytes,
+            "peak": cost.peak_bytes, "real_peak": real_peak}
+
+
+def _cost_train() -> dict:
+    """Phase 15's full-width cell (gemma2-9b, 8 of 42 layers, bf16, batch 4
+    of 1024 tokens): its step traced on fake tensors of the card under the
+    cost model, against FlopCounterMode and max_memory_allocated on the
+    real step, and its bound against the measured median."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.hlo_cost import analyze_graph
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import param_tree
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("gemma2-9b"),
+                              num_layers=SERVE_LAYERS)
+    model = _model_on_card(cfg, "cost-train",
+                           f" (depth cut 42 -> {SERVE_LAYERS})")
+    params = param_tree(model)
+    opt = adamw_init(params)
+    g = torch.Generator("cuda").manual_seed(1)
+    seq = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                        generator=g, device="cuda", dtype=torch.int32)
+    batch = {"tokens": seq[:, :-1].contiguous(),
+             "targets": seq[:, 1:].contiguous(),
+             "loss_mask": torch.ones((TRAIN_B, TRAIN_S), device="cuda")}
+    step = make_train_step(model, donate=True)      # as Trainer runs it
+    t0 = time.perf_counter()
+    with FakeTensorMode() as fm:
+        fake = tree_map(fm.from_tensor, (params, opt, batch))
+        cost, _ = analyze_graph(step, fake)
+    log(f"[cost-train] fake trace of the step: {time.perf_counter() - t0:.1f}"
+        " s on the host")
+    step(params, opt, batch)                          # warm
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt, batch)
+    real_peak, base = _real_peak(lambda: step(params, opt, batch))
+    med, times = _median_step_ms(lambda: step(params, opt, batch), 3)
+    return _judge_cost("cost-train", cost, fc.get_total_flops(), real_peak,
+                       base, med, times)
+
+
+def _cost_decode() -> dict:
+    """Phase 4's model (qwen2.5-32b, 8 of 64 layers) decoding 4 lanes of
+    2048 tokens in paged mode: the plain step (``impl="xla"``) counted on
+    the card's tensors, against FlopCounterMode and max_memory_allocated on
+    the same plain step; the bound against the median of the kernel step,
+    K1 once per layer, which computes the same function."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.hlo_cost import analyze_graph
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=SERVE_LAYERS)
+    model = _model_on_card(cfg, "cost-decode", " (of 64)")
+    B, S, page = COST_DECODE_B, COST_DECODE_S, COST_PAGE
+    W = -(-(S + 1) // page)
+    pool = model.init_paged_state(B * W, page)
+    table = torch.arange(B * W, dtype=torch.int32, device="cuda").reshape(B, W)
+    g = torch.Generator("cuda").manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                            device="cuda", dtype=torch.int32)
+    rows_at = torch.arange(S, device="cuda")
+    for b in range(B):
+        rows, _ = model.paged_prefill(prompts[b:b + 1])
+        model.paged_write_prefill(pool, rows, table[b, rows_at // page],
+                                  rows_at % page)
+        del rows
+    tokens = prompts[:, -1].contiguous()
+    pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+
+    def decode():
+        return model.paged_decode_step(pool, tokens, table, pos)
+
+    model.impl = "xla"
+    try:
+        decode()                                      # warm
+        real_peak, base = _real_peak(decode)
+        with FlopCounterMode(display=False) as fc:
+            decode()
+        cost, _ = analyze_graph(decode, resident=list(model.parameters())
+                                + list(pool.values()) + [table, tokens, pos])
+    finally:
+        model.impl = "kernel"
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    steps = 10
+    decode()
+    med, times = _median_step_ms(decode, steps)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    want = (steps + 1) * cfg.num_layers
+    if launches["paged_attention"] != want or any(
+            v for n, v in launches.items() if n != "paged_attention"):
+        raise AssertionError(f"[cost-decode] launches {launches}, want K1 "
+                             f"{want} alone")
+    log(f"[cost-decode] B={B} lanes at {S} tokens, pages of {page}: K1 "
+        f"launched {launches['paged_attention']} = {steps + 1} steps x "
+        f"{cfg.num_layers} layers")
+    out = _judge_cost("cost-decode", cost, fc.get_total_flops(), real_peak,
+                      base, med, times)
+    out["launches"] = launches
+    return out
+
+
+def _dryrun_cells() -> None:
+    """Each cell of DRYRUN_CELLS through ``python -m
+    repro_torch.launch.dryrun`` (fake CUDA tensors on a fake world of 256),
+    the cells in processes of their own side by side, each JSON read back
+    and logged."""
+    out_dir = ROOT / "experiments" / "dryrun_torch"     # the CLI's default
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    t0 = time.perf_counter()
+    procs = [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)) for arch, shape in DRYRUN_CELLS]
+    runs = []
+    try:
+        for arch, shape, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            runs.append((arch, shape, proc.returncode, out, err))
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for arch, shape, rc, out, err in runs:
+        if rc or "[ok]" not in out:
+            raise AssertionError(f"[dryrun] {arch} {shape} failed:\n"
+                                 f"{out[-3000:]}{err[-3000:]}")
+        d = json.loads((out_dir / f"{arch}__{shape}__16x16.json").read_text())
+        rf, mem = d["roofline"], d["memory"]
+        colls = {k: f"{v['count']:.0f} x, {v['wire'] / 1e9:.3f} GB"
+                 for k, v in d["collectives"].items()}
+        log(f"[dryrun] {arch} {shape} 16x16 rank 0 of {d['chips']} "
+            f"({d['device']} fake tensors, trace {d['compile_s']} s): "
+            f"{d['hlo_flops_per_chip']:.4e} FLOPs, "
+            f"{d['hlo_bytes_per_chip']:.4e} bytes, wire "
+            f"{d['collective_wire_bytes_per_chip']:.4e} bytes {colls}; peak "
+            f"{mem['peak_bytes'] / 1e9:.1f} GB of {mem['card_bytes'] / 1e9:.0f}"
+            f" GB (fits {mem['fits']}); useful_flop_ratio "
+            f"{rf['useful_flop_ratio']:.4f}; bound "
+            f"{rf['step_s_lower_bound'] * 1e3:.1f} ms ({rf['dominant']}, H100 "
+            f"SXM datasheet constants)")
+    log(f"[dryrun] {len(runs)} cells in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_cost_model() -> dict:
+    """Phase 19: the cost model (``launch/hlo_cost.py``) on two steps of
+    the card and the dry run (``launch/dryrun.py``) on two production
+    cells.  No kernel but K1 in the decode step's timing."""
+    train = _cost_train()
+    _free_card()
+    decode = _cost_decode()
+    _free_card()
+    _dryrun_cells()
+    return decode["launches"]
+
+
 def _free_card() -> None:
     """Frees what a serving phase left behind (its model and engine are
     garbage once it returns) and logs what stays allocated."""
@@ -4801,7 +5059,8 @@ def _free_card() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18")
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
+                            "19")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
@@ -4816,9 +5075,12 @@ def main(argv=None) -> int:
     _SRC = str(Path(args.src).resolve())
     sys.path.insert(0, _SRC)
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.launch import hlo_cost
 
+    global HBM_BYTES_PER_S, PEAK_FLOPS, _CARD
+    HBM_BYTES_PER_S, PEAK_FLOPS = hlo_cost.HBM_BW, hlo_cost.PEAK_FLOPS
     log(f"[smoke] repro_torch from {Path(repro_torch.__file__).parent}")
-    phase_device()
+    _CARD = phase_device()
     if 2 in phases:          # otherwise the kernels build at first launch
         phase_build()
     results = {}
@@ -4831,15 +5093,16 @@ def main(argv=None) -> int:
         results["segment_zero"] = check_segment_zero()
         log(f"[smoke] phase 3 took {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the serving paths, by phase (K1: phases 4,
-    # 8, 9, 11, 13, 16 and 17; K2: 4, 7, 8, 9, 10, 11, 12, 13, 16 and 17,
-    # phase 17's summed over the shard workers; K3: 6);
+    # 8, 9, 11, 13, 16, 17 and 19; K2: 4, 7, 8, 9, 10, 11, 12, 13, 16 and
+    # 17, phase 17's summed over the shard workers; K3: 6);
     # K4 is on no path, and the paths of phases 14, 15 and 18 have no kernel
     runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
             7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
             9: phase_moe_paged, 10: phase_moe_dense, 11: phase_server,
             12: phase_hybrid_serving, 13: phase_vlm, 14: phase_whisper,
             15: phase_training, 16: phase_orchestration,
-            17: phase_tensor_parallel, 18: phase_mesh_training}
+            17: phase_tensor_parallel, 18: phase_mesh_training,
+            19: phase_cost_model}
     by_phase = {name: {} for name in _launch_counters()}
     for n, phase in runs.items():
         if n in phases:
@@ -4849,7 +5112,7 @@ def main(argv=None) -> int:
                     by_phase[name][n] = count
             _free_card()
             log(f"[smoke] phase {n} took {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 19)) <= phases:
+    if not set(range(3, 20)) <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {

@@ -62,6 +62,10 @@ __all__ = [
     "make_graph",
     "primitive_name",
     "CONTROL_FLOW_PRIMITIVES",
+    "PRODUCTS",
+    "conv_flops",
+    "product_flops",
+    "tensor_bytes",
 ]
 
 #: Structured control flow: recursed into for costing/verification, but
@@ -150,23 +154,41 @@ def _shape(arg: Any) -> Tuple[int, ...]:
 
 
 #: products, charged 2 * batch * m * k * n from their last two operands
-_PRODUCTS = frozenset({"aten.mm", "aten.addmm", "aten.bmm", "aten.baddbmm",
-                       "aten.matmul", "aten.mv", "aten.dot"})
+PRODUCTS = frozenset({"aten.mm", "aten.addmm", "aten.bmm", "aten.baddbmm",
+                      "aten.matmul", "aten.mv", "aten.dot"})
+
+
+def product_flops(lhs: Tuple[int, ...], rhs: Tuple[int, ...]) -> float:
+    """FLOPs of a product of operands of shapes ``lhs`` and ``rhs`` (the
+    last two of a :data:`PRODUCTS` operation; batch dimensions
+    broadcast)."""
+    lhs = tuple(lhs) if len(lhs) > 1 else (1, *lhs)
+    rhs = tuple(rhs) if len(rhs) > 1 else (*rhs, 1)
+    batch = math.prod(torch.broadcast_shapes(lhs[:-2], rhs[:-2]))
+    return 2.0 * batch * lhs[-2] * lhs[-1] * rhs[-1]
+
+
+def conv_flops(out_numel: int, weight: Tuple[int, ...]) -> float:
+    """FLOPs of a convolution with ``out_numel`` output elements and a
+    weight of shape ``(out, in / groups, *kernel)``."""
+    if len(weight) > 2:
+        return 2.0 * out_numel * math.prod(weight[2:]) * weight[1]
+    return 2.0 * out_numel
+
+
+def tensor_bytes(tensors) -> float:
+    """Bytes of the tensors, each counted whole."""
+    return float(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def eqn_flops(eqn: fx.Node) -> float:
     """Analytic FLOP estimate for one graph node."""
     prim = primitive_name(eqn.target)
-    if prim in _PRODUCTS:
-        lhs, rhs = _shape(eqn.args[-2]), _shape(eqn.args[-1])
-        lhs = lhs if len(lhs) > 1 else (1, *lhs)
-        rhs = rhs if len(rhs) > 1 else (*rhs, 1)
-        batch = math.prod(torch.broadcast_shapes(lhs[:-2], rhs[:-2]))
-        return 2.0 * batch * lhs[-2] * lhs[-1] * rhs[-1]
+    if prim in PRODUCTS:
+        return product_flops(_shape(eqn.args[-2]), _shape(eqn.args[-1]))
     if prim == "aten.convolution":
         out = sum(t.numel() for t in _tensors(eqn.meta["val"]))
-        rhs = _shape(eqn.args[1])
-        return 2.0 * out * math.prod(rhs[2:]) * rhs[1] if len(rhs) > 2 else 2.0 * out
+        return conv_flops(out, _shape(eqn.args[1]))
     if prim in CONTROL_FLOW_PRIMITIVES:
         total = 0.0
         for sub in _sub_graphs(eqn):
@@ -179,12 +201,10 @@ def eqn_flops(eqn: fx.Node) -> float:
 
 
 def eqn_bytes(eqn: fx.Node) -> float:
+    """Operands and results, each counted whole."""
     ins = [a.meta.get("val") for a in pytree.tree_leaves((eqn.args, eqn.kwargs))
            if isinstance(a, fx.Node)]
-    return float(sum(
-        t.numel() * t.element_size()
-        for t in _tensors(ins) + _tensors(eqn.meta.get("val"))
-    ))
+    return tensor_bytes(_tensors(ins) + _tensors(eqn.meta.get("val")))
 
 
 # --------------------------------------------------------------------------

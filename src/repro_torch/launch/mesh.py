@@ -132,7 +132,7 @@ class TrainMesh(AbstractMesh):
         if self.size > 1:
             from torch.distributed.device_mesh import DeviceMesh
 
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and self.backend != "fake":
                 torch.cuda.set_device(self.device)
             self.device_mesh = DeviceMesh(
                 self.device.type,
@@ -307,10 +307,13 @@ def make_host_mesh(data: Optional[int] = None, model: int = 1, *,
     return TrainMesh((data, model), MESH_AXES, dev, owns_group=owns)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> TrainMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> TrainMesh:
     """The reference's production mesh: one pod ``(data=16, model=16)`` or
     two ``(pod=2, data=16, model=16)``, each rank on its card; any other
-    world raises."""
+    world raises.  On a world of the ``fake`` backend (a dry run: one
+    process stands for one rank, ``torch.testing._internal.distributed.
+    fake_pg``) the mesh is on ``device`` and needs no card."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = PRODUCTION_AXES if multi_pod else MESH_AXES
     world = _world_size()
@@ -318,7 +321,11 @@ def make_production_mesh(*, multi_pod: bool = False) -> TrainMesh:
         raise ValueError(f"the production mesh {dict(zip(axes, shape))} "
                          f"needs {math.prod(shape)} ranks; the world has "
                          f"{world}")
-    dev = _train_device("cuda")
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return TrainMesh(shape, axes, torch.device(device))
+    dev = _train_device(device)
     owns = _join_world(dev)
     return TrainMesh(shape, axes, dev, owns_group=owns)
 

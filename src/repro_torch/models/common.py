@@ -162,6 +162,17 @@ class ArchConfig:
             total += L * (D * (H * hd) + 2 * D * (K * hd) + (H * hd) * D + 2 * D)
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        D, L = self.d_model, self.num_layers
+        dense = self.param_count() - L * (
+            self.num_experts * 3 * D * self.expert_d_ff
+        )
+        active = L * (self.experts_per_token * 3 * D * self.expert_d_ff)
+        return int(dense + active)
+
 
 # --------------------------------------------------------------------------
 # mesh context: the MoE block reads the training mesh without threading it
@@ -201,10 +212,15 @@ def resolve_device(device) -> torch.device:
     """The device an entry point runs on; CUDA asked for and absent raises.
 
     Entry points default to ``"cuda"`` and never carry on on the CPU
-    behind the caller's back: the CPU is used only when asked for.
+    behind the caller's back: the CPU is used only when asked for.  Under
+    a ``FakeTensorMode`` (a dry run's trace) CUDA needs no card: fake
+    tensors hold no memory.
     """
+    from torch._guards import detect_fake_mode
+
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() \
+            and detect_fake_mode() is None:
         raise RuntimeError(
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path"

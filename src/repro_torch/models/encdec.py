@@ -129,12 +129,14 @@ class EncDecLM(nn.Module):
     initialised — call :meth:`init` or ``load_state_dict``."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
-                 max_target_positions: int = 4096) -> None:
+                 max_target_positions: int = 4096,
+                 impl: str = "kernel") -> None:
         super().__init__()
         if cfg.family != "audio":
             raise ValueError(
                 f"EncDecLM needs family 'audio', got {cfg.family!r}")
         self.cfg = cfg
+        self.impl = impl          # no kernel on this family's path
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.max_target_positions = max_target_positions
@@ -365,7 +367,7 @@ class EncDecLM(nn.Module):
         B = tokens.shape[0]
         H, hd = cfg.num_heads, cfg.hd
         pos = state["pos"]
-        h = take_embedding(self.embed, tokens) + self.pos_embed[pos[0].long()]
+        h = take_embedding(self.embed, tokens) + self.pos_embed[pos[:1].long()]
         live = (torch.arange(state["cache_k"].shape[2], device=h.device)[None]
                 <= pos.long()[:, None])
         for l in range(cfg.num_layers):

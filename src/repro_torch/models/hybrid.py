@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch.hlo_cost import token_loop
 from .attention import (
     attention_block,
     attn_params_shape,
@@ -89,6 +90,7 @@ def ssm_step(h, x, dt, B_t, C_t, A):
     return h, y
 
 
+@token_loop(per_token=(0, 1, 2, 3), per_token_out=(1,))
 def ssm_scan(x, dt, Bp, Cp, A, h0, *, chunk: int = 64):
     """x/dt: (B, T, di); Bp/Cp: (B, T, N) → (final h, y (B, T, di) in x's
     dtype): :func:`ssm_step`'s recurrence in fp32, token by token, for any
@@ -124,12 +126,14 @@ class HybridLM(nn.Module):
     """Hymba-style hybrid LM; parameters are allocated, not initialised —
     call :meth:`init` or ``load_state_dict``."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 impl: str = "kernel") -> None:
         super().__init__()
         if cfg.family != "hybrid":
             raise ValueError(
                 f"HybridLM needs family 'hybrid', got {cfg.family!r}")
         self.cfg = cfg
+        self.impl = impl
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.windows = hymba_windows(cfg)
@@ -238,7 +242,8 @@ class HybridLM(nn.Module):
             a = rms_norm(h, p["ln1"], cfg.norm_eps)
             attn_y, kv = attention_block(
                 a, p["attn"], cfg, window=int(self.windows[l]),
-                rope_base=cfg.rope_base, positions=positions, return_kv=True)
+                rope_base=cfg.rope_base, positions=positions, return_kv=True,
+                impl=self.impl)
             h0 = torch.zeros((B, self.di, self.N), dtype=torch.float32,
                              device=h.device)
             ssm_y, hs = self._ssm_branch(a, p["ssm"], h0)

@@ -24,6 +24,10 @@ _FAMILIES = {
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", **kw) -> Any:
+    """The family's model on ``device``.  ``impl="xla"`` (the reference's
+    ``build_model(cfg, impl="xla")``, which its dry run lowers) serves
+    through the plain routes, never a kernel; the default ``"kernel"``
+    serves through the hand-written kernels on the card."""
     try:
         cls = _FAMILIES[cfg.family]
     except KeyError:

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.wkv6.ops import wkv6
+from ..launch.hlo_cost import token_loop
 from .common import (
     ArchConfig,
     cross_entropy,
@@ -71,6 +72,7 @@ def wkv6_step(state, r, k, v, w, u):
     return state, y
 
 
+@token_loop(per_token=(0, 1, 2, 3), per_token_out=(1,))
 def wkv6_scan(r, k, v, w, u, state0):
     """(B, T, H, hd) inputs → final state + (B, T, H, hd) outputs in r's
     dtype: the exact per-token scan of :func:`wkv6_step` in fp32, for any
@@ -126,11 +128,13 @@ class RwkvLM(nn.Module):
     """RWKV6 LM; parameters are allocated, not initialised — call
     :meth:`init` or ``load_state_dict``."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 impl: str = "kernel") -> None:
         super().__init__()
         if cfg.family != "ssm":
             raise ValueError(f"RwkvLM needs family 'ssm', got {cfg.family!r}")
         self.cfg = cfg
+        self.impl = impl
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.hd = cfg.rwkv_head_size
@@ -225,7 +229,8 @@ class RwkvLM(nn.Module):
             a = rms_norm(h, p["ln1"], cfg.norm_eps)
             state0 = torch.zeros((B, self.H, self.hd, self.hd),
                                  dtype=torch.float32, device=h.device)
-            a2, state, _ = self._time_mix(a, p, state0, None)
+            a2, state, _ = self._time_mix(a, p, state0, None,
+                                          impl=self.impl)
             h = h + a2
             m = rms_norm(h, p["ln2"], cfg.norm_eps)
             m2, _ = self._channel_mix(m, p, None)

@@ -52,6 +52,10 @@ States hold ``cache_k``/``cache_v`` of ``(L, B, max_seq, K, hd)`` and
 ``pos`` (B,) int32.  ``decode_step`` and ``prefill_chunk`` write the cache
 rows in place and return the same cache tensors.
 
+``impl="xla"`` (``build_model(cfg, impl="xla")``, the reference's dry-run
+build) serves through the plain routes on any device: ``blockwise_attn``
+for prompts, the plain paged attention for paged decode steps.
+
 Training interface (``Trainer``): ``loss(params, batch)`` → (scalar,
 metrics), where ``params`` is the reference's nested dict of tensors
 (:func:`~repro_torch.models.common.param_tree` gives the module's own).
@@ -71,6 +75,7 @@ import torch
 from torch import nn
 
 from ..kernels.paged_attention.ops import paged_attention
+from ..kernels.paged_attention.ref import paged_attention_ref
 from ..parallel.collectives import maybe_psum
 from ..parallel.sharding import P
 from .attention import (
@@ -107,13 +112,15 @@ class TransformerLM(nn.Module):
     """Decoder-only LM (dense or MoE); parameters are allocated, not
     initialised — call :meth:`init` or ``load_state_dict``."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 impl: str = "kernel") -> None:
         super().__init__()
         if cfg.family not in ("dense", "moe", "vlm"):
             raise ValueError(
                 f"TransformerLM needs family 'dense', 'moe' or 'vlm', got "
                 f"{cfg.family!r}")
         self.cfg = cfg
+        self.impl = impl
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.windows = layer_windows(cfg)
@@ -263,7 +270,7 @@ class TransformerLM(nn.Module):
             a, kv = attention_block(
                 a, p["attn"], cfg, window=int(self.windows[l]),
                 rope_base=self._rope_base(l), positions=positions,
-                return_kv=True,
+                return_kv=True, impl=self.impl,
             )
             h, aux = self._mlp_residual(self._attn_residual(h, a, p), p)
             yield h, kv, aux
@@ -594,6 +601,9 @@ class TransformerLM(nn.Module):
             return torch.where(valid[:, None, None], x, fill)
 
         lens = pos + 1
+        # impl="xla": the plain version on any device, as ``_layers``
+        attend = paged_attention_ref if self.impl == "xla" \
+            else paged_attention
         for l in range(cfg.num_layers):
             p = self._layer_params(l)
             a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
@@ -602,8 +612,8 @@ class TransformerLM(nn.Module):
             # in place, where the reference donated the pool to the step
             kp[write_page, offset] = lane_rows(k, kp)
             vp[write_page, offset] = lane_rows(v, vp)
-            o = paged_attention(q.contiguous(), kp, vp, page_table, lens,
-                                scale=scale)
+            o = attend(q.contiguous(), kp, vp, page_table, lens,
+                       scale=scale)
             o = o.reshape(B, -1).to(h.dtype) @ p["attn"]["wo"]
             h, _ = self._mlp_residual(self._attn_residual(h, o, p), p,
                                       lossless=True)

@@ -544,11 +544,11 @@ def gather_leaf_to_host0(t: torch.Tensor, s: NamedSharding
     return whole
 
 
-def gather_tree(tree, shardings):
-    """:func:`gather_leaf` of every leaf."""
+def gather_tree(tree, shardings, *, whole: bool = False):
+    """:func:`gather_leaf` of every leaf (``whole``: experts too)."""
     flat = tree_flatten_with_path(tree)
     return tree_unflatten_like(tree, [
-        gather_leaf(_path_str(p), t, s)
+        gather_leaf(_path_str(p), t, s, whole=whole)
         for (p, t), s in zip(flat, _leaves(shardings))])
 
 

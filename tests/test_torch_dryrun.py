@@ -1,0 +1,107 @@
+"""The port's dry run (``repro_torch.launch.dryrun``): one production cell
+end to end in a subprocess as rank 0 of a fake world of 256, the cells it
+declines, and one cell beside the reference's own dry-run JSON."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro_torch.launch.dryrun import main, port_skip
+
+ROOT = Path(__file__).resolve().parent.parent
+ENV = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin:/usr/local/bin"}
+
+
+def _run(module, *args, timeout):
+    return subprocess.run(
+        [sys.executable, "-m", module, *args], capture_output=True,
+        text=True, timeout=timeout, env=ENV, cwd=ROOT)
+
+
+def _port_cell(tmp_path, *flags, arch="whisper-tiny", shape="decode_32k"):
+    proc = _run("repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                shape, "--device", "cpu", "--out", str(tmp_path), *flags,
+                timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "[ok]" in proc.stdout, proc.stdout
+    mesh = "2x16x16" if "--multi-pod" in flags else "16x16"
+    out = tmp_path / f"{arch}__{shape}__{mesh}.json"
+    assert out.exists(), proc.stdout
+    return json.loads(out.read_text())
+
+
+@pytest.mark.parametrize("mesh_flag,chips", [([], 256),
+                                             (["--multi-pod"], 512)])
+def test_dryrun_cell_subprocess(tmp_path, mesh_flag, chips):
+    """The reference test's assertions (``tests/test_dryrun_driver.py``)
+    on the port's JSON, and the port's own keys."""
+    d = _port_cell(tmp_path, *mesh_flag)
+    assert d["ok"] and d["chips"] == chips
+    r = d["roofline"]
+    assert r["dominant"] in ("compute", "memory", "collective")
+    assert r["step_s_lower_bound"] > 0
+    assert d["hlo_flops_per_chip"] > 0
+    assert "all-gather" in d["collectives"] or "all-reduce" in d["collectives"]
+    assert 0 < d["hlo_bytes_per_chip"] <= d["hlo_bytes_eager_per_chip"]
+    assert d["memory"]["peak_bytes"] >= d["memory"]["argument_bytes"] > 0
+    assert d["memory"]["fits"] is True
+    # the batch of 128 is split over pod x data: 8 rows a rank on 16 x 16
+    assert d["rank_rows"] == 128 // (chips // 16)
+    assert r["useful_flop_ratio"] == pytest.approx(
+        d["model_flops"] / (d["hlo_flops_per_chip"] * chips))
+
+
+def test_dryrun_skips_ineligible_cell(tmp_path):
+    proc = _run("repro_torch.launch.dryrun", "--arch", "qwen2.5-32b",
+                "--shape", "long_500k", "--out", str(tmp_path),
+                timeout=120)
+    assert proc.returncode == 0
+    assert "n/a" in proc.stdout
+    assert not list(tmp_path.glob("*.json"))
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--remat", "dots"], "remat"),
+    (["--decode-layout", "heads"], "decode-layout"),
+])
+def test_dryrun_port_declines_options(tmp_path, capsys, flags, why):
+    """Options the port has no program for print ``[n/a-port]`` with the
+    reason and write nothing."""
+    main(["--arch", "whisper-tiny", "--shape", "decode_32k", "--device",
+          "cpu", "--out", str(tmp_path), *flags])
+    out = capsys.readouterr().out
+    assert out.startswith("[n/a-port] whisper-tiny__decode_32k__16x16")
+    assert why in out
+    assert not list(tmp_path.glob("*"))
+    assert port_skip("seq", "full") is None
+
+
+def test_dryrun_beside_reference_json(tmp_path):
+    """whisper-tiny ``decode_32k`` on 16 x 16 beside the reference's own
+    dry run of the cell.  The analytic counts are the same functions of
+    the same config, so they agree exactly.  The port's per-rank FLOPs are
+    11.9x the reference's per-chip FLOPs (band 10-14): each rank of the
+    port holds its 8 rows of the decode cache whole and attends over all
+    32768 positions of all 6 heads, in fp32 (``decode_attn``: 1.68e9 of
+    its 2.14e9 FLOPs), where the reference splits the cache's sequence over
+    the 16 ``model`` ranks; and every ``model`` rank repeats the same
+    weight products on the same rows (``launch/steps.py``'s note on what
+    the mesh splits), which the reference shards where the heads allow."""
+    ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    proc = _run("repro.launch.dryrun", "--arch", "whisper-tiny", "--shape",
+                "decode_32k", "--out", str(ref_dir), timeout=420)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    ref = json.loads(
+        (ref_dir / "whisper-tiny__decode_32k__16x16.json").read_text())
+    port = _port_cell(port_dir)
+    for key in ("params", "active_params", "model_flops", "chips", "mesh",
+                "arch", "shape", "kind"):
+        assert port[key] == ref[key], key
+    assert set(ref) <= set(port)
+    assert set(ref["roofline"]) <= set(port["roofline"])
+    assert set(ref["memory"]) <= set(port["memory"])
+    ratio = port["hlo_flops_per_chip"] / ref["hlo_flops_per_chip"]
+    assert 10.0 < ratio < 14.0, ratio
