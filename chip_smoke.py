@@ -198,9 +198,18 @@ prints no result line):
    llama4-scout's reduced one, with a ragged loss mask, 3 steps on a 2 x 2
    mesh on the card against the same mesh of CPU ranks (phase 15's
    limits) and, for the dense ones, against one device on the card
-   (``[mesh-train-small]``); no rank left.  The ranks time-share one
-   card: step times check the path and are not a data-parallel speed.
-   ``--phases 1,2,18`` runs it alone.
+   (``[mesh-train-small]``); (e) qwen2.5-32b at its published widths, 2
+   of 64 layers, bf16, global batch 2 of 1024 tokens, 3 steps on (data=1,
+   model=3): its 40 q heads and 1024 tokens divide 3 neither, so
+   attention runs sequence-parallel on a padded sequence, held against
+   one device at (b)'s limits (``[mesh-train-sp]``); no rank left.  The
+   steps run the reference's training layout: weights gathered layer by
+   layer, a dense model's work split over ``model`` (``launch/steps.py``).
+   The ranks time-share one card: step times check the path and are not
+   a data-parallel speed.  ``--phases 1,2,18`` runs it alone;
+   ``--mesh-cells dense,moe`` runs only those of its cells (a parent tree
+   without the sequence-parallel layout cannot hold (e)'s ranks on one
+   card).
 
 19. the cost model and the dry run (``repro_torch.launch.hlo_cost``,
    ``launch/dryrun.py``): (a) phase 15's full-width gemma2-9b step (8
@@ -214,8 +223,9 @@ prints no result line):
    its bound beside the median of the kernel step, K1 once per layer
    (``[cost-decode]``); (c) gemma2-9b ``train_4k`` and whisper-tiny
    ``decode_32k`` dry-run as rank 0 of a fake world of 16 x 16: per-rank
-   FLOPs, bytes, wire bytes by collective, the peak against 80 GB and the
-   useful-FLOP ratio (``[dryrun]``).  ``--phases 1,2,19`` runs it alone.
+   FLOPs, bytes, wire bytes by collective, the peak against 80 GB (a
+   training cell that does not fit fails) and the useful-FLOP ratio
+   (``[dryrun]``).  ``--phases 1,2,19`` runs it alone.
 
 With all nineteen, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
@@ -920,8 +930,9 @@ def check_segment_zero() -> dict:
         run = lambda: segment_zero(x, lo, hi)
         ms = time_ms(run)
         plain_ms = time_ms(lambda: segment_zero_ref(x, lo, hi), iters=5)
-        # the library yardstick: one PyTorch call that zeroes [lo, hi) of
-        # the buffer, in place (a narrow is a view, not a computation); it
+        # no single PyTorch call returns a new buffer with [lo, hi)
+        # zeroed, so K4 has no library time; logged beside it, the
+        # in-place zeroing of the segment (a narrow is a view), which
         # writes only the segment where K4 writes a new buffer of all N
         lib = x.clone()
         lib.narrow(0, lo, hi - lo).zero_()
@@ -940,7 +951,8 @@ def check_segment_zero() -> dict:
             f".zero_() in place {lib_ms:.4f} ms")
         if dtype == torch.float32:
             main = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "inplace_zero_ms": lib_ms,
                     "shape": f"N={N} float32, zero [{lo}, {hi})",
                     "tol": "bitwise"}
         del lib
@@ -4120,6 +4132,15 @@ MESH_MOE_LAYERS, MESH_MOE_B, MESH_MOE_S, MESH_MOE_STEPS = 1, 2, 512, 3
 #: ~4.2x the tree's bytes (a 1 GiB tree peaks at 4.2 GiB on the CPU), so
 #: (b)'s 17 GB of weights and moments would need ~70 GB of the host's
 MESH_CKPT_LAYERS, MESH_CKPT_STEPS, MESH_CKPT_NEXT = 1, 1, 2
+#: (e): qwen2.5-32b at its published widths, 2 of 64 layers, bf16, global
+#: batch 2 of 1024 tokens, 3 steps on (data=1, model=3): neither its 40 q
+#: heads nor the 1024 tokens divide 3 (sequence-parallel attention, the
+#: sequence padded to 1026).  Each rank holds ~0.93 B of the ~3.2 B
+#: parameters (the vocabulary and d_ff split over model) with their fp32
+#: moments: ~11 GB a rank
+MESH_SP_LAYERS, MESH_SP_B, MESH_SP_S, MESH_SP_STEPS = 2, 2, 1024, 3
+#: phase 18's cells, all run by default (``--mesh-cells``)
+MESH_CELLS = ("dense", "moe", "small", "sp")
 #: (b): a mesh run's loss and gradient norm against one device's,
 #: relative, the largest over the steps.  bf16 rounds each rank's
 #: half-batch products where one device rounds the whole batch's, and
@@ -4278,8 +4299,7 @@ def _whole_numpy(tree, shardings) -> dict:
     from repro_torch.parallel.sharding import gather_leaf
     from repro_torch.tree import tree_flatten_with_path, tree_leaves
 
-    return {"/".join(map(str, p)): gather_leaf(
-                "/".join(map(str, p)), t, s, whole=True).float().cpu().numpy()
+    return {"/".join(map(str, p)): gather_leaf(t, s).float().cpu().numpy()
             for (p, t), s in zip(tree_flatten_with_path(tree),
                                  tree_leaves(shardings))}
 
@@ -4590,17 +4610,17 @@ def _mesh_small() -> None:
 
 
 def _one_device_dense(layers: int, steps: int, start: int = 0,
-                      state=None) -> list:
-    """gemma2-9b's ``layers``-layer cut trained on one device on the card
-    from seed 0 (or from ``state``, a restored {"params", "opt"} at
-    ``start``): its curve."""
+                      state=None, arch: str = "gemma2-9b",
+                      batch: int = MESH_B, seq: int = MESH_S) -> list:
+    """``arch``'s ``layers``-layer cut (gemma2-9b's by default) trained on
+    one device on the card from seed 0 (or from ``state``, a restored
+    {"params", "opt"} at ``start``): its curve and step times."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config("gemma2-9b"), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     model = build_model(cfg, device="cuda")
-    tr, loader = _mesh_trainer(model, None, steps, MESH_B, MESH_S,
-                               start=start)
+    tr, loader = _mesh_trainer(model, None, steps, batch, seq, start=start)
     if state is None:
         params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
     else:
@@ -4694,7 +4714,7 @@ def _mesh_dense() -> None:
                 f"({x['p_bytes'] / x['p_whole']:.3f}; 1/4 = 0.25), moments "
                 f"{x['m_bytes'] / 1e9:.3f} GB of {x['m_whole'] / 1e9:.3f} "
                 f"({x['m_bytes'] / x['m_whole']:.3f}); peak "
-                f"{x['peak'] / 1e9:.2f} GB; step times "
+                f"(max_memory_allocated) {x['peak'] / 1e9:.2f} GB; step times "
                 f"{[round(t, 3) for t in x['times']]} s; "
                 f"{x['staged'] / 1e9:.2f} GB a step staged through the host")
         log(f"[mesh-train-dense] median step {med * 1e3:.1f} ms ({tokens / med:.0f} "
@@ -4747,6 +4767,74 @@ def _mesh_dense() -> None:
                              "are off the mesh's")
 
 
+def _job_sp() -> dict:
+    """(e) in a rank: qwen2.5-32b's 2-layer cut on (1, 3), its attention
+    sequence-parallel: its curve, step times, memory and host bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+
+    mesh = make_host_mesh(1, 3, device="cuda")
+    cfg = dataclasses.replace(get_config("qwen2.5-32b"),
+                              num_layers=MESH_SP_LAYERS)
+    model = build_model(cfg, device="cuda")
+    tr, loader = _mesh_trainer(model, mesh, MESH_SP_STEPS, MESH_SP_B,
+                               MESH_SP_S)
+    params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
+    out = {"p_bytes": _tree_bytes(params),
+           "p_whole": _whole_bytes(params, tr.shardings["params"])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times: list = []
+    _timed(tr, times)
+    counters = _zero_counters()
+    mesh.staged_bytes = 0
+    params, opt = tr.run(params, opt)
+    loader.stop()
+    out.update(curve=_curve(tr), times=times,
+               launches={k: fn.launches for k, fn in counters.items()},
+               staged=mesh.staged_bytes / MESH_SP_STEPS,
+               peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _mesh_sp() -> None:
+    """(e) ``[mesh-train-sp]``."""
+    want, one_times = _one_device_dense(
+        MESH_SP_LAYERS, MESH_SP_STEPS, arch="qwen2.5-32b", batch=MESH_SP_B,
+        seq=MESH_SP_S)
+    _free_card()
+    t0 = time.perf_counter()
+    ranks = _run_mesh(_job_sp, 3)
+    mesh_s = time.perf_counter() - t0
+    _check_launches("mesh-train-sp", [r["launches"] for r in ranks])
+    r0 = ranks[0]
+    loss, gnorm = _curve_drift(r0["curve"], want)
+    for r, x in enumerate(ranks):
+        log(f"[mesh-train-sp] rank {r}: parameters {x['p_bytes'] / 1e9:.3f} "
+            f"GB of {x['p_whole'] / 1e9:.3f}; peak (max_memory_allocated) "
+            f"{x['peak'] / 1e9:.2f} GB; step times "
+            f"{[round(t, 3) for t in x['times']]} s; "
+            f"{x['staged'] / 1e9:.2f} GB a step staged through the host")
+    log(f"[mesh-train-sp] qwen2.5-32b x{MESH_SP_LAYERS} layers bf16 on "
+        f"(data=1, model=3), 3 gloo ranks on cuda:0, B={MESH_SP_B} "
+        f"S={MESH_SP_S} (40 q heads, 1024 tokens: neither divides 3), "
+        f"{MESH_SP_STEPS} steps: losses "
+        f"{[round(c[0], 4) for c in r0['curve']]} against one device's "
+        f"{[round(c[0], 4) for c in want]}, gnorms "
+        f"{[round(c[1], 3) for c in r0['curve']]} against "
+        f"{[round(c[1], 3) for c in want]}: loss max rel {loss:.3g}, gnorm "
+        f"max rel {gnorm:.3g} (limits {MESH_LOSS_RTOL:g}, "
+        f"{MESH_GNORM_RTOL:g}); median step "
+        f"{np.median(r0['times'][1:]) * 1e3:.1f} ms against one device's "
+        f"{np.median(one_times[1:]) * 1e3:.1f} ms (three ranks time-sharing "
+        f"one card); launches 0; {mesh_s:.1f}s with the spawn and init")
+    if not (np.isfinite(np.array(r0["curve"])).all()
+            and loss <= MESH_LOSS_RTOL and gnorm <= MESH_GNORM_RTOL):
+        raise AssertionError(f"[mesh-train-sp] the mesh's curve "
+                             f"{r0['curve']} is off one device's {want}")
+
+
 def _mesh_moe() -> None:
     """(c) ``[mesh-train-moe]``."""
     from repro_torch.configs import get_config
@@ -4788,14 +4876,16 @@ def phase_mesh_training() -> dict:
     """Phase 18: training on a mesh of gloo ranks on the card — (b) dense
     at full width against one device, (d) its checkpoint across mesh
     shapes, (c) expert-parallel MoE at full width, (a) every family's
-    small config against the CPU's mesh.  Returns the launches (none)."""
+    small config against the CPU's mesh, (e) sequence-parallel attention
+    at full width against one device; the cells of ``--mesh-cells``.
+    Returns the launches (none)."""
     import multiprocessing
 
-    _mesh_dense()
-    _free_card()
-    _mesh_moe()
-    _free_card()
-    _mesh_small()
+    runs = {"dense": _mesh_dense, "moe": _mesh_moe, "small": _mesh_small,
+            "sp": _mesh_sp}
+    for cell in MESH_CELLS:
+        runs[cell]()
+        _free_card()
     left = [p.pid for p in multiprocessing.active_children()
             if p.name.startswith("repro-torch-rank")]
     if left:
@@ -5029,6 +5119,10 @@ def _dryrun_cells() -> None:
             f"{rf['useful_flop_ratio']:.4f}; bound "
             f"{rf['step_s_lower_bound'] * 1e3:.1f} ms ({rf['dominant']}, H100 "
             f"SXM datasheet constants)")
+        if d["kind"] == "train" and not mem["fits"]:
+            raise AssertionError(f"[dryrun] {arch} {shape}: a rank's peak "
+                                 f"{mem['peak_bytes'] / 1e9:.1f} GB does not "
+                                 "fit the card")
     log(f"[dryrun] {len(runs)} cells in {time.perf_counter() - t0:.1f} s")
 
 
@@ -5057,16 +5151,21 @@ def _free_card() -> None:
 
 
 def main(argv=None) -> int:
+    global MESH_CELLS
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
                             "19")
+    ap.add_argument("--mesh-cells", default=",".join(MESH_CELLS),
+                    help="phase 18's cells to run, of " + ",".join(MESH_CELLS))
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
                          "under these phases)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    MESH_CELLS = tuple(c for c in MESH_CELLS
+                       if c in args.mesh_cells.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on an NVIDIA GPU", file=sys.stderr)
@@ -5145,9 +5244,10 @@ def main(argv=None) -> int:
         # qwen3-moe's grouping, "g7" at llava's; K2: "h64" at qwen3-moe's
         # heads, "w512" with a window at head dim 128, "w8192" at llama4's
         # window and 10000 tokens, "hd256" at gemma2's head dim, "hymba"
-        # at hymba's heads and window, "llava" at llava's heads
+        # at hymba's heads and window, "llava" at llava's heads; K4:
+        # "inplace_zero_ms", narrow().zero_() (not the same function)
         for key in ("warm_ms", "g16", "g7", "h64", "w512", "w8192", "hd256",
-                    "hymba", "llava"):
+                    "hymba", "llava", "inplace_zero_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
     print(json.dumps({"kernels": kernels}))

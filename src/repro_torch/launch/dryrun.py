@@ -13,16 +13,18 @@ dispatches.  Nothing runs on a card; ``--device cuda`` (the default) needs a
 CUDA build of PyTorch, not a card; ``--device cpu`` traces the same program
 on CPU fake tensors.
 
-**What rank 0 runs** is what the port runs on a mesh, and it differs from
-the reference's GSPMD program:
+**What rank 0 runs** is what the port runs on a mesh:
 
-* ``train``: ``make_train_step(model, shardings=)`` (``launch/steps.py``):
-  the parameters and AdamW moments rest split by the reference's rules
-  (``parallel/sharding.py``), every leaf is all-gathered (experts: over all
-  axes but ``model``), the rank computes the whole model's forward and
-  backward on its rows of the global batch (split over ``pod`` and
-  ``data``), and the gradients are reduced and cut to its shards.  Every
-  ``model`` rank of a dense model repeats the same work.
+* ``train``: ``make_train_step(model, shardings=)`` (``launch/steps.py``),
+  the reference's GSPMD layout: the parameters and AdamW moments rest
+  split by the reference's rules (``parallel/sharding.py``), each layer's
+  leaves are all-gathered over ``data`` inside its checkpointed layer and
+  their gradients reduce-scattered as the backward leaves it, and a
+  ``TransformerLM`` splits its work over ``model`` (the sequence between
+  sublayers, q heads or query rows, ``d_ff``, experts, the logits of the
+  rank's own tokens) on its rows of the global batch (split over ``pod``
+  and ``data``).  ``RwkvLM``, the hybrid and whisper still repeat their
+  whole forward and backward on every ``model`` rank.
 * ``prefill`` / ``decode``: no arch's head counts divide the ``model`` axis
   of 16, so the tensor-parallel serving path (the models' ``tp_*`` hooks)
   shards none of them; the rank gathers every weight whole from the same
@@ -196,8 +198,7 @@ def build_cell(arch: str, shape_name: str, mesh, *,
             args = (shards, state, tokens)
 
         def step(shards, *inputs):
-            with _weights(model, gather_tree(shards, shardings,
-                                             whole=True)):
+            with _weights(model, gather_tree(shards, shardings)):
                 return serve(*inputs)
 
     meta = {

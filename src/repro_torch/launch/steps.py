@@ -10,39 +10,48 @@ dtypes, no allocation.
 
 **On a training mesh** (``shardings``: the parameters' ``NamedSharding``
 tree on a ``launch.mesh.TrainMesh``) every rank runs the step (SPMD) on
-its shards of the parameters and moments and on the whole global batch,
-as the loader yields it:
+its shards of the parameters and moments, as the reference's GSPMD step
+lays it out:
 
-1. every leaf is all-gathered, expert leaves over all axes but ``model``
-   (``parallel.sharding.gather_tree``);
-2. with ``accum_steps`` n, microbatch i is rows ``[i·B/n, (i+1)·B/n)`` of
+1. with ``accum_steps`` n, microbatch i is rows ``[i·B/n, (i+1)·B/n)`` of
    the global batch, and of it the rank takes its rows over the batch
    axes (``batch_rows``), as the reference's scan splits each microbatch
-   over ``data``;
-3. the loss is the global mean: the rank's share is the sum of its rows'
-   masked losses over the whole microbatch's mask count (an all-reduce),
-   so the shares add up to the one-device loss however the masks differ
-   between the ranks; the MoE aux term is averaged inside the block and
-   alike on every rank;
-4. the gradients, summed over the microbatches, are reduced over the
-   batch axes and cut to the rank's shards (``reduce_tree``), and AdamW
+   over ``data``; for a model that splits its work over ``model``
+   (``seq_parallel``: ``TransformerLM``) also its chunk of the sequence,
+   as ``batch_specs`` splits tokens and targets ``P(("pod", "data"),
+   "model")`` (padded at the end with masked tokens where the axis does
+   not divide the sequence);
+2. the model reads its parameters through a ``TrainLayout``
+   (``parallel.sharding``): each leaf is all-gathered over the batch axes
+   where it is read, a layer's inside its ``remat_call``, so a rank holds
+   about one layer's gathered weights at a time and the backward's
+   recompute gathers them again (FSDP); the backward of each gather
+   reduce-scatters the leaf's gradient, and a leaf's gradient is
+   all-reduced over the axes it is not split on that the ranks computed
+   different parts over;
+3. the loss is the global mean: the rank's share is the sum of its
+   tokens' masked losses over the whole microbatch's mask count (an
+   all-reduce over the batch axes, and ``model`` where the sequence is
+   split), so the shares add up to the one-device loss however the masks
+   differ between the ranks; the MoE aux term is averaged inside the
+   block and alike on every rank;
+4. the gradients come out of the backward summed and cut to the rank's
+   shards (with ``accum_steps`` > 1, each microbatch's, summed over the
+   ranks in the gradient's dtype, then added up in fp32), and AdamW
    updates only those, clipping by the norm of the whole gradient
    (``sharded_global_norm``).
 
-The MoE block runs expert-parallel inside the step (``mesh_context``).
-Where the reference's values differ on a mesh (MoE capacity per shard),
-this one's do too.
-
-**What the mesh splits.** Only the stored state: parameters and moments
-rest split by the rules, so a rank holds about 1/n of them between steps.
-Within a step a rank holds every leaf whole (experts: their ``model``
-shard) and the whole gradient tree until step 4, and every ``model`` rank
-of a dense model computes the same forward and backward.  So a rank's
-peak holds the full parameters plus the full gradients: the step does not
-scale to a model whose weights and gradients outgrow one card, such as
-the production ``train_4k`` cell of the larger archs on 16 x 16.  Gathering
-each layer inside its ``remat_call`` and freeing it after use would lift
-that.
+**What the mesh splits.** The stored state, parameters and moments, split
+by the rules; within a step, the weights, gathered over ``data`` one
+layer at a time and freed after use; and for ``TransformerLM`` the work
+over ``model``: the residual stream is sequence-parallel, attention is
+split by q heads where they divide the axis and by query rows where they
+do not (only K/V are gathered), the MLP's hidden by ``d_ff``, the experts
+by the MoE block's expert parallelism, and the logits by the rank's own
+tokens against the whole vocabulary (the table gathered over ``model``
+where it is read).  The other families (``RwkvLM``, the hybrid,
+whisper) get the per-layer gathers, but every ``model`` rank still
+computes their whole forward and backward.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from ..optim import (
     lr_at,
     sharded_global_norm,
 )
-from ..parallel.sharding import BATCH_AXES, batch_rows, gather_tree, reduce_tree
+from ..parallel.sharding import BATCH_AXES, TrainLayout, batch_rows
 from ..tree import tree_leaves, tree_unflatten_like
 
 __all__ = ["backward", "make_train_step", "make_prefill_fn", "make_decode_fn",
@@ -91,25 +100,35 @@ def make_train_step(
     leaves_of = tree_leaves(shardings) if shardings is not None else []
     mesh = leaves_of[0].mesh if leaves_of else None
 
+    split = bool(getattr(model, "seq_parallel", False))
+
     def single(params, batch):
-        """(loss, metrics, grads) of one microbatch on this rank."""
-        denom = None
+        """(loss, metrics, grads) of one microbatch on this rank; on a
+        mesh the gradients of this rank's shards, summed over the
+        ranks."""
+        denom = layout = None
         if mesh is not None:
-            batch = batch_rows(batch, mesh)
+            layout = TrainLayout(mesh, shardings, split_model=split,
+                                 seq_len=batch["tokens"].shape[1])
+            batch = batch_rows(batch, mesh, seq_axis="model"
+                               if layout.split_model else None)
             mask = batch.get("loss_mask")
             if mask is None:
                 mask = torch.ones(batch["targets"].shape,
                                   dtype=torch.float32, device=mesh.device)
             axes = [a for a in BATCH_AXES if a in mesh.shape]
+            if layout.split_model:
+                axes.append("model")
             denom = torch.clamp(mesh.all_reduce(torch.sum(mask), axes),
                                 min=1.0)
         leaves = [t.detach().requires_grad_(True)
                   for t in tree_leaves(params)]
-        with torch.enable_grad(), mesh_context(mesh):
-            loss, metrics = model.loss(tree_unflatten_like(params, leaves),
-                                       batch)
+        tree = tree_unflatten_like(params, leaves)
+        with torch.enable_grad(), mesh_context(mesh, layout):
+            loss, metrics = model.loss(
+                tree if layout is None else layout.tree(tree), batch)
             if denom is not None:
-                # this rank's share of the global mean: its rows' masked
+                # this rank's share of the global mean: its tokens' masked
                 # losses over the whole batch's count; the rest of the
                 # loss (the aux term) is alike on every rank
                 share = metrics["ce"] * (metrics["tokens"] / denom)
@@ -124,16 +143,15 @@ def make_train_step(
         return loss, metrics, grads
 
     def step(params, opt_state, batch):
-        full = params if mesh is None else gather_tree(params, shardings)
         n = accum_steps
         if n > 1:
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in tree_leaves(full)]
+                   for p in tree_leaves(params)]
             loss_sum = 0.0
             for i in range(n):
                 mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
                       for k, v in batch.items()}
-                loss, metrics, grads = single(full, mb)
+                loss, metrics, grads = single(params, mb)
                 for a, g in zip(acc, grads):
                     a.add_(g)
                 del grads
@@ -141,12 +159,10 @@ def make_train_step(
             grads = [a / n for a in acc]
             loss = loss_sum / n
         else:
-            loss, metrics, grads = single(full, batch)
+            loss, metrics, grads = single(params, batch)
         grads = tree_unflatten_like(params, grads)
-        del full
         gnorm = None
         if mesh is not None:
-            grads = reduce_tree(grads, shardings)
             gnorm = sharded_global_norm(grads, shardings)
 
         lr = lr_at(opt_state["step"], schedule)

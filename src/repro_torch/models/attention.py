@@ -29,7 +29,8 @@ from ..kernels.flash_attention import ops as fa_ops
 from .common import ArchConfig, rms_norm, rope, softcap
 
 __all__ = ["NEG_INF", "attn_params_shape", "attention_block",
-           "blockwise_attn", "decode_attn", "qkv", "update_cache"]
+           "blockwise_attn", "decode_attn", "qkv", "split_attention",
+           "update_cache"]
 
 NEG_INF = -2.0e38
 _SENTINEL = 2 ** 30
@@ -53,10 +54,12 @@ def attn_params_shape(cfg: ArchConfig) -> Dict[str, Any]:
 def qkv(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
         positions: torch.Tensor, rope_base):
     """Projections, bias, qk-norm and RoPE: (…, D) → q (…, H, hd), k, v."""
-    # "...d,dhk->...hk" as one matmul each over the flattened head axis
-    q = (x @ p["wq"].flatten(1)).unflatten(-1, p["wq"].shape[1:])
-    k = (x @ p["wk"].flatten(1)).unflatten(-1, p["wk"].shape[1:])
-    v = (x @ p["wv"].flatten(1)).unflatten(-1, p["wv"].shape[1:])
+    # "...d,dhk->...hk" as one matmul each over the flattened head axis;
+    # each leaf read once (on a training mesh a read gathers it)
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    q = (x @ wq.flatten(1)).unflatten(-1, wq.shape[1:])
+    k = (x @ wk.flatten(1)).unflatten(-1, wk.shape[1:])
+    v = (x @ wv.flatten(1)).unflatten(-1, wv.shape[1:])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -173,6 +176,81 @@ def attention_block(
     if return_kv:
         return y, (k, v)
     return y
+
+
+def split_attention(
+    x: torch.Tensor,                  # (B, c, D): this rank's chunk
+    p: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+    *,
+    window: int,
+    rope_base,
+    layout,
+) -> torch.Tensor:
+    """The training route's attention on a mesh that splits it over
+    ``model`` (``layout``: a ``parallel.sharding.TrainLayout``), as the
+    reference's GSPMD layout splits it: ``x`` is this rank's chunk of the
+    (padded) sequence, and so is the output projection it returns.
+
+    Where the q heads divide the axis, the sequence is gathered and the
+    rank computes its q heads ``[r·H/M, (r+1)·H/M)`` (``wq``, ``bq`` and
+    ``wo`` as their stored ``model`` shards) against the kv heads they use
+    (``h // G``, sliced from the replicated ``wk``/``wv``); its partial
+    output projection is reduce-scattered back to its chunk.  Else
+    (§Perf-B5) the rank computes q, k and v on its own rows with the
+    replicated weights, gathers only k and v, attends its queries over all
+    keys, and ``wo`` is a local product.  Padding past the sequence's end
+    sits after every real token, so the causal mask keeps real queries
+    off it.
+    """
+    B, c, D = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    G = H // K
+    M = layout.model_size
+    S = c * M
+    q_pos = torch.arange(layout.seq_start, layout.seq_start + c,
+                         device=x.device)
+    k_pos = torch.arange(S, device=x.device)
+    attn = dict(window=window, scale=cfg.query_scale or (1.0 / math.sqrt(hd)),
+                logit_cap=cfg.attn_logit_softcap)
+    if H % M:
+        w = {"wq": layout.whole(p["wq"], 1, H), "wk": p["wk"],
+             "wv": p["wv"]}
+        if cfg.qkv_bias:
+            w.update(bq=layout.whole(p["bq"], 0, H), bk=p["bk"], bv=p["bv"])
+        if cfg.qk_norm:
+            w.update(q_norm=p["q_norm"], k_norm=p["k_norm"])
+        q, k, v = qkv(x, w, cfg, q_pos, rope_base)
+        out = blockwise_attn(
+            q.reshape(B, c, K, G, hd), layout.gather_seq(k),
+            layout.gather_seq(v), q_positions=q_pos, k_positions=k_pos,
+            **attn)
+        return out.reshape(B, c, H * hd) @ layout.whole(p["wo"], 0, H * hd)
+    h0, h1 = layout.part(H)
+    k0, k1 = h0 // G, (h1 - 1) // G + 1
+    w = {"wq": layout.local(p["wq"], 1, H),
+         "wk": layout.whole(p["wk"], 1, K)[:, k0:k1],
+         "wv": layout.whole(p["wv"], 1, K)[:, k0:k1]}
+    if cfg.qkv_bias:
+        w.update(bq=layout.local(p["bq"], 0, H),
+                 bk=layout.whole(p["bk"], 0, K)[k0:k1],
+                 bv=layout.whole(p["bv"], 0, K)[k0:k1])
+    if cfg.qk_norm:
+        w.update(q_norm=p["q_norm"], k_norm=p["k_norm"])
+    q, k, v = qkv(layout.gather_seq(x), w, cfg, k_pos, rope_base)
+    Hr = h1 - h0
+    if h0 % G == 0 and Hr % G == 0:       # whole groups
+        q = q.reshape(B, S, k1 - k0, G, hd)
+    elif k1 - k0 == 1:                    # part of one group
+        q = q.reshape(B, S, 1, Hr, hd)
+    else:                                 # parts of several: kv per q head
+        idx = torch.arange(h0, h1, device=x.device) // G - k0
+        k, v = k[:, :, idx], v[:, :, idx]
+        q = q.reshape(B, S, Hr, 1, hd)
+    out = blockwise_attn(q, k, v, q_positions=k_pos, k_positions=k_pos,
+                         **attn)
+    y = out.reshape(B, S, Hr * hd) @ layout.local(p["wo"], 0, H * hd)
+    return layout.scatter_seq(y)
 
 
 # --------------------------------------------------------------------------

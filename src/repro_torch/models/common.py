@@ -9,11 +9,15 @@ The mesh context is the reference's: :func:`mesh_context` binds a
 training mesh (``launch.mesh.TrainMesh``, or any object with ``.shape``)
 that :func:`current_mesh` and :func:`axis_size` read, and :func:`fit_spec`
 (defined beside the rules in ``parallel/sharding.py``) fits a spec to it.
-The mesh changes one model body: the MoE block's expert-parallel branch
-(``models/moe.py``).  The reference's ``constrain`` is not ported: under
-GSPMD it only lays values out, and here the ranks of a training mesh run
-the one-device arithmetic on gathered weights, so its 51 call sites would
-all be the identity.  Serving on a mesh runs shard-local modules instead
+With the mesh it binds the step's layout
+(``parallel.sharding.TrainLayout``, :func:`current_layout`): the
+parameter tree a model's ``loss`` reads on a mesh gathers each leaf where
+it is read, and :func:`unstack_layers` splits it into layers whose leaves
+are gathered inside their :func:`remat_call`.  The reference's
+``constrain`` is not ported as a function: where its GSPMD layout splits
+work over ``model``, a model body reads the layout and computes its part
+(``models/transformer.py``, ``models/attention.py``, ``models/moe.py``,
+:func:`split_mlp`).  Serving on a mesh runs shard-local modules instead
 (:mod:`repro_torch.launch.mesh`).
 """
 
@@ -31,12 +35,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.sharding import fit_spec
+from ..parallel.sharding import Shards, fit_spec
 
 __all__ = [
     "ArchConfig",
     "axis_size",
     "cross_entropy",
+    "current_layout",
     "current_mesh",
     "fit_spec",
     "mesh_context",
@@ -52,6 +57,7 @@ __all__ = [
     "remat_call",
     "scale_embedding",
     "softcap",
+    "split_mlp",
     "take_embedding",
     "torch_dtype",
     "unstack_layers",
@@ -180,19 +186,28 @@ class ArchConfig:
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                        default=None)
+_LAYOUT: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_layout", default=None)
 
 
 @contextlib.contextmanager
-def mesh_context(mesh):
-    token = _MESH.set(mesh)
+def mesh_context(mesh, layout=None):
+    """Binds ``mesh`` and, on a training step's mesh, its ``layout``."""
+    token, ltoken = _MESH.set(mesh), _LAYOUT.set(layout)
     try:
         yield mesh
     finally:
+        _LAYOUT.reset(ltoken)
         _MESH.reset(token)
 
 
 def current_mesh():
     return _MESH.get()
+
+
+def current_layout():
+    """The training step's ``TrainLayout`` bound here, or None."""
+    return _LAYOUT.get()
 
 
 def axis_size(name: str) -> int:
@@ -307,6 +322,22 @@ def gated_mlp(x: torch.Tensor, w_in: torch.Tensor,
     return h @ w_out
 
 
+def split_mlp(x: torch.Tensor, w_in: torch.Tensor,
+              w_gate: Optional[torch.Tensor], w_out: torch.Tensor,
+              activation: str, layout, d_ff: int) -> torch.Tensor:
+    """:func:`gated_mlp` on this rank's chunk ``x`` (B, c, D) of the
+    sequence, its hidden split over ``model`` (the reference's
+    ``constrain(h, "data", None, "model")``): the sequence is gathered,
+    the rank computes its part of the ``d_ff`` hidden from its parts of the
+    weights, and the partial products are reduce-scattered back to its
+    chunk."""
+    w_in = layout.local(w_in, 1, d_ff)
+    w_gate = None if w_gate is None else layout.local(w_gate, 1, d_ff)
+    w_out = layout.local(w_out, 0, d_ff)
+    y = gated_mlp(layout.gather_seq(x), w_in, w_gate, w_out, activation)
+    return layout.scatter_seq(y)
+
+
 def take_embedding(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding lookup: ``table[tokens]``."""
     return table[tokens.long()]
@@ -367,7 +398,10 @@ def unstack_layers(tree: Mapping[str, Any], L: int) -> List[Dict[str, Any]]:
     """Split a tree of stacked ``(L, ...)`` leaves into L per-layer trees,
     one ``unbind`` per leaf: its backward stacks the L gradients once,
     where indexing ``t[l]`` per layer would allocate a zeroed copy of the
-    whole stacked gradient for each layer."""
+    whole stacked gradient for each layer.  A :class:`Shards` tree (a
+    training step's on a mesh) gives per-layer :class:`Shards`."""
+    if isinstance(tree, Shards):
+        return tree.unstack(L)
     if isinstance(tree, Mapping):
         subs = {k: unstack_layers(v, L) for k, v in tree.items()}
         return [{k: subs[k][l] for k in subs} for l in range(L)]
@@ -378,15 +412,18 @@ def remat_call(fn: Callable, *args):
     """``fn(*args)``, under activation checkpointing when gradients are on
     (the reference's default ``remat="full"``, a ``jax.checkpoint`` of
     each layer): only the layer's inputs are kept, and its activations
-    are recomputed in the backward pass.  The recompute binds the mesh
-    bound here: on a CUDA device the backward runs on the autograd
-    engine's own thread, which does not see this thread's context
-    variables."""
+    are recomputed in the backward pass.  On a training mesh a layer's
+    :class:`Shards` are gathered where ``fn`` reads them, so inside the
+    checkpoint: the recompute gathers them again, and the backward
+    reduces their gradients as it leaves the layer.  The recompute binds
+    the mesh and layout bound here: on a CUDA device the backward runs on
+    the autograd engine's own thread, which does not see this thread's
+    context variables."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    mesh = current_mesh()
+    mesh, layout = current_mesh(), current_layout()
     return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
-        contextlib.nullcontext(), mesh_context(mesh)))
+        contextlib.nullcontext(), mesh_context(mesh, layout)))
 
 
 def cross_entropy(logits: torch.Tensor, batch: Mapping[str, Any]

@@ -23,16 +23,18 @@ Nothing here is a TPU kernel in the reference (it is XLA), so the products
 are ``torch.bmm``.  Decode reads every expert's weights, as the
 reference's layout does; serving TP replicates the experts on every rank.
 
-**On a training mesh** (bound with ``mesh_context``, more than one rank)
-the block takes the reference's ``shard_map`` branch
-(``repro/models/moe.py:146-229``).  The batch arrives split over ``pod``
-and ``data`` by the trainer (``parallel.sharding.batch_rows``, the
-reference's rule: the axes whose product divides B), so ``x`` is this
-rank's rows, alike on the ``model`` ranks.  Then, as the reference:
+**On a training mesh** (a ``TrainLayout`` bound with ``mesh_context``,
+more than one rank) the block takes the reference's ``shard_map`` branch
+(``repro/models/moe.py:146-229``).  ``x`` arrives as the residual stream
+lies between sublayers: this rank's rows (split over ``pod`` and
+``data``, ``parallel.sharding.batch_rows``) and its chunk of the sequence
+over ``model`` (padded to a multiple of the axis).  Then, as the
+reference:
 
-1. the sequence splits over ``model`` where ``S % model == 0`` (else each
-   model rank routes all of its rows);
-2. each rank routes its own tokens, capacity from its local T;
+1. where ``S % model == 0`` each rank routes its own tokens; else the
+   chunks are gathered, the padding cut, and every ``model`` rank routes
+   all of its rows, keeping its chunk of the output;
+2. the capacity is counted from the tokens the rank routes;
 3. ``all_to_all`` over ``model`` sends each expert's buffer to the rank
    that holds it (split 0 / concat 1), and back after the FFN (split 1 /
    concat 0), where ``E % model == 0``; else every rank holds every
@@ -40,18 +42,18 @@ rank's rows, alike on the ``model`` ranks.  Then, as the reference:
 4. the aux loss is averaged over the token axes.
 
 The expert weights arrive as this rank's ``E / model`` experts, whole in
-``F``: the reference's all-gather of their ``F`` shards over ``data``
-happens in the trainer, where every other leaf is gathered (its reduce-
-scatter is the trainer's gradient reduction; ``F % data != 0``, the
-reference's other fallback, leaves them replicated over ``data`` there).
-The backward passes are ``shard_map``'s transpose
-(``parallel.collectives``): the gradients of the router, of experts
-every rank holds whole and, without the sequence split, of ``x`` are
-summed over ``model``; the gathered output's
-gradient is cut to this rank's chunk; and without the split, where the
-model ranks compute the same tokens, the output's gradient is divided by
-``model``.  The returned aux is the mean over the token axes, alike on
-every rank; the output is whole, alike on the model ranks.
+``F``: the layout all-gathers their ``F`` shards over ``data`` where the
+layer reads them (its backward is the reduce-scatter;
+``F % data != 0``, the reference's other fallback, leaves them replicated
+over ``data``).  The backward passes are ``shard_map``'s transpose
+(``parallel.collectives``); the gradients of the router and of experts
+every rank holds whole are each rank's tokens' part, which the layout
+sums over ``model``.  Without the sequence split the gathered input's
+gradient is reduce-scattered, and the aux, alike on the ``model`` ranks,
+has its gradient divided by ``model``.  The returned aux is the mean over
+the token axes, alike on every rank.  A shared expert runs as the dense
+MLP does on the mesh (``common.split_mlp``: the hidden split over
+``model``).
 """
 
 from __future__ import annotations
@@ -63,13 +65,18 @@ import torch
 
 from ..parallel.collectives import (
     all_to_all,
-    gather_over,
+    gather_sum_grads,
     mean_over,
     scale_grad,
-    split_over,
-    sum_grads_over,
 )
-from .common import ArchConfig, _act, current_mesh, gated_mlp
+from .common import (
+    ArchConfig,
+    _act,
+    current_layout,
+    current_mesh,
+    gated_mlp,
+    split_mlp,
+)
 
 __all__ = ["FP32_PARAMS", "moe_params_shape", "moe_block", "route",
            "dispatch", "expert_ffn", "combine"]
@@ -203,41 +210,33 @@ def _routed(xt: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
 
 
 def _expert_parallel(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                     cfg: ArchConfig, mesh, *, lossless: bool
+                     cfg: ArchConfig, mesh, seq_len: int, *, lossless: bool
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``shard_map`` branch on this rank's rows ``x`` (B,
-    S, D) of the batch."""
-    B, S, D = x.shape
+    """The reference's ``shard_map`` branch on this rank's chunk ``x`` (B,
+    c, D) of its rows, of a sequence of ``seq_len`` tokens."""
+    B, c, D = x.shape
     E = cfg.num_experts
     b_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
     M = mesh.shape.get("model", 1)
-    s_axis = "model" if "model" in mesh.shape and S % M == 0 else None
-    token_axes = b_axes + ((s_axis,) if s_axis else ())
-    model_axis = "model" if "model" in mesh.shape and E % M == 0 else None
+    seq_split = seq_len % M == 0
+    token_axes = b_axes + (("model",) if M > 1 and seq_split else ())
+    model_axis = "model" if M > 1 and E % M == 0 else None
     local_e = E // M if model_axis else E
     if p["wg"].shape[0] != local_e:
         raise ValueError(f"expert weights hold {p['wg'].shape[0]} experts; "
                          f"this rank of a {mesh.shape} mesh holds {local_e}")
-    router, experts = p["router"], [p["wg"], p["wu"], p["wd"]]
-    if M > 1:
-        # weights every model rank holds whole: each rank's gradient is
-        # its own tokens' part
-        router = sum_grads_over(router, mesh, ("model",))
-        if not model_axis:
-            experts = [sum_grads_over(t, mesh, ("model",)) for t in experts]
-        x = split_over(x, mesh, "model", 1) if s_axis else \
-            sum_grads_over(x, mesh, ("model",))
+    if not seq_split:
+        x = gather_sum_grads(x, mesh, "model", 1)[:, :seq_len]
     bl, sl, _ = x.shape
     out, aux = _routed(
-        x.reshape(bl * sl, D), router, *experts, cfg, lossless=lossless,
-        exchange=(mesh, model_axis) if model_axis and M > 1 else None)
+        x.reshape(bl * sl, D), p["router"], p["wg"], p["wu"], p["wd"], cfg,
+        lossless=lossless, exchange=(mesh, model_axis) if model_axis else None)
     out = out.reshape(bl, sl, D)
     aux = mean_over(aux, mesh, token_axes)
-    if M > 1:
-        if s_axis:
-            out = gather_over(out, mesh, "model", 1)
-        else:
-            out, aux = scale_grad(out, M), scale_grad(aux, M)
+    if not seq_split:
+        start = mesh.coords["model"] * c
+        out = torch.nn.functional.pad(out, (0, 0, 0, c * M - sl))
+        out, aux = out[:, start:start + c], scale_grad(aux, M)
     return out, aux
 
 
@@ -248,17 +247,30 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
     The leading dims flatten to the T tokens that share one capacity: the
     B·S rows of a prefill, the B lanes of a decode step.  ``lossless``
     (decode) gives every copy a slot.  On a training mesh of more than one
-    rank, ``x`` is (B, S, D), this rank's rows, and the block is expert-
-    parallel (the module docstring).
+    rank, ``x`` is (B, c, D), this rank's rows and its chunk of the
+    sequence, and the block is expert-parallel (the module docstring).
     """
-    mesh = current_mesh()
+    mesh, layout = current_mesh(), current_layout()
+    split = layout is not None and layout.split_model
     if mesh is not None and mesh.size > 1:
-        out, aux = _expert_parallel(x, p, cfg, mesh, lossless=lossless)
+        if mesh.shape.get("model", 1) > 1 and not split:
+            raise ValueError("an MoE block on a mesh with a model axis "
+                             "takes the sequence split over it (a "
+                             "TrainLayout with split_model)")
+        seq_len = layout.seq_len if split else x.shape[1]
+        out, aux = _expert_parallel(x, p, cfg, mesh, seq_len,
+                                    lossless=lossless)
     else:
         shape, D = x.shape, x.shape[-1]
         out, aux = _routed(x.reshape(-1, D), p["router"], p["wg"], p["wu"],
                            p["wd"], cfg, lossless=lossless)
         out = out.reshape(shape)
     if cfg.num_shared_experts:
-        out = out + gated_mlp(x, p["swu"], p["swg"], p["swd"], cfg.activation)
+        if split:
+            out = out + split_mlp(x, p["swu"], p["swg"], p["swd"],
+                                  cfg.activation, layout,
+                                  cfg.expert_d_ff * cfg.num_shared_experts)
+        else:
+            out = out + gated_mlp(x, p["swu"], p["swg"], p["swd"],
+                                  cfg.activation)
     return out, aux

@@ -84,11 +84,13 @@ from .attention import (
     attn_params_shape,
     decode_attn,
     qkv,
+    split_attention,
     update_cache,
 )
 from .common import (
     ArchConfig,
     cross_entropy,
+    current_layout,
     frozen,
     gated_mlp,
     layer_rope_bases,
@@ -98,6 +100,7 @@ from .common import (
     rms_norm,
     scale_embedding,
     softcap,
+    split_mlp,
     take_embedding,
     torch_dtype,
     unstack_layers,
@@ -111,6 +114,11 @@ __all__ = ["TransformerLM"]
 class TransformerLM(nn.Module):
     """Decoder-only LM (dense or MoE); parameters are allocated, not
     initialised — call :meth:`init` or ``load_state_dict``."""
+
+    #: a training step on a mesh splits this family's work over ``model``
+    #: (``parallel.sharding.TrainLayout``): the sequence between
+    #: sublayers, q heads (or query rows), ``d_ff`` and experts
+    seq_parallel = True
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  impl: str = "kernel") -> None:
@@ -222,28 +230,36 @@ class TransformerLM(nn.Module):
 
     def _embed_inputs(self, tokens: torch.Tensor,
                       patch_embeds: Optional[torch.Tensor] = None,
-                      table: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      table: Optional[torch.Tensor] = None,
+                      start: int = 0) -> torch.Tensor:
         """Token embeddings (gemma's scaling applied) from ``table`` (the
         module's own by default); with ``patch_embeds`` (B, P, D) and a
-        config that has patches, rows ``[0, P)`` are the patch embeddings
-        in the model's dtype."""
+        config that has patches, rows ``[0, P)`` of the sequence are the
+        patch embeddings in the model's dtype.  ``tokens`` are the
+        sequence's columns from ``start`` on (a rank's chunk)."""
         table = self.embed if table is None else table
         h = scale_embedding(take_embedding(table, tokens), self.cfg)
         if patch_embeds is not None and self.cfg.num_patches:
-            n = patch_embeds.shape[1]
-            h = torch.cat([patch_embeds.to(device=h.device, dtype=h.dtype),
-                           h[:, n:]], dim=1)
+            n = max(0, min(patch_embeds.shape[1] - start, h.shape[1]))
+            h = torch.cat([patch_embeds[:, start:start + n].to(
+                device=h.device, dtype=h.dtype), h[:, n:]], dim=1)
         return h
 
     def _mlp_residual(self, h: torch.Tensor, p: Dict[str, Any], *,
-                      lossless: bool = False):
+                      lossless: bool = False, layout=None):
         """h + the layer's MLP (or MoE block) → (h, the MoE aux loss or
-        None).  ``lossless``: a decode step's routing, no copy dropped."""
+        None).  ``lossless``: a decode step's routing, no copy dropped.
+        ``layout``: a training mesh's that splits the work over
+        ``model`` (``h`` is this rank's chunk of the sequence)."""
         cfg = self.cfg
         m = rms_norm(h, p["ln2"], cfg.norm_eps, plus_one=cfg.post_norms)
         aux = None
         if cfg.is_moe:
             m, aux = moe_block(m, p["moe"], cfg, lossless=lossless)
+        elif layout is not None:
+            mlp = p["mlp"]
+            m = split_mlp(m, mlp["wu"], mlp.get("wg"), mlp["wd"],
+                          cfg.activation, layout, cfg.d_ff)
         else:
             m = gated_mlp(m, p["mlp"]["wu"], p["mlp"].get("wg"),
                           p["mlp"]["wd"], cfg.activation)
@@ -308,25 +324,50 @@ class TransformerLM(nn.Module):
     def _train_layer(self, h: torch.Tensor, p: Dict[str, Any], l: int,
                      positions: torch.Tensor):
         cfg = self.cfg
+        layout = _split_layout()
         a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
-        a = attention_block(
-            a, p["attn"], cfg, window=int(self.windows[l]),
-            rope_base=self._rope_base(l), positions=positions, impl="xla",
-        )
-        h, aux = self._mlp_residual(self._attn_residual(h, a, p), p)
+        if layout is not None:
+            a = split_attention(a, p["attn"], cfg, window=int(self.windows[l]),
+                                rope_base=self._rope_base(l), layout=layout)
+        else:
+            a = attention_block(
+                a, p["attn"], cfg, window=int(self.windows[l]),
+                rope_base=self._rope_base(l), positions=positions,
+                impl="xla")
+        h, aux = self._mlp_residual(self._attn_residual(h, a, p), p,
+                                    layout=layout)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return h, aux
+
+    def _whole_table(self, table: torch.Tensor) -> torch.Tensor:
+        """A ``(V, D)`` table whole: on a mesh that splits the work over
+        ``model``, all-gathered over it (the vocabulary is stored split)
+        where it is used, each rank then looking up and scoring its own
+        tokens."""
+        layout = _split_layout()
+        if layout is None:
+            return table
+        return layout.whole(table, 0, self.cfg.vocab_size)
 
     def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor, *,
                       patch_embeds: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The reference's ``forward(params, tokens)`` on the training
         route: (B, S, V) logits and the aux loss summed over layers,
-        differentiable in ``params``."""
+        differentiable in ``params``.  On a mesh that splits the work
+        over ``model``, ``tokens`` are this rank's chunk of the sequence,
+        and so are the logits."""
         cfg = self.cfg
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
-        h = self._embed_inputs(tokens, patch_embeds, table=params["embed"])
+        layout = _split_layout()
+        start = layout.seq_start if layout is not None else 0
+        positions = torch.arange(start, start + tokens.shape[1],
+                                 device=tokens.device)
+        # gathered once (on a mesh, a read gathers it): a tied table's two
+        # uses add their gradients before its one reduction
+        embed = self._whole_table(params["embed"])
+        h = self._embed_inputs(tokens, patch_embeds, table=embed,
+                               start=start)
         auxes = []
         for l, p in enumerate(unstack_layers(params["layers"],
                                              cfg.num_layers)):
@@ -334,7 +375,8 @@ class TransformerLM(nn.Module):
             auxes.append(aux)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps,
                      plus_one=cfg.post_norms)
-        table = params.get("unembed", params["embed"])
+        table = (self._whole_table(params["unembed"]) if "unembed" in params
+                 else embed)
         return self._unembed(h, table), torch.stack(auxes).sum()
 
     def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
@@ -669,3 +711,10 @@ class TransformerLM(nn.Module):
         return type(self), {"cfg": dataclasses.replace(
             cfg, num_heads=cfg.num_heads // n,
             num_kv_heads=cfg.num_kv_heads // n, head_dim=cfg.hd)}
+
+
+def _split_layout():
+    """The training layout bound here if it splits the work over
+    ``model``, else None."""
+    layout = current_layout()
+    return layout if layout is not None and layout.split_model else None

@@ -10,20 +10,24 @@ name with :func:`bind_axis` around each step, and a model body that calls
 over the group; with no group bound (one device, training, the tests) it
 is the identity, as the reference's is under plain ``jit``.
 
-The differentiable collectives of the MoE block's expert-parallel branch
-(``models/moe.py``) run over one axis of a training mesh
-(``launch.mesh.TrainMesh``).  Their backward passes are those of
-``shard_map``'s transpose, for values that the ranks of the axis hold
-alike (every layer outside the block computes the same thing on each of
-them): :func:`split_over` takes this rank's chunk and gathers the chunks'
-gradients; :func:`gather_over` gathers the chunks and takes this rank's
-chunk of the gradient (a sum there would count the gradient once per
-rank); :func:`sum_grads_over` is the identity whose gradient is summed
-over the axis (a weight each rank applied to its own tokens);
-:func:`mean_over` averages a value over the axes, and :func:`scale_grad`
-divides the gradient of a value each rank computed whole; :func:`all_to_all`
-is ``jax.lax.all_to_all(tiled=True)``, its own transpose with the two
-dimensions swapped.
+The differentiable collectives of a training step run over the axes of a
+training mesh (``launch.mesh.TrainMesh``); their backward passes are
+those of ``shard_map``'s transpose.  :func:`gather_sum_grads` is the
+all-gather of chunks that the ranks use differently (a weight's FSDP
+shards over ``data``, whose ranks hold other rows; the sequence-parallel
+residual over ``model``, whose ranks take other heads or another slice of
+``d_ff``): its backward reduce-scatters the sum of the ranks' gradients.
+:func:`reduce_scatter_over` is its transpose: the sum of the ranks'
+partial products, this rank's chunk of it, and the gradient all-gathered.
+:func:`gather_over` gathers chunks that every rank then uses alike (a
+family that computes the same layer on every ``model`` rank) and keeps
+this rank's chunk of the gradient (a sum there would count the gradient
+once per rank).  :func:`sum_grads_over` is the identity whose gradient is
+summed over the axes (a weight each rank applied to its own tokens or
+heads); :func:`mean_over` averages a value over the axes, and
+:func:`scale_grad` divides the gradient of a value each rank computed
+whole; :func:`all_to_all` is ``jax.lax.all_to_all(tiled=True)``, its own
+transpose with the two dimensions swapped.
 
 ``compressed_psum`` is the int8 all-reduce for the bandwidth-starved hop:
 every member all-gathers the per-block int8 payloads and scales and sums
@@ -47,8 +51,9 @@ from ..tree import tree_leaves, tree_map, tree_unflatten_like
 
 __all__ = ["BLOCK", "ErrorFeedback", "all_to_all", "bind_axis",
            "bound_group", "compressed_grad_tree", "compressed_psum",
-           "dequantize_int8", "gather_over", "maybe_psum", "mean_over",
-           "quantize_int8", "scale_grad", "split_over", "sum_grads_over"]
+           "dequantize_int8", "gather_over", "gather_sum_grads", "maybe_psum",
+           "mean_over", "quantize_int8", "reduce_scatter_over", "scale_grad",
+           "sum_grads_over"]
 
 BLOCK = 256
 
@@ -91,7 +96,7 @@ def maybe_psum(x: torch.Tensor, axis_name: str = "model") -> torch.Tensor:
     return out
 
 
-# ------------------------------------------ expert-parallel collectives
+# ------------------------------------------ a training step's collectives
 
 
 def _chunk_of(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -100,11 +105,23 @@ def _chunk_of(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return x.narrow(dim, mesh.coords[axis] * size, size)
 
 
-class _Split(torch.autograd.Function):
+class _GatherSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.args = (mesh, axis, dim)
-        return _chunk_of(x, mesh, axis, dim).clone()
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return mesh.reduce_scatter(g, axis, dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return mesh.reduce_scatter(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -174,15 +191,24 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None, None)
 
 
-def split_over(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """This rank's chunk of ``x`` along ``dim`` (``x`` alike on the ranks
-    of ``axis``); the backward all-gathers the chunks' gradients."""
-    return _Split.apply(x, mesh, axis, dim)
+def gather_sum_grads(x: torch.Tensor, mesh, axis: str, dim: int
+                     ) -> torch.Tensor:
+    """The ranks' chunks joined along ``dim``; the backward reduce-
+    scatters the ranks' gradients (each rank used the whole differently,
+    so this rank's chunk's gradient is the sum of theirs)."""
+    return _GatherSum.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter_over(x: torch.Tensor, mesh, axis: str, dim: int
+                        ) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of ``x`` over the ranks
+    of ``axis`` (partial products); the backward all-gathers."""
+    return _ReduceScatter.apply(x, mesh, axis, dim)
 
 
 def gather_over(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """The ranks' chunks joined along ``dim``; the backward keeps this
-    rank's chunk of the gradient."""
+    """The ranks' chunks joined along ``dim``, used alike by every rank;
+    the backward keeps this rank's chunk of the gradient."""
     return _Gather.apply(x, mesh, axis, dim)
 
 

@@ -23,11 +23,10 @@ Below the rules, the functions that move trees between layouts on a
 ``TrainMesh``: :func:`shard_tree` (this rank's slice of each whole leaf),
 :func:`gather_tree` (the whole leaves back, all-gathered),
 :func:`gather_leaf_to_host0` (one whole leaf on rank 0 alone, for a
-checkpoint) and
-:func:`reduce_tree` (a gradient computed on every rank from its rows,
-summed over the batch axes and scattered to the leaf's shard).  Slices
-are contiguous chunks, in the rank order of the axes, as JAX lays out a
-``NamedSharding``.
+checkpoint), and :class:`TrainLayout` with :class:`Shards`: how a
+training step gathers each leaf where it is used and reduces its
+gradient as the backward leaves it.  Slices are contiguous chunks, in the
+rank order of the axes, as JAX lays out a ``NamedSharding``.
 
 The serving part: a model's ``tp_param_specs()`` and
 ``tp_pool_specs(store)`` give one :class:`P` per leaf; ``P(None, None,
@@ -39,17 +38,27 @@ of the one-axis serving mesh, exact by contract (a model declares
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping as MappingABC
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 
 from ..tree import tree_flatten_with_path, tree_unflatten_like
+from .collectives import (
+    gather_over,
+    gather_sum_grads,
+    reduce_scatter_over,
+    sum_grads_over,
+)
 
 __all__ = [
     "AbstractMesh",
     "NamedSharding",
     "P",
+    "Shards",
+    "TrainLayout",
     "batch_rows",
     "batch_shardings",
     "batch_specs",
@@ -64,7 +73,6 @@ __all__ = [
     "opt_state_shardings",
     "param_shardings",
     "param_spec",
-    "reduce_tree",
     "serving_tp_shards",
     "shard_tree",
 ]
@@ -386,8 +394,8 @@ def opt_state_shardings(opt_shape, mesh, *, heads_divisible: bool = True):
 
 def expert_parallel(path: str) -> bool:
     """Whether a parameter leaf holds MoE experts, which the training step
-    keeps split over ``model`` (expert parallelism) where every other leaf
-    is gathered whole."""
+    keeps split over ``model`` (expert parallelism) whether or not the
+    rest of the model splits its work over it."""
     return "moe" in path and path.split("/")[-1] in ("wg", "wu", "wd")
 
 
@@ -489,24 +497,14 @@ def _leaves(tree) -> list:
     return [leaf for _, leaf in tree_flatten_with_path(tree)]
 
 
-def _kept_axes(path: str, mesh) -> Tuple[str, ...]:
-    """The axes a leaf stays split over inside the training step."""
-    return ("model",) if expert_parallel(path) and "model" in mesh.shape \
-        else ()
-
-
-def gather_leaf(path: str, t: torch.Tensor, s: NamedSharding, *,
-                whole: bool = False) -> torch.Tensor:
-    """One leaf as the training step computes with it: all-gathered over
-    every axis it is split on, an expert leaf over all but ``model``; with
-    ``whole``, the whole leaf (a checkpoint's)."""
-    keep = () if whole else _kept_axes(path, s.mesh)
+def gather_leaf(t: torch.Tensor, s: NamedSharding) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``t``, all-gathered over every
+    axis it is split on (a checkpoint's, a test's)."""
     for d, names in enumerate(s._split(t.shape)):
         # the innermost axis first: each gather joins whole chunks of the
         # axis outside it
         for a in reversed(names):
-            if a not in keep:
-                t = s.mesh.all_gather(t, a, d)
+            t = s.mesh.all_gather(t, a, d)
     return t
 
 
@@ -544,51 +542,21 @@ def gather_leaf_to_host0(t: torch.Tensor, s: NamedSharding
     return whole
 
 
-def gather_tree(tree, shardings, *, whole: bool = False):
-    """:func:`gather_leaf` of every leaf (``whole``: experts too)."""
-    flat = tree_flatten_with_path(tree)
+def gather_tree(tree, shardings):
+    """:func:`gather_leaf` of every leaf."""
     return tree_unflatten_like(tree, [
-        gather_leaf(_path_str(p), t, s, whole=whole)
-        for (p, t), s in zip(flat, _leaves(shardings))])
+        gather_leaf(t, s) for t, s in zip(_leaves(tree), _leaves(shardings))])
 
 
-def reduce_tree(grads, shardings):
-    """The gradient of each leaf's shard from ``grads`` (laid out as
-    :func:`gather_tree` gives the leaves): summed over the batch axes,
-    which hold different rows, and cut to this rank's shard.  A leaf split
-    over a batch axis is reduce-scattered over it, any other all-reduced;
-    the cut over ``model`` (where every rank computed the same gradient)
-    comes first, so the reductions move only this rank's share.  The sums
-    run in the gradient's dtype, as GSPMD's reduction of it does."""
-    def visit(p, g, s):
-        mesh = s.mesh
-        keep = _kept_axes(p, mesh)
-        batch = [a for a in BATCH_AXES if a in mesh.shape]
-        split = s._split(g.shape)
-        for d, names in enumerate(split):
-            if not any(a in batch for a in names):
-                g = _chunk(g, d, [a for a in names if a not in keep], mesh)
-        for d, names in enumerate(split):
-            if any(a in batch for a in names):
-                for a in names:
-                    if a in batch:
-                        g = mesh.reduce_scatter(g, a, d)
-                    elif a not in keep:
-                        g = _chunk(g, d, [a], mesh)
-        used = {a for names in split for a in names}
-        rest = [a for a in batch if a not in used]
-        return mesh.all_reduce(g, rest) if rest else g.contiguous()
-
-    flat = tree_flatten_with_path(grads)
-    return tree_unflatten_like(grads, [
-        visit(_path_str(p), g, s)
-        for (p, g), s in zip(flat, _leaves(shardings))])
-
-
-def batch_rows(batch: Mapping[str, torch.Tensor], mesh
-               ) -> Dict[str, torch.Tensor]:
+def batch_rows(batch: Mapping[str, torch.Tensor], mesh, *,
+               seq_axis: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """This rank's rows of a global batch, split over the batch axes as
-    :func:`batch_shardings` splits them; the rows must divide."""
+    :func:`batch_shardings` splits them; the rows must divide.  With
+    ``seq_axis`` (``"model"``), also this rank's columns of ``tokens``,
+    ``targets`` and ``loss_mask`` over that axis, as ``batch_specs``
+    splits them: the sequence is padded at its end to a multiple of the
+    axis with masked tokens (a ``loss_mask`` of ones is made first where
+    the batch has none), and the rank takes its equal chunk."""
     axes = [a for a in BATCH_AXES if a in mesh.shape]
     n = math.prod(mesh.shape[a] for a in axes)
     out = {}
@@ -597,7 +565,172 @@ def batch_rows(batch: Mapping[str, torch.Tensor], mesh
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
                              f"split over {axes} ({n}-way)")
         out[k] = _chunk(v, 0, axes, mesh)
+    if seq_axis is None or mesh.shape.get(seq_axis, 1) == 1:
+        return out
+    if "loss_mask" not in out:
+        out["loss_mask"] = torch.ones(out["targets"].shape,
+                                      dtype=torch.float32,
+                                      device=out["targets"].device)
+    m = mesh.shape[seq_axis]
+    for k in ("tokens", "targets", "loss_mask"):
+        v = out[k]
+        pad = (-v.shape[1]) % m
+        if pad:
+            v = torch.nn.functional.pad(v, (0, pad))
+        out[k] = _chunk(v, 1, [seq_axis], mesh)
     return out
+
+
+# --------------------------------------------------------------------------
+# the layout a training step computes in
+# --------------------------------------------------------------------------
+
+class TrainLayout:
+    """How this rank's step computes with its shards, as the reference's
+    GSPMD step lays it out (``models.common.mesh_context`` binds it).
+
+    Every leaf is all-gathered where the model reads it, through
+    :class:`Shards` (FSDP): a layer's leaves inside the function that
+    ``remat_call`` checkpoints, so the recompute gathers them again and no
+    whole layer outlives its use, the others (``embed``, ``final_norm``,
+    ...) at their use.  A leaf is gathered over the batch axes it is
+    split on, with the backward reduce-scattering the ranks' gradients
+    (``gather_sum_grads``); over the batch axes it is not split on, its
+    gradient is all-reduced.  So each leaf's gradient leaves the backward
+    summed over the ranks and cut to this rank's shard: no reduction is
+    left for the step.
+
+    ``split_model``: the model splits its work over ``model`` (a family
+    whose ``seq_parallel`` is true).  Its leaves keep their ``model``
+    split (a rank's q heads, its slice of ``d_ff``, its experts, its
+    slice of the vocabulary), the residual stream is this rank's
+    ``chunk`` of the sequence (``seq_len`` padded to a multiple of the
+    axis), and a leaf replicated over ``model`` has its gradient summed
+    over it (each rank's gradient is its tokens' or its heads' part).
+    Otherwise every ``model`` rank computes the same thing, the leaves are
+    gathered over ``model`` too (an expert leaf excepted, which the MoE
+    block keeps split) and that gather's backward keeps this rank's chunk.
+    """
+
+    def __init__(self, mesh, shardings, *, split_model: bool = False,
+                 seq_len: int = 0) -> None:
+        self.mesh = mesh
+        self.shardings = shardings
+        self.model_size = mesh.shape.get("model", 1)
+        self.split_model = bool(split_model) and self.model_size > 1
+        self.seq_len = seq_len
+        #: this rank's columns of the sequence: [seq_start, + chunk)
+        self.chunk = (-(-seq_len // self.model_size) if self.split_model
+                      else seq_len)
+        self.rank = mesh.coords.get("model", 0) if self.split_model else 0
+        self.seq_start = self.rank * self.chunk
+
+    def tree(self, params) -> "Shards":
+        """``params`` (this rank's shards, laid out as ``shardings``) as
+        the model reads them."""
+        return Shards(self, params, self.shardings, "")
+
+    def leaf(self, path: str, t: torch.Tensor,
+             split: Sequence[Tuple[str, ...]]) -> torch.Tensor:
+        """The shard ``t`` of the leaf at ``path``, split per dimension over
+        the axes ``split``, as the step computes with it."""
+        mesh = self.mesh
+        batch = [a for a in BATCH_AXES if a in mesh.shape]
+        used = {a for names in split for a in names}
+        sums = [a for a in batch if a not in used and mesh.shape[a] > 1]
+        if self.split_model and "model" not in used:
+            sums.append("model")
+        keep_model = self.split_model or expert_parallel(path)
+        if sums:
+            t = sum_grads_over(t, mesh, sums)
+        for d, names in enumerate(split):
+            # the innermost axis first: each gather joins whole chunks of
+            # the axis outside it
+            for a in reversed(names):
+                if mesh.shape[a] == 1:
+                    continue
+                if a in batch:
+                    t = gather_sum_grads(t, mesh, a, d)
+                elif not keep_model:
+                    t = gather_over(t, mesh, a, d)
+        return t
+
+    # -------------------------------------- the split over ``model``
+
+    def part(self, full: int) -> Tuple[int, int]:
+        """This rank's range ``[lo, hi)`` of a dimension of ``full``
+        entries split over ``model``: equal chunks, the last ones short
+        (or empty) where the axis does not divide."""
+        n = -(-full // self.model_size)
+        lo = min(self.rank * n, full)
+        return lo, min(lo + n, full)
+
+    def local(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """This rank's part of ``w`` along ``dim`` (``full`` entries whole):
+        ``w`` itself where it is stored split over ``model``; where it is
+        replicated (the split does not divide), a slice of it, whose
+        gradient the layout sums over ``model``."""
+        if not self.split_model or w.shape[dim] != full:
+            return w
+        lo, hi = self.part(full)
+        return w.narrow(dim, lo, hi - lo)
+
+    def whole(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """``w`` whole along ``dim``: all-gathered over ``model`` where it is
+        stored split, the backward summing the ranks' gradients."""
+        if not self.split_model or w.shape[dim] == full:
+            return w
+        return gather_sum_grads(w, self.mesh, "model", dim)
+
+    def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The whole (padded) sequence from the ranks' chunks."""
+        if not self.split_model:
+            return x
+        return gather_sum_grads(x, self.mesh, "model", dim)
+
+    def scatter_seq(self, y: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The sum of the ranks' partial ``y`` over the whole sequence,
+        this rank's chunk of it."""
+        if not self.split_model:
+            return y
+        return reduce_scatter_over(y, self.mesh, "model", dim)
+
+
+class Shards(MappingABC):
+    """A tree of this rank's shards that gathers a leaf where the model
+    reads it (:meth:`TrainLayout.leaf`).  Reading a subtree gives its
+    :class:`Shards`; :meth:`unstack` splits stacked layers into per-layer
+    trees (``models.common.unstack_layers`` calls it), whose leaves are
+    gathered when the layer reads them.  A leaf read twice is gathered
+    twice."""
+
+    def __init__(self, layout: TrainLayout, tree, shardings, path: str,
+                 layer: bool = False) -> None:
+        self._layout, self._tree, self._shardings = layout, tree, shardings
+        self._path, self._layer = path, layer
+
+    def __getitem__(self, key):
+        value, s = self._tree[key], self._shardings[key]
+        path = f"{self._path}/{key}" if self._path else str(key)
+        if isinstance(value, Mapping):
+            return Shards(self._layout, value, s, path, self._layer)
+        split = s._split((1,) * (value.dim() + self._layer))
+        return self._layout.leaf(path, value, split[self._layer:])
+
+    def __iter__(self) -> Iterator:
+        return iter(self._tree)
+
+    def __len__(self) -> int:
+        return len(self._tree)
+
+    def unstack(self, L: int) -> List["Shards"]:
+        """One tree per layer of stacked ``(L, ...)`` leaves, each leaf
+        unbound once (its backward stacks the L gradients once)."""
+        from ..models.common import unstack_layers
+
+        return [Shards(self._layout, t, self._shardings, self._path,
+                       layer=True)
+                for t in unstack_layers(self._tree, L)]
 
 
 # --------------------------------------------------------------------------

@@ -24,9 +24,11 @@ parameters and AdamW moments are stored split by the reference's rules
 draws the one-device initialisation from the same seed, keeps this rank's
 shard of each leaf and frees the module's weights (its parameters move to
 ``meta``; the loss reads only the tree it is given).  The step is
-``launch.steps.make_train_step``'s: it gathers the leaves, runs the loss
-on this rank's rows, reduces the gradients over the batch axes and
-updates the local shards.  Checkpoints are saved from the gathered
+``launch.steps.make_train_step``'s: the reference's GSPMD layout, each
+layer's weights gathered where it runs and its gradients reduced as the
+backward leaves it, the loss on this rank's rows (and, for
+``TransformerLM``, its chunk of the sequence), and AdamW on the local
+shards.  Checkpoints are saved from the gathered
 leaves by rank 0 and restored onto the mesh by slicing
 (``CheckpointManager(..., shardings=)``), so a checkpoint moves between
 mesh shapes and to one device.  The global batch must split over the

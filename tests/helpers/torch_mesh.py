@@ -1,6 +1,6 @@
 """Rank functions for the port's training-mesh tests
 (tests/test_torch_moe_ep.py, test_torch_mesh_train.py,
-test_torch_mesh_ckpt.py), run by ``helpers.torch_dist.run_ranks``: torch
+test_torch_mesh_ckpt.py, test_torch_mesh_layout.py), run by ``helpers.torch_dist.run_ranks``: torch
 only, never jax.  Each builds a ``(data, model)`` ``TrainMesh`` over the
 ranks' gloo group on the CPU and returns numpy arrays.
 """
@@ -21,7 +21,7 @@ from repro_torch.runtime import Trainer
 from repro_torch.tree import tree_flatten_with_path, tree_map
 
 __all__ = ["MaskedLM", "moe_ep_ranks", "mesh_train_ranks", "ckpt_ranks",
-           "trainer_cfg"]
+           "layout_ranks", "one_step", "patches_of", "trainer_cfg"]
 
 STEPS = 3
 
@@ -29,10 +29,12 @@ STEPS = 3
 class MaskedLM:
     """A package's ``SyntheticLM`` with a seeded ragged loss mask (a row's
     share of live tokens differs from row to row, so the data shards'
-    mask counts differ)."""
+    mask counts differ) and, given ``patches`` (P, D), seeded fp32
+    ``patch_embeds``."""
 
-    def __init__(self, base):
+    def __init__(self, base, patches=None):
         self.base = base
+        self.patches = patches
 
     def batch_at(self, step):
         b = self.base.batch_at(step)
@@ -40,7 +42,15 @@ class MaskedLM:
         B, S = b["tokens"].shape
         keep = rng.random((B, 1)) * 0.8 + 0.1
         b["loss_mask"] = (rng.random((B, S)) < keep).astype(np.float32)
+        if self.patches:
+            b["patch_embeds"] = (rng.standard_normal((B, *self.patches))
+                                 .astype(np.float32) * 0.5)
         return b
+
+
+def patches_of(cfg, on: bool):
+    """The ``patches`` argument of :class:`MaskedLM` for ``cfg``."""
+    return (cfg.num_patches, cfg.d_model) if on and cfg.num_patches else None
 
 
 def trainer_cfg(pkg, opt, accum, steps=STEPS, ckpt_every=10 ** 9):
@@ -53,8 +63,7 @@ def trainer_cfg(pkg, opt, accum, steps=STEPS, ckpt_every=10 ** 9):
 
 def _whole(tree, shardings):
     """Every leaf gathered whole, by its path: numpy arrays."""
-    return {"/".join(map(str, p)): gather_leaf(
-                "/".join(map(str, p)), t, s, whole=True).numpy().copy()
+    return {"/".join(map(str, p)): gather_leaf(t, s).numpy().copy()
             for (p, t), (_, s) in zip(tree_flatten_with_path(tree),
                                       tree_flatten_with_path(shardings))}
 
@@ -73,10 +82,16 @@ def _ported(cfg, weights):
 # ------------------------------------------------------------ MoE block
 
 def moe_ep_ranks(rank, n, data, model, cfg, x, p, w):
-    """``moe_block`` on a (data, model) mesh: this rank's rows of ``x``
-    and its experts; the objective sum(out * w) + aux.  Returns its
-    output rows, the aux, the gradients of its rows of x, of the router
-    and of its experts."""
+    """``moe_block`` on a (data, model) mesh, as a training layer calls
+    it: this rank's rows of ``x`` and its chunk of their sequence (padded
+    to a multiple of ``model``), its experts, and the layout's gradient
+    sum over ``model`` on the leaves it holds whole; the objective
+    sum(out * w) + aux.  Returns its rows' output, the aux, the gradients
+    of its rows of x (the chunks joined), of the router and of its
+    experts."""
+    from repro_torch.parallel.collectives import sum_grads_over
+    from repro_torch.parallel.sharding import TrainLayout
+
     mesh = _on_mesh(data, model)
     rows = x.shape[0] // data
     lo = mesh.coords["data"] * rows
@@ -84,19 +99,34 @@ def moe_ep_ranks(rank, n, data, model, cfg, x, p, w):
     E = cfg.num_experts
     e_loc = E // M if E % M == 0 else E
     e_lo = mesh.coords["model"] * e_loc if E % M == 0 else 0
-    xr = torch.from_numpy(x[lo:lo + rows]).requires_grad_(True)
+    S = x.shape[1]
+    layout = TrainLayout(mesh, None, split_model=True, seq_len=S)
+    c, start = layout.chunk, layout.seq_start
+
+    def chunk(a):
+        a = torch.from_numpy(a[lo:lo + rows])
+        a = torch.nn.functional.pad(a, (0, 0, 0, c * M - S))
+        return a[:, start:start + c].clone()
+
+    xr = chunk(x).requires_grad_(True)
     leaves = {k: torch.from_numpy(v[e_lo:e_lo + e_loc] if k in
                                   ("wg", "wu", "wd") else v)
               .requires_grad_(True) for k, v in p.items()}
-    with mesh_context(mesh):
-        out, aux = moe_block(xr, leaves, cfg)
-        obj = torch.sum(out * torch.from_numpy(w[lo:lo + rows])) + aux
+    whole = [k for k in leaves if k not in ("wg", "wu", "wd")
+             or E % M != 0]
+    used = {k: sum_grads_over(t, mesh, ("model",)) if k in whole else t
+            for k, t in leaves.items()}
+    with mesh_context(mesh, layout):
+        out, aux = moe_block(xr, used, cfg)
+        obj = torch.sum(out * chunk(w)) + aux
     grads = torch.autograd.grad(obj, [xr] + list(leaves.values()))
-    return {"out": out.detach().numpy(), "aux": float(aux.detach()),
+    joined = lambda t: mesh.all_gather(t.detach(), "model", 1)[:, :S]
+    return {"out": joined(out).numpy(), "aux": float(aux.detach()),
             "coords": dict(mesh.coords), "rows": (lo, rows),
             "experts": (e_lo, e_loc),
             "grads": {k: g.numpy() for k, g in
-                      zip(["x"] + list(leaves), grads)}}
+                      zip(["x"] + list(leaves), [joined(grads[0])]
+                          + list(grads[1:]))}}
 
 
 def remat_thread_ranks(rank, n, cfg, x, p):
@@ -106,16 +136,19 @@ def remat_thread_ranks(rank, n, cfg, x, p):
     import threading
 
     from repro_torch.models.common import remat_call
+    from repro_torch.parallel.sharding import TrainLayout
 
     mesh = _on_mesh(1, n)
+    layout = TrainLayout(mesh, None, split_model=True, seq_len=x.shape[1])
     e = cfg.num_experts // n
     leaves = {k: torch.from_numpy(v[rank * e:(rank + 1) * e] if k in
                                   ("wg", "wu", "wd") else v)
               for k, v in p.items()}
+    mine = x[:, layout.seq_start:layout.seq_start + layout.chunk]
     grads = []
     for threaded in (False, True):
-        xr = torch.from_numpy(x).requires_grad_(True)
-        with mesh_context(mesh):
+        xr = torch.from_numpy(mine.copy()).requires_grad_(True)
+        with mesh_context(mesh, layout):
             out = remat_call(lambda t: moe_block(t, leaves, cfg)[0], xr)
         run = lambda: grads.append(torch.autograd.grad(out.sum(), [xr])[0])
         if threaded:
@@ -130,13 +163,14 @@ def remat_thread_ranks(rank, n, cfg, x, p):
 # --------------------------------------------------------------- trainer
 
 def _mesh_trainer(mesh, cfg, weights, accum, steps, seq, ckpt=None,
-                  ckpt_every=10 ** 9, start=0):
+                  ckpt_every=10 ** 9, start=0, patches=False):
     import repro_torch.optim as PO
     import repro_torch.runtime as PR
 
     model = _ported(cfg, weights)
     dc = DataConfig(global_batch=4, seq_len=seq, vocab_size=cfg.vocab_size)
-    loader = Loader(MaskedLM(SyntheticLM(dc)), dc, start_step=start)
+    loader = Loader(MaskedLM(SyntheticLM(dc), patches_of(cfg, patches)), dc,
+                    start_step=start)
     tr = Trainer(model, loader, trainer_cfg(PR, PO, accum, steps, ckpt_every),
                  ckpt=ckpt, mesh=mesh)
     return tr, loader
@@ -149,12 +183,13 @@ def mesh_train_ranks(rank, n, data, model, cases):
     return {name: _train_case(mesh, *args) for name, *args in cases}
 
 
-def _train_case(mesh, cfg, weights, accum, seq):
+def _train_case(mesh, cfg, weights, accum, seq, patches=False):
     """``STEPS`` steps of ``Trainer(mesh=)`` from ``weights``: the metrics
     log, the whole parameters after (gathered), this rank's resident
     elements of parameters and moments and the shard shapes the rules
     give, and the elements ``init_state`` keeps."""
-    tr, loader = _mesh_trainer(mesh, cfg, weights, accum, STEPS, seq)
+    tr, loader = _mesh_trainer(mesh, cfg, weights, accum, STEPS, seq,
+                               patches=patches)
     sh = tr.shardings
     start = param_tree(tr.model)
     params = tree_map(torch.clone, shard_tree(start, sh["params"]))
@@ -180,6 +215,55 @@ def _train_case(mesh, cfg, weights, accum, seq):
     return {"log": tr.metrics_log, "params": whole, "resident": resident,
             "moments": moments, "want": want, "shapes_ok": shapes_ok,
             "init_elems": init_elems, "freed": freed}
+
+
+# ------------------------------------------------- one step's gradients
+
+def one_step(mesh, cfg, weights, seq, patches=False):
+    """One ``make_train_step`` step from ``weights`` (on ``mesh``, or one
+    device if None) on :class:`MaskedLM`'s step-0 batch: the gradient
+    AdamW receives, each leaf whole by path, and the step's FLOPs as
+    ``launch.hlo_cost.CostMode`` counts them on this rank."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.hlo_cost import analyze_graph
+    from repro_torch.parallel.sharding import param_shardings
+
+    model = _ported(cfg, weights)
+    params, sh = param_tree(model), None
+    if mesh is not None:
+        sh = param_shardings(params, mesh, heads_divisible=cfg.num_heads
+                             % mesh.shape["model"] == 0)
+        params = tree_map(torch.clone, shard_tree(params, sh))
+    dc = DataConfig(global_batch=4, seq_len=seq, vocab_size=cfg.vocab_size)
+    data = MaskedLM(SyntheticLM(dc), patches_of(cfg, patches))
+    batch = {k: torch.as_tensor(v) for k, v in data.batch_at(0).items()}
+    seen, real = {}, steps.adamw_update
+
+    def spy(grads, *a, **kw):
+        seen["grads"] = grads
+        return real(grads, *a, **kw)
+
+    steps.adamw_update = spy
+    try:
+        cost, _ = analyze_graph(steps.make_train_step(model, shardings=sh),
+                                (params, adamw_init(params), batch))
+    finally:
+        steps.adamw_update = real
+    grads = seen["grads"]
+    whole = _whole(grads, sh) if sh is not None else {
+        "/".join(map(str, p)): t.numpy().copy()
+        for p, t in tree_flatten_with_path(grads)}
+    return {"grads": whole, "flops": cost.flops}
+
+
+def layout_ranks(rank, n, data, model, train_cases, step_cases):
+    """On one (data, model) mesh: each ``train_cases`` entry ``(name, cfg,
+    weights, accum, seq, patches)`` trained (:func:`_train_case`'s
+    results), then each ``step_cases`` entry ``(name, cfg, weights, seq,
+    patches)`` stepped once (:func:`one_step`'s)."""
+    mesh = _on_mesh(data, model)
+    return ({name: _train_case(mesh, *args) for name, *args in train_cases},
+            {name: one_step(mesh, *args) for name, *args in step_cases})
 
 
 # ----------------------------------------------------------- checkpoints

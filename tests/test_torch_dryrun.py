@@ -1,6 +1,7 @@
 """The port's dry run (``repro_torch.launch.dryrun``): one production cell
-end to end in a subprocess as rank 0 of a fake world of 256, the cells it
-declines, and one cell beside the reference's own dry-run JSON."""
+end to end in a subprocess as rank 0 of a fake world of 256, a dense
+``train_4k`` cell's peak and useful-FLOP ratio, the cells it declines,
+and one cell beside the reference's own dry-run JSON."""
 
 import json
 import subprocess
@@ -52,6 +53,19 @@ def test_dryrun_cell_subprocess(tmp_path, mesh_flag, chips):
     assert d["rank_rows"] == 128 // (chips // 16)
     assert r["useful_flop_ratio"] == pytest.approx(
         d["model_flops"] / (d["hlo_flops_per_chip"] * chips))
+
+
+def test_dryrun_dense_train_cell_fits_and_splits_the_work(tmp_path):
+    """gemma2-9b ``train_4k`` on 16 x 16: with the weights gathered layer
+    by layer and the work split over ``model`` (``launch/steps.py``), a
+    rank's peak fits one H100's 80 GB and its FLOPs are within 2x of its
+    share of 6·N·tokens (a rank that repeated the step read 0.042)."""
+    d = _port_cell(tmp_path, arch="gemma2-9b", shape="train_4k")
+    assert d["kind"] == "train" and d["chips"] == 256
+    assert d["memory"]["fits"] is True
+    assert d["memory"]["peak_bytes"] <= 80e9
+    assert d["roofline"]["useful_flop_ratio"] >= 0.5
+    assert "reduce-scatter" in d["collectives"]
 
 
 def test_dryrun_skips_ineligible_cell(tmp_path):
