@@ -227,7 +227,37 @@ prints no result line):
    training cell that does not fit fails) and the useful-FLOP ratio
    (``[dryrun]``).  ``--phases 1,2,19`` runs it alone.
 
-With all nineteen, a summary follows: one ``{"kernels": [...]}`` line (each
+20. serving on a mesh in the reference's serving layout
+   (``make_prefill_fn`` / ``make_decode_fn(shardings=, layout="seq")``:
+   the weights at rest in the serving rules' shards, each layer's
+   gathered where it runs, the prefill sequence-parallel over ``model``,
+   the decode cache each rank's window of its rows), gloo ranks on
+   ``cuda:0``, each cell against one device running the same weights,
+   dtype (bf16) and prompt: (a) gemma2-9b at its published widths, 4 of
+   42 layers, on (data=2, model=2): 4 lanes of a 1280-token prompt into a
+   cache of 2048 (the prompt crosses the ranks' window boundary at 1024),
+   then 64 greedy decode steps on rank 1's window; each rank runs K2 on 8
+   of the 16 heads at head dim 256 with window and softcap
+   (``[mesh-serve-dense]``); (b) qwen2.5-32b, 2 of 64 layers, on (1, 3):
+   its 40 heads, 1000 tokens and 2048 rows divide 3 none, so attention
+   splits by query rows on a padded sequence (the plain route: K2 takes
+   no query offset) and the cache stays whole (``[mesh-serve-sp]``); (c)
+   qwen3-moe-235b-a22b, 1 of 94 layers, on (1, 2), its capacity factor
+   raised so no copy is dropped on one device or on a shard, 64 experts a
+   rank (``[mesh-serve-moe]``).  Each rank's logits at every step, its
+   greedy tokens (fed one device's) and its window of the cache after the
+   prefill and after the steps against one device's
+   (``MESH_SERVE_LOGIT_REL``, ``MESH_SERVE_CACHE_REL``; a token may differ
+   only where one device's top-2 margin is under twice the logit
+   difference there; a logits row whose token took other experts is
+   logged and left out of the logits limit); each rank's K2 launches on
+   a line of its own, its
+   weights and peak memory beside one device's.  The ranks time-share
+   one card: times check the path and are not a parallel speed.
+   ``--phases 1,2,20`` runs it alone; ``--mesh-serve-cells dense`` runs
+   only those of its cells.
+
+With all twenty, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
 line.  ``--phases 1,2,3`` runs a subset and prints no result line (without
 2, the kernels build at their first launch).  ``--src DIR`` imports
@@ -5138,6 +5168,344 @@ def phase_cost_model() -> dict:
     return decode["launches"]
 
 
+# ------------------------------------------------------------- phase 20
+
+#: phase 20's cells, all run by default (``--mesh-serve-cells``)
+MESH_SERVE_CELLS = ("dense", "sp", "moe")
+#: per cell: (arch, layers, (data, model), lanes, prompt tokens, max_seq,
+#: greedy decode steps).  dense: the prompt crosses the ranks' window
+#: boundary at 1024 and the steps land on rank 1's window; sp: neither the
+#: 40 q heads, the 1000 tokens nor the 2048 rows divide 3 (the query-rows
+#: split on a padded sequence, the cache whole on every rank)
+MESH_SERVE = {
+    "dense": ("gemma2-9b", 4, (2, 2), 4, 1280, 2048, 64),
+    "sp": ("qwen2.5-32b", 2, (1, 3), 4, 1000, 2048, 16),
+    "moe": ("qwen3-moe-235b-a22b", 1, (1, 2), 2, 512, 1024, 16),
+}
+#: the mesh's logits (relative L2, each step's rows) and each rank's cache
+#: window (relative L2, each layer) against one device's, bf16.  Each rank
+#: rounds its partial products (its heads' share of ``wo``, its slice of
+#: ``d_ff``) to bf16 before they are summed over ``model``, where one
+#: device rounds each whole product once, so neither is bit-equal (layer
+#: 0's cache, before any such sum, is).  Sound runs on the H100 read
+#: 0.0547-0.056 (logits) and 0.0263-0.0289 (caches, the deepest layer)
+#: for gemma2-9b x4, 0.00774 / 0.00522 for qwen2.5-32b x2 and 0.00903 / 0
+#: for qwen3-moe x1; copies of src/ whose decode softmax is each rank's
+#: own, or whose cache write ignores the rank's window, read 1.08 / 0.433
+#: and 0.899 / 0.45.  The limits sit 1.8x and 1.7x above the sound
+#: readings, 9x below the broken ones.  A logits row whose token took
+#: other experts than on one device (a near tie of the router, moved by
+#: that rounding) is logged and left out: one expert more or less is a
+#: different sum, not a rounding
+MESH_SERVE_LOGIT_REL, MESH_SERVE_CACHE_REL = 0.1, 0.05
+
+
+def _serve_cfg(cell: str):
+    """The cell's config: published widths, cut in depth; the MoE's
+    capacity factor raised to E / k, so that no copy is dropped on one
+    device or on a shard and the two route alike."""
+    from repro_torch.configs import get_config
+
+    arch, layers = MESH_SERVE[cell][:2]
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    return cfg
+
+
+def _serve_model(cfg):
+    from repro_torch.models import build_model
+
+    return build_model(cfg, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0))
+
+
+def _serve_one_device(cell: str, path: str) -> dict:
+    """The cell on one device (the same weights, dtype and prompt): the
+    prefill, then greedy decode steps, saved to ``path`` for the ranks
+    (prompt, greedy tokens, each step's logits, the cache after the
+    prefill and after the steps).  Returns its K2 launches, peak memory
+    and times."""
+    _, _, _, B, S, max_seq, steps = MESH_SERVE[cell]
+    cfg = _serve_cfg(cell)
+    model = _serve_model(cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=(
+        torch.Generator().manual_seed(20)), dtype=torch.int32)
+    counters = _zero_counters()
+    routes: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _spy_routing(_route_log(routes)):
+        t0 = time.perf_counter()
+        state, logits = model.prefill(prompt.cuda(), max_seq=max_seq)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        cache0 = [state[k].to("cpu", copy=True)
+                  for k in ("cache_k", "cache_v")]
+        rows, stream, times = [logits.cpu()], [], []
+        for _ in range(steps):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            stream.append(tok.cpu())
+            t0 = time.perf_counter()
+            state, logits = model.decode_step(state, tok)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rows.append(logits.cpu())
+    out = {"k2": counters["flash_attention"].launches,
+           "peak": torch.cuda.max_memory_allocated(),
+           "prefill_s": t_prefill, "step_ms": float(np.median(times)) * 1e3}
+    torch.save({"prompt": prompt, "stream": torch.stack(stream),
+                "logits": torch.stack(rows), "cache0": cache0,
+                "cache1": [state[k].cpu() for k in ("cache_k", "cache_v")],
+                "routes": _logit_row_routes(routes, cfg.num_layers, B, S, 0,
+                                            S)},
+               path)
+    return out
+
+
+def _route_log(routes: list):
+    """A ``_spy_routing`` recorder keeping each call's experts, sorted."""
+    return lambda x, r, cfg, lossless: routes.append(
+        torch.sort(r.top_idx, dim=-1).values.cpu())
+
+
+def _logit_row_routes(routes: list, layers: int, lanes: int, S: int,
+                      start: int, c: int) -> list:
+    """The experts each logits row's token took, per layer: for the
+    prefill, the last prompt token of each lane where this process routed
+    it (the prefill's calls route ``lanes`` x ``c`` tokens from sequence
+    row ``start``, or all S), else None; then each decode step's lanes.
+    Empty for a model without experts."""
+    if not routes:
+        return []
+    out = []
+    pre = routes[:layers]
+    T = pre[0].shape[0]
+    n = S if T == lanes * S else c
+    at = S - 1 - (0 if n == S else start)
+    out.append(torch.stack([t.view(lanes, n, -1)[:, at] for t in pre])
+               if 0 <= at < n else None)
+    for i in range(layers, len(routes), layers):
+        out.append(torch.stack(routes[i:i + layers]))
+    return out
+
+
+def _window_rel(got: torch.Tensor, want: torch.Tensor) -> list:
+    """The relative L2 distance of each layer (dimension 0)."""
+    g, w = got.float(), want.float()
+    return [float(torch.linalg.norm(g[l] - w[l])
+                  / max(float(torch.linalg.norm(w[l])), 1e-30))
+            for l in range(w.shape[0])]
+
+
+def _job_serve(cell: str, path: str) -> dict:
+    """A rank of the cell: the weights at rest in the serving rules'
+    shards, the prefill and the decode steps (fed one device's greedy
+    tokens) through ``make_prefill_fn`` / ``make_decode_fn(shardings=)``
+    in the ``seq`` layout, held to one device's saved run: logits, greedy
+    tokens and the rank's window of the cache.  Returns its judgements,
+    K2 launches, peak memory and times."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_decode_fn, make_prefill_fn
+    from repro_torch.models.common import param_tree
+    from repro_torch.parallel.sharding import param_shardings, shard_tree
+    from repro_torch.tree import tree_map
+
+    _, _, (data, model_n), B, S, max_seq, steps = MESH_SERVE[cell]
+    mesh = make_host_mesh(data, model_n, device="cuda")
+    cfg = _serve_cfg(cell)
+    model = _serve_model(cfg)
+    full = param_tree(model)
+    sh = param_shardings(full, mesh, mode="serve",
+                         heads_divisible=cfg.num_heads % model_n == 0)
+    params = tree_map(torch.clone, shard_tree(full, sh))
+    p_bytes = _tree_bytes(params)
+    p_whole = _tree_bytes(full)
+    del full
+    for t in model.parameters():          # only the shards stay
+        t.data = torch.empty(0, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = torch.load(path, mmap=True)
+    prefill = make_prefill_fn(model, max_seq=max_seq, shardings=sh,
+                              layout="seq")
+    decode = make_decode_fn(model, shardings=sh, layout="seq",
+                            max_seq=max_seq)
+    counters = _zero_counters()
+    mesh.staged_bytes = 0
+    rows = B // data
+    lo = mesh.coords["data"] * rows
+    routes: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _spy_routing(_route_log(routes)):
+        t0 = time.perf_counter()
+        state, logits = prefill(params, {"tokens": ref["prompt"].cuda()})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        k2_prefill = counters["flash_attention"].launches
+        pre = [state[k].to("cpu", copy=True) for k in ("cache_k", "cache_v")]
+        got, times = [logits.float().cpu()], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, logits = decode(params, state,
+                                   ref["stream"][i][lo:lo + rows].cuda())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got.append(logits.float().cpu())
+    c0 = pre[0].shape[2]
+    r0 = mesh.coords["model"] * c0 if c0 < max_seq else 0
+    win = (slice(None), slice(lo, lo + rows), slice(r0, r0 + c0))
+
+    def window_rel(name, caches):
+        """Per layer, the larger of K's and V's distance to one device's."""
+        return [max(kv) for kv in zip(*(_window_rel(t, ref[name][i][win])
+                                        for i, t in enumerate(caches)))]
+
+    cache0 = window_rel("cache0", pre)
+    cache1 = window_rel("cache1", [state[k].cpu()
+                                   for k in ("cache_k", "cache_v")])
+    c = -(-S // model_n)
+    mine = _logit_row_routes(routes, cfg.num_layers, rows, S,
+                             mesh.coords["model"] * c, c)
+    flips = [(i, lo + b) for i, (m, w) in enumerate(zip(mine, ref["routes"]))
+             if m is not None
+             for b in range(rows) if not torch.equal(m[:, b],
+                                                     w[:, lo + b])]
+    rel, forks, clear = [], 0, []
+    for i, g in enumerate(got):
+        w = ref["logits"][i][lo:lo + rows].float()
+        rel.append([(float(torch.linalg.norm(g[b] - w[b])),
+                     float(torch.linalg.norm(w[b]))) for b in range(rows)])
+        for b in range(rows):
+            if int(torch.argmax(g[b])) == int(torch.argmax(w[b])):
+                continue
+            forks += 1
+            top2 = torch.topk(w[b], 2).values
+            if float(top2[0] - top2[1]) >= 2 * float((g[b] - w[b]).abs()
+                                                     .max()):
+                clear.append((i, lo + b))
+    return {"launches": {k: fn.launches for k, fn in counters.items()},
+            "k2_prefill": k2_prefill, "peak": torch.cuda.max_memory_allocated(),
+            "p_bytes": p_bytes, "p_whole": p_whole,
+            "window": (lo, lo + rows, r0, r0 + c0), "rel": rel,
+            "flips": flips, "forks": forks, "clear": clear,
+            "cache_rel": (cache0, cache1), "prefill_s": t_prefill,
+            "step_ms": float(np.median(times)) * 1e3,
+            "staged": mesh.staged_bytes}
+
+
+def _logit_rel(x: dict, skip) -> float:
+    """A rank's largest relative L2 distance of a step's logits rows to one
+    device's, the rows ``skip`` (step, lane) left out."""
+    lo = x["window"][0]
+    worst = 0.0
+    for i, step in enumerate(x["rel"]):
+        kept = [dw for b, dw in enumerate(step) if (i, lo + b) not in skip]
+        if kept:
+            d = sum(a * a for a, _ in kept) ** 0.5
+            w = sum(b * b for _, b in kept) ** 0.5
+            worst = max(worst, d / max(w, 1e-30))
+    return worst
+
+
+def _mesh_serve(cell: str) -> int:
+    """One cell: one device, then the ranks against it.  Returns the K2
+    launches summed over the ranks."""
+    import tempfile
+
+    arch, layers, (data, model_n), B, S, max_seq, steps = MESH_SERVE[cell]
+    tag = f"mesh-serve-{cell}"
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "one_device.pt")
+        t0 = time.perf_counter()
+        one = _serve_one_device(cell, path)
+        _free_card()
+        t1 = time.perf_counter()
+        ranks = _run_mesh(_job_serve, data * model_n, cell, path)
+        t2 = time.perf_counter()
+    k2 = [r["launches"]["flash_attention"] for r in ranks]
+    flips = sorted({f for x in ranks for f in x["flips"]})
+    for x in ranks:
+        x["logit_rel"] = _logit_rel(x, flips)
+        x["logit_rel_all"] = _logit_rel(x, [])
+    for r, x in enumerate(ranks):
+        lo, hi, r0, r1 = x["window"]
+        log(f"[{tag}] rank {r}: K2 launches {x['launches']['flash_attention']}"
+            f" ({x['k2_prefill']} in the prefill), other kernels "
+            f"{ {k: v for k, v in x['launches'].items() if k != 'flash_attention'} }")
+        log(f"[{tag}] rank {r}: lanes [{lo}, {hi}), cache rows [{r0}, {r1}) "
+            f"of {max_seq}: cache within "
+            f"{[round(e, 4) for e in x['cache_rel'][0]]} / "
+            f"{[round(e, 4) for e in x['cache_rel'][1]]} of one device's "
+            f"(relative L2 by layer, after the prefill / the steps); logits "
+            f"within {x['logit_rel']:.3g}; "
+            f"{x['forks']} greedy tokens of {(steps + 1) * (hi - lo)} differ, "
+            f"{len(x['clear'])} at a clear margin; weights "
+            f"{x['p_bytes'] / 1e9:.3f} GB of {x['p_whole'] / 1e9:.3f}; peak "
+            f"(max_memory_allocated) {x['peak'] / 1e9:.2f} GB against one "
+            f"device's {one['peak'] / 1e9:.2f}; prefill {x['prefill_s']:.2f}"
+            f" s, decode step {x['step_ms']:.1f} ms (one device "
+            f"{one['prefill_s']:.2f} s, {one['step_ms']:.1f} ms; ranks "
+            f"time-sharing one card over gloo: not a parallel speed); "
+            f"{x['staged'] / 1e9:.2f} GB staged through the host")
+    worst = max(x["logit_rel"] for x in ranks)
+    every = max(x["logit_rel_all"] for x in ranks)
+    cache = max(max(max(c) for c in x["cache_rel"]) for x in ranks)
+    if flips:
+        log(f"[{tag}] {len(flips)} of {(steps + 1) * B} logits rows come "
+            f"from a token whose experts differ from one device's at a "
+            f"layer (step, lane): {flips[:12]}; over every row the logits "
+            f"are within {every:.3g}; the limit below holds the others")
+    clear = [x["clear"] for x in ranks if x["clear"]]
+    log(f"[{tag}] {arch} x{layers} {_serve_cfg(cell).dtype} on "
+        f"(data={data}, model={model_n}), "
+        f"{data * model_n} gloo ranks on cuda:0, {B} lanes of {S} tokens "
+        f"into a cache of {max_seq} (seq layout, serving rules), {steps} "
+        f"greedy steps: logits within {worst:.3g}, caches within "
+        f"{cache:.3g} of one device's (limits {MESH_SERVE_LOGIT_REL:g}, "
+        f"{MESH_SERVE_CACHE_REL:g}); K2 {k2} a rank, one device "
+        f"{one['k2']}; one device {t1 - t0:.1f} s, the ranks {t2 - t1:.1f}"
+        f" s with the spawn")
+    if worst > MESH_SERVE_LOGIT_REL or cache > MESH_SERVE_CACHE_REL or clear:
+        raise AssertionError(f"[{tag}] off one device: logits {worst:.3g}, "
+                             f"caches {cache:.3g}, forks at clear margins "
+                             f"{clear}")
+    other = [x["launches"] for x in ranks
+             if any(v for k, v in x["launches"].items()
+                    if k != "flash_attention")]
+    if other:
+        raise AssertionError(f"[{tag}] kernels other than K2 launched: "
+                             f"{other}")
+    cfg = _serve_cfg(cell)
+    if cfg.num_heads % model_n == 0 and one["k2"] and not all(k2):
+        raise AssertionError(f"[{tag}] K2 launches {k2}: a rank computing "
+                             "whole q heads ran the plain route")
+    return sum(k2)
+
+
+def phase_mesh_serving() -> dict:
+    """Phase 20: ``TransformerLM`` served on a mesh in the reference's
+    serving layout, gloo ranks on ``cuda:0``, each cell of
+    ``--mesh-serve-cells`` against one device.  Returns the ranks' K2
+    launches."""
+    import multiprocessing
+
+    k2 = 0
+    for cell in MESH_SERVE_CELLS:
+        k2 += _mesh_serve(cell)
+        _free_card()
+    left = [p.pid for p in multiprocessing.active_children()
+            if p.name.startswith("repro-torch-rank")]
+    if left:
+        raise AssertionError(f"[mesh-serve] ranks left: {left}")
+    log("[mesh-serve] every rank started here has ended")
+    out = {name: 0 for name in _launch_counters()}
+    out["flash_attention"] = k2
+    return out
+
+
 def _free_card() -> None:
     """Frees what a serving phase left behind (its model and engine are
     garbage once it returns) and logs what stays allocated."""
@@ -5151,13 +5519,16 @@ def _free_card() -> None:
 
 
 def main(argv=None) -> int:
-    global MESH_CELLS
+    global MESH_CELLS, MESH_SERVE_CELLS
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19")
+                            "19,20")
     ap.add_argument("--mesh-cells", default=",".join(MESH_CELLS),
                     help="phase 18's cells to run, of " + ",".join(MESH_CELLS))
+    ap.add_argument("--mesh-serve-cells", default=",".join(MESH_SERVE_CELLS),
+                    help="phase 20's cells to run, of "
+                         + ",".join(MESH_SERVE_CELLS))
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="where to import repro_torch from (another "
                          "checkout's src/, to run its kernels and models "
@@ -5166,6 +5537,8 @@ def main(argv=None) -> int:
     phases = {int(p) for p in args.phases.split(",")}
     MESH_CELLS = tuple(c for c in MESH_CELLS
                        if c in args.mesh_cells.split(","))
+    MESH_SERVE_CELLS = tuple(c for c in MESH_SERVE_CELLS
+                             if c in args.mesh_serve_cells.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs the port on an NVIDIA GPU", file=sys.stderr)
@@ -5192,8 +5565,8 @@ def main(argv=None) -> int:
         results["segment_zero"] = check_segment_zero()
         log(f"[smoke] phase 3 took {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the serving paths, by phase (K1: phases 4,
-    # 8, 9, 11, 13, 16, 17 and 19; K2: 4, 7, 8, 9, 10, 11, 12, 13, 16 and
-    # 17, phase 17's summed over the shard workers; K3: 6);
+    # 8, 9, 11, 13, 16, 17 and 19; K2: 4, 7, 8, 9, 10, 11, 12, 13, 16, 17
+    # and 20, phases 17's and 20's summed over the ranks; K3: 6);
     # K4 is on no path, and the paths of phases 14, 15 and 18 have no kernel
     runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
             7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
@@ -5201,7 +5574,7 @@ def main(argv=None) -> int:
             12: phase_hybrid_serving, 13: phase_vlm, 14: phase_whisper,
             15: phase_training, 16: phase_orchestration,
             17: phase_tensor_parallel, 18: phase_mesh_training,
-            19: phase_cost_model}
+            19: phase_cost_model, 20: phase_mesh_serving}
     by_phase = {name: {} for name in _launch_counters()}
     for n, phase in runs.items():
         if n in phases:
@@ -5211,7 +5584,7 @@ def main(argv=None) -> int:
                     by_phase[name][n] = count
             _free_card()
             log(f"[smoke] phase {n} took {time.perf_counter() - t0:.1f} s")
-    if not set(range(3, 20)) <= phases:
+    if not set(range(3, 21)) <= phases:
         log(f"[smoke] phases {sorted(phases)} passed; no result line")
         return 0
     meta = {

@@ -25,14 +25,21 @@ on CPU fake tensors.
   rank's own tokens) on its rows of the global batch (split over ``pod``
   and ``data``).  ``RwkvLM``, the hybrid and whisper still repeat their
   whole forward and backward on every ``model`` rank.
-* ``prefill`` / ``decode``: no arch's head counts divide the ``model`` axis
-  of 16, so the tensor-parallel serving path (the models' ``tp_*`` hooks)
-  shards none of them; the rank gathers every weight whole from the same
-  rules (``--serve-params``: the serving rules), the experts too, as
-  serving replicates them (``models/moe.py``), and runs ``make_prefill_fn`` /
-  ``make_decode_fn`` on its rows of the batch, with its rows of the dense
-  decode cache whole (the reference's ``--decode-layout`` shards the cache
-  over ``model``; the port has no such layout, and ``heads`` is ``n/a``).
+* ``prefill`` / ``decode`` of a ``TransformerLM``: the reference's serving
+  cell.  The weights rest in their shards (the training rules, or the
+  serving rules with ``--serve-params``) and each layer's are gathered
+  when it runs, a ``model`` split kept where the work is split by it (q
+  heads, ``d_ff``, experts, the vocabulary); ``make_prefill_fn`` /
+  ``make_decode_fn(shardings=, layout=)`` run on the rank's rows of the
+  batch (split over ``pod`` and ``data`` where they divide), the prefill
+  sequence-parallel over ``model``, and the decode state is the rank's
+  shards of ``decode_state_shardings(layout=--decode-layout)``: the
+  cache's rows (``seq``) or kv heads (``heads``) split over ``model``
+  where the axis divides them, else whole, as the reference lays it out.
+* ``prefill`` / ``decode`` of ``RwkvLM``, the hybrid and whisper: the
+  rank gathers every weight whole from the same rules and runs the
+  serving step on its rows of the batch, with its rows of the decode
+  state whole (``decode_layout`` ``none`` in the record).
 
 The model is built with ``impl="xla"``, as the reference's dry run
 builds it: the plain routes, never a kernel.  The plain per-token
@@ -78,8 +85,8 @@ from ..configs import SHAPES, cells_for, get_config, list_archs
 from ..models import build_model
 from ..models.common import ArchConfig, param_tree
 from ..optim import adamw_init
-from ..parallel.sharding import BATCH_AXES, batch_rows, gather_tree, \
-    param_shardings, shard_tree
+from ..parallel.sharding import BATCH_AXES, batch_rows, \
+    decode_state_shardings, gather_tree, param_shardings, shard_tree
 from ..tree import tree_leaves, tree_map
 from .hlo_cost import analyze_graph
 from .mesh import make_production_mesh
@@ -106,15 +113,11 @@ def model_flops(cfg: ArchConfig, kind: str, batch: int, seq: int) -> float:
     return 2.0 * n * batch  # decode: one token per sequence
 
 
-def port_skip(decode_layout: str, remat: str) -> Optional[str]:
+def port_skip(remat: str) -> Optional[str]:
     """Why the port has no program for these options, or None."""
     if remat != "full":
         return (f"--remat {remat}: the port's layers remat in full "
                 "(models/common.py remat_call)")
-    if decode_layout != "seq":
-        return (f"--decode-layout {decode_layout}: the port's mesh keeps "
-                "each rank's rows of the decode cache whole, no layout "
-                "shards it")
     return None
 
 
@@ -158,7 +161,7 @@ def _fake(t: torch.Tensor, device) -> torch.Tensor:
 
 
 def build_cell(arch: str, shape_name: str, mesh, *,
-               serve_params: bool = False
+               serve_params: bool = False, decode_layout: str = "seq"
                ) -> Tuple[Any, tuple, Dict[str, Any]]:
     """(step, its arguments, meta) of rank 0's step on ``mesh`` (a
     production mesh on the fake world); call it inside a
@@ -177,13 +180,33 @@ def build_cell(arch: str, shape_name: str, mesh, *,
     shardings = param_shardings(full, mesh, mode=mode, heads_divisible=hd_div)
     shards = tree_map(torch.clone, shard_tree(full, shardings))
 
+    layout = decode_layout
     if shape.kind == "train":
         batch = {k: _fake(v, dev) for k, v in make_batch_stub(
             cfg, batch=shape.global_batch, seq=shape.seq_len,
             kind="train").items()}
         step = make_train_step(model, shardings=shardings)
         args = (shards, adamw_init(shards), batch)
+    elif getattr(model, "seq_parallel", False):
+        if shape.kind == "prefill":
+            batch = {k: _fake(v, dev) for k, v in make_batch_stub(
+                cfg, batch=shape.global_batch, seq=shape.seq_len,
+                kind="prefill").items()}
+            step = make_prefill_fn(model, max_seq=shape.seq_len,
+                                   shardings=shardings, layout=layout)
+            args = (shards, batch)
+        else:
+            whole = model.init_decode_state(shape.global_batch,
+                                            shape.seq_len)
+            state = tree_map(torch.clone, shard_tree(
+                whole, decode_state_shardings(
+                    whole, mesh, layout=layout, batch_divisible=divisible)))
+            tokens = torch.zeros((rows,), dtype=torch.int32, device=dev)
+            step = make_decode_fn(model, shardings=shardings, layout=layout,
+                                  max_seq=shape.seq_len)
+            args = (shards, state, tokens)
     else:
+        layout = "none"
         if shape.kind == "prefill":
             batch = {k: _fake(v, dev) for k, v in make_batch_stub(
                 cfg, batch=shape.global_batch, seq=shape.seq_len,
@@ -204,7 +227,7 @@ def build_cell(arch: str, shape_name: str, mesh, *,
     meta = {
         "arch": arch, "shape": shape_name, "kind": shape.kind,
         "mesh": "x".join(str(n) for n in mesh.shape.values()),
-        "chips": mesh.size, "decode_layout": "seq", "remat": "full",
+        "chips": mesh.size, "decode_layout": layout, "remat": "full",
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
         "model_flops": model_flops(cfg, shape.kind, shape.global_batch,
                                    shape.seq_len),
@@ -222,8 +245,8 @@ def _out_bytes(out) -> float:
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
-             device="cuda", serve_params: bool = False, tag: str = ""
-             ) -> Dict[str, Any]:
+             device="cuda", serve_params: bool = False, tag: str = "",
+             decode_layout: str = "seq") -> Dict[str, Any]:
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     _fake_world(512 if multi_pod else 256)
@@ -231,7 +254,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
     mesh = make_production_mesh(multi_pod=multi_pod, device=device)
     with FakeTensorMode(allow_non_fake_inputs=True):
         step, args, meta = build_cell(arch, shape_name, mesh,
-                                      serve_params=serve_params)
+                                      serve_params=serve_params,
+                                      decode_layout=decode_layout)
         t_build = time.time() - t0
         t0 = time.time()
         hc, out = analyze_graph(step, args, loop_chunk=LOOP_CHUNK)
@@ -295,8 +319,9 @@ def main(argv=None) -> None:
     ap.add_argument("--remat", default="full", choices=["full", "dots", "none"])
     ap.add_argument("--tag", default="")
     ap.add_argument("--serve-params", action="store_true",
-                    help="gather the serving rules' shards for decode/"
-                         "prefill (dense weights split over model, not data)")
+                    help="rest the weights of decode/prefill in the serving "
+                         "rules' shards (dense weights split over model, "
+                         "not data)")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="device of the fake tensors (cuda needs a CUDA "
@@ -319,7 +344,7 @@ def main(argv=None) -> None:
         cells = [(args.arch, args.shape)]
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    skip = port_skip(args.decode_layout, args.remat)
+    skip = port_skip(args.remat)
     if skip is None and torch.device(args.device).type == "cuda" and \
             not torch.backends.cuda.is_built():
         raise SystemExit("this PyTorch has no CUDA build, so it cannot make "
@@ -342,7 +367,8 @@ def main(argv=None) -> None:
             try:
                 r = run_cell(arch, shape, multi_pod=mp, out_dir=out_dir,
                              device=args.device,
-                             serve_params=args.serve_params, tag=args.tag)
+                             serve_params=args.serve_params, tag=args.tag,
+                             decode_layout=args.decode_layout)
                 rf, mem = r["roofline"], r["memory"]
                 print(
                     f"[ok]   {fname}  trace={r['compile_s']:.0f}s "

@@ -186,9 +186,10 @@ class TrainMesh(AbstractMesh):
         dist.all_gather(parts, x, group=self._group(axis))
         return self._back(torch.cat(parts, dim=dim), t)
 
-    def all_reduce(self, t: torch.Tensor, axes: Sequence[str]
-                   ) -> torch.Tensor:
-        """The sum of ``t`` over the ranks of ``axes``, in a new tensor."""
+    def all_reduce(self, t: torch.Tensor, axes: Sequence[str],
+                   op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the largest) of ``t`` over the ranks of
+        ``axes``, in a new tensor."""
         import torch.distributed as dist
 
         axes = [a for a in axes if self.shape.get(a, 1) > 1]
@@ -197,8 +198,9 @@ class TrainMesh(AbstractMesh):
         x = self._out(t)
         x = x.clone() if x is t else x
         x = x.contiguous()
+        reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         for a in axes:
-            dist.all_reduce(x, group=self._group(a))
+            dist.all_reduce(x, op=reduce_op, group=self._group(a))
         return self._back(x, t)
 
     def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int

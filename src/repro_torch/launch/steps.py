@@ -2,9 +2,10 @@
 
 The counterpart of ``repro/launch/steps.py``.  :func:`make_train_step` is
 the one definition of a training step: ``Trainer`` runs it, one device or
-a training mesh.  The serving functions take no parameter tree: a port
-model holds its weights (``make_prefill_fn(model)(batch)``,
-``make_decode_fn(model)(state, tokens)``).  :func:`make_batch_stub` gives
+a training mesh.  On one device the serving functions take no parameter
+tree: a port model holds its weights (``make_prefill_fn(model)(batch)``,
+``make_decode_fn(model)(state, tokens)``); on a mesh they take this
+rank's shards.  :func:`make_batch_stub` gives
 ``meta`` tensors, the counterpart of ``jax.ShapeDtypeStruct``: shapes and
 dtypes, no allocation.
 
@@ -52,10 +53,24 @@ tokens against the whole vocabulary (the table gathered over ``model``
 where it is read).  The other families (``RwkvLM``, the hybrid,
 whisper) get the per-layer gathers, but every ``model`` rank still
 computes their whole forward and backward.
+
+**Serving on a mesh** (``make_prefill_fn`` / ``make_decode_fn`` with
+``shardings=``; ``TransformerLM`` only) the weights rest in their shards,
+training or serving rules, and each layer's are gathered where it reads
+them, a ``model`` split kept where the work is split by it (a
+``ServeLayout``).  The prefill splits the work over ``model`` as a
+training step's forward does; the decode cache is the rank's window of
+``decode_state_shardings(layout=)``, its rows (``seq``) or kv heads
+(``heads``) split over ``model`` where the axis divides them; a decode
+step repeats the lanes on every ``model`` rank and splits the attention
+over the cache's window (a softmax over ``model``), q heads, ``d_ff``,
+experts and the vocabulary.  The other families keep their serving path:
+every rank holds their whole weights and its rows of the cache.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -68,7 +83,8 @@ from ..optim import (
     lr_at,
     sharded_global_norm,
 )
-from ..parallel.sharding import BATCH_AXES, TrainLayout, batch_rows
+from ..parallel.sharding import BATCH_AXES, ServeLayout, TrainLayout, \
+    batch_rows
 from ..tree import tree_leaves, tree_unflatten_like
 
 __all__ = ["backward", "make_train_step", "make_prefill_fn", "make_decode_fn",
@@ -176,27 +192,85 @@ def make_train_step(
     return step
 
 
-def make_prefill_fn(model, *, max_seq: Optional[int] = None) -> Callable:
+def _serving_layout(model, shardings, layout: str, max_seq: int, *,
+                  seq_len: int = 0, decoding: bool = False):
+    """The mesh of ``shardings`` and the ``ServeLayout`` of a serving step
+    on it."""
+    if not getattr(model, "seq_parallel", False):
+        raise ValueError(f"{type(model).__name__} has no serving layout on "
+                         "a mesh")
+    cfg = model.cfg
+    mesh = tree_leaves(shardings)[0].mesh
+    return mesh, ServeLayout(
+        mesh, shardings, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, max_seq=max_seq, seq_len=seq_len,
+        cache_layout=layout, decoding=decoding)
+
+
+def make_prefill_fn(model, *, max_seq: Optional[int] = None, shardings=None,
+                    layout: str = "seq") -> Callable:
     """``prefill(batch) -> (decode state, last logits)``: the prompt and,
-    by family, the encoder frames or the patch embeddings."""
+    by family, the encoder frames or the patch embeddings.
+
+    With ``shardings`` (the parameters' on a ``TrainMesh``; a
+    ``TransformerLM``): ``prefill(params, batch)`` on this rank's shards
+    ``params`` and the global ``batch``, of which it takes its rows over
+    ``("pod", "data")`` where they divide (else all of them), as the
+    reference's ``batch_shardings``; it returns this rank's shards of the
+    decode state (the cache laid out by ``layout``, ``seq`` or ``heads``:
+    ``decode_state_shardings``) and its rows' last logits."""
     cfg = model.cfg
 
-    def prefill(batch):
+    def inputs(batch):
         kw = {}
         if cfg.family == "audio":
             kw["frames"] = batch["frames"]
         elif cfg.num_patches:
             kw["patch_embeds"] = batch["patch_embeds"]
-        return model.prefill(batch["tokens"], max_seq=max_seq, **kw)
+        return kw
 
-    return prefill
+    if shardings is None:
+        def prefill(batch):
+            return model.prefill(batch["tokens"], max_seq=max_seq,
+                                 **inputs(batch))
+
+        return prefill
+
+    def prefill_on_mesh(params, batch):
+        S = batch["tokens"].shape[1]
+        mesh, lay = _serving_layout(model, shardings, layout, max_seq or S,
+                                  seq_len=S)
+        n = math.prod(mesh.shape.get(a, 1) for a in BATCH_AXES)
+        if batch["tokens"].shape[0] % n == 0:
+            batch = batch_rows(batch, mesh)
+        with mesh_context(mesh, lay):
+            return model.prefill(batch["tokens"], params=lay.tree(params),
+                                 **inputs(batch))
+
+    return prefill_on_mesh
 
 
-def make_decode_fn(model) -> Callable:
-    def decode(state, tokens):
-        return model.decode_step(state, tokens)
+def make_decode_fn(model, *, shardings=None, layout: str = "seq",
+                   max_seq: Optional[int] = None) -> Callable:
+    """``decode(state, tokens) -> (state, logits)``.  With ``shardings``
+    (as :func:`make_prefill_fn`'s): ``decode(params, state, tokens)`` on
+    this rank's shards of the parameters and of the decode state of
+    ``max_seq`` rows (laid out by ``layout``) and its lanes' ``tokens``."""
+    if shardings is None:
+        def decode(state, tokens):
+            return model.decode_step(state, tokens)
 
-    return decode
+        return decode
+    if max_seq is None:
+        raise ValueError("a decode step on a mesh needs the cache's max_seq")
+
+    def decode_on_mesh(params, state, tokens):
+        mesh, lay = _serving_layout(model, shardings, layout, max_seq,
+                                  decoding=True)
+        with mesh_context(mesh, lay):
+            return model.decode_step(state, tokens, params=lay.tree(params))
+
+    return decode_on_mesh
 
 
 def make_batch_stub(cfg, *, batch: int, seq: int, kind: str

@@ -22,6 +22,10 @@ The load-balance auxiliary loss is the Switch form ``E · Σ_e f_e · p_e``.
 Nothing here is a TPU kernel in the reference (it is XLA), so the products
 are ``torch.bmm``.  Decode reads every expert's weights, as the
 reference's layout does; serving TP replicates the experts on every rank.
+A serving mesh (``parallel.sharding.ServeLayout``) never gathers the
+experts whole: its prefill runs the branch below, with each shard's
+capacity, and a decode step routes the lanes losslessly and runs each
+rank's experts (:func:`_expert_decode`).
 
 **On a training mesh** (a ``TrainLayout`` bound with ``mesh_context``,
 more than one rank) the block takes the reference's ``shard_map`` branch
@@ -240,6 +244,29 @@ def _expert_parallel(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return out, aux
 
 
+def _expert_decode(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                   cfg: ArchConfig, mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decode step's block on a serving mesh: ``x`` (B, D), the lanes
+    every ``model`` rank holds, routed losslessly (the reference's ``S =
+    1``: the tokens split over the batch axes alone).  Where the experts
+    split over ``model``, each rank runs its experts on the copies sent
+    to them and the outputs are all-gathered over ``model``: the values of
+    the reference's all-to-all of the ranks' (equal) buffers, without its
+    ``model``-fold repeat of each expert's rows."""
+    E = cfg.num_experts
+    M = mesh.shape.get("model", 1)
+    r = route(x, p["router"], cfg, lossless=True)
+    buf = dispatch(x, r, E)
+    if M > 1 and E % M == 0:
+        e0 = mesh.coords["model"] * (E // M)
+        y = expert_ffn(buf[e0:e0 + E // M], p["wg"], p["wu"], p["wd"],
+                       cfg.activation)
+        y = mesh.all_gather(y, "model", 0)
+    else:
+        y = expert_ffn(buf, p["wg"], p["wu"], p["wd"], cfg.activation)
+    return combine(y, r, x.shape[0]), _aux_loss(r)
+
+
 def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
               *, lossless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., D) → (out (..., D), aux loss scalar fp32).
@@ -247,12 +274,16 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
     The leading dims flatten to the T tokens that share one capacity: the
     B·S rows of a prefill, the B lanes of a decode step.  ``lossless``
     (decode) gives every copy a slot.  On a training mesh of more than one
-    rank, ``x`` is (B, c, D), this rank's rows and its chunk of the
-    sequence, and the block is expert-parallel (the module docstring).
+    rank, or a serving mesh's prefill, ``x`` is (B, c, D), this rank's
+    rows and its chunk of the sequence, and the block is expert-parallel
+    (the module docstring); a serving mesh's decode step takes
+    :func:`_expert_decode`.
     """
     mesh, layout = current_mesh(), current_layout()
     split = layout is not None and layout.split_model
-    if mesh is not None and mesh.size > 1:
+    if layout is not None and layout.decoding:
+        out, aux = _expert_decode(x, p, cfg, mesh)
+    elif mesh is not None and mesh.size > 1:
         if mesh.shape.get("model", 1) > 1 and not split:
             raise ValueError("an MoE block on a mesh with a model axis "
                              "takes the sequence split over it (a "

@@ -50,7 +50,13 @@ need: the paged kernel has no window or softcap):
   ``prefill_chunk(tokens, state, start)``    → (state, last_logits)
 States hold ``cache_k``/``cache_v`` of ``(L, B, max_seq, K, hd)`` and
 ``pos`` (B,) int32.  ``decode_step`` and ``prefill_chunk`` write the cache
-rows in place and return the same cache tensors.
+rows in place and return the same cache tensors.  On a serving mesh
+(``launch.steps.make_prefill_fn`` / ``make_decode_fn`` with
+``shardings=``, which bind a ``parallel.sharding.ServeLayout``),
+``prefill`` and ``decode_step`` take ``params=``, this rank's shards, and
+the state is this rank's shards of it: the reference's serving layout
+(``_mesh_prefill``, ``_mesh_decode``).  ``prefill_chunk`` and the paged
+functions have no mesh layout.
 
 ``impl="xla"`` (``build_model(cfg, impl="xla")``, the reference's dry-run
 build) serves through the plain routes on any device: ``blockwise_attn``
@@ -85,6 +91,7 @@ from .attention import (
     decode_attn,
     qkv,
     split_attention,
+    split_decode,
     update_cache,
 )
 from .common import (
@@ -239,6 +246,11 @@ class TransformerLM(nn.Module):
         sequence's columns from ``start`` on (a rank's chunk)."""
         table = self.embed if table is None else table
         h = scale_embedding(take_embedding(table, tokens), self.cfg)
+        return self._with_patches(h, patch_embeds, start)
+
+    def _with_patches(self, h: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor],
+                      start: int) -> torch.Tensor:
         if patch_embeds is not None and self.cfg.num_patches:
             n = max(0, min(patch_embeds.shape[1] - start, h.shape[1]))
             h = torch.cat([patch_embeds[:, start:start + n].to(
@@ -393,8 +405,14 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
-                patch_embeds: Optional[torch.Tensor] = None):
-        """Run the prompt, return (decode_state, logits at last position)."""
+                patch_embeds: Optional[torch.Tensor] = None,
+                params: Optional[Dict[str, Any]] = None):
+        """Run the prompt, return (decode_state, logits at last position).
+        Under a serving mesh's ``ServeLayout``, :meth:`_mesh_prefill` on
+        ``params`` (this rank's shards)."""
+        layout = _serve_layout()
+        if layout is not None:
+            return self._mesh_prefill(params, tokens, patch_embeds, layout)
         B, S = tokens.shape
         max_seq = max_seq or S
         positions = torch.arange(S, device=tokens.device)
@@ -485,12 +503,17 @@ class TransformerLM(nn.Module):
         return state, logits
 
     @torch.no_grad()
-    def decode_step(self, state, tokens):
+    def decode_step(self, state, tokens, *,
+                    params: Optional[Dict[str, Any]] = None):
         """One token per sequence against the dense cache: ``tokens`` (B,)
         → (state, logits (B, V)).  Lane b writes its K/V at ``pos[b]`` (a
         lane past ``max_seq`` writes nothing, as in the reference) and
         attends rows ``<= pos[b]`` within its layer's window; ``pos``
-        advances by one on every lane."""
+        advances by one on every lane.  Under a serving mesh's
+        ``ServeLayout``, :meth:`_mesh_decode` on ``params``."""
+        layout = _serve_layout()
+        if layout is not None:
+            return self._mesh_decode(params, state, tokens, layout)
         cfg = self.cfg
         pos = state["pos"]
         h = self._embed_inputs(tokens)
@@ -507,6 +530,110 @@ class TransformerLM(nn.Module):
         new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
                      "pos": pos + 1}
         return new_state, self._final(h)
+
+    # ----------------------------------------------- serving on a mesh
+    #
+    # The reference's serving cell on a production mesh: the weights rest
+    # in their shards and each layer's are gathered where it reads them
+    # (``parallel.sharding.ServeLayout``), the prefill runs sequence-
+    # parallel as a training step does, and the decode cache is this
+    # rank's window, split by sequence or by kv heads.
+
+    def _mesh_embed(self, table: torch.Tensor, tokens: torch.Tensor,
+                    layout, patch_embeds=None) -> torch.Tensor:
+        """Embeddings on a serving mesh: a prefill's padded (B, S) tokens
+        → this rank's chunk (B, c, D); a decode step's (B,) → (B, D).
+        Where the table is split over ``model`` (by vocabulary), each rank
+        looks the tokens up in its rows, zeros for the others', and the
+        parts are summed over ``model`` (``scatter_seq``): exact, one
+        term nonzero."""
+        cfg = self.cfg
+        V = cfg.vocab_size
+        start = 0 if layout.decoding else layout.seq_start
+        if table.shape[0] == V:
+            if not layout.decoding:
+                tokens = tokens[:, start:start + layout.chunk]
+            h = take_embedding(table, tokens)
+        else:
+            n = table.shape[0]
+            local = tokens.long() - layout.part(V)[0]
+            mine = (local >= 0) & (local < n)
+            h = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
+            h = layout.scatter_seq(h)
+        return self._with_patches(scale_embedding(h, cfg), patch_embeds,
+                                  start)
+
+    def _mesh_logits(self, params, h: torch.Tensor, layout) -> torch.Tensor:
+        """(B, D) → (B, V) on every rank: each rank scores its slice of a
+        table split over ``model``, and the slices are all-gathered."""
+        cfg = self.cfg
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps,
+                     plus_one=cfg.post_norms)
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        logits = h @ table.T
+        if table.shape[0] != cfg.vocab_size:
+            logits = layout.mesh.all_gather(logits, "model", 1)
+        if cfg.final_logit_softcap:
+            logits = softcap(logits, cfg.final_logit_softcap)
+        return logits
+
+    def _mesh_prefill(self, params, tokens: torch.Tensor,
+                      patch_embeds: Optional[torch.Tensor], layout):
+        """The prompt on a serving mesh, as the reference's prefill lays it
+        out (``constrain(h, "data", "model", None)`` after every layer):
+        ``tokens`` (B, S) are this rank's rows, whole; the layers run
+        sequence-parallel on its chunk of them (padded at the end to a
+        multiple of ``model``), as ``_train_layer`` does with no gradient;
+        each layer's K/V rows of the rank's cache window are kept
+        (``split_attention``).  The last-token logits come from the rank
+        whose chunk holds token S - 1, on every rank.  Returns (this
+        rank's shards of the decode state, the logits (B, V))."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        tokens = torch.nn.functional.pad(
+            tokens, (0, layout.chunk * layout.model_size - S))
+        h = self._mesh_embed(params["embed"], tokens, layout, patch_embeds)
+        ks, vs = [], []
+        for l, p in enumerate(unstack_layers(params["layers"],
+                                             cfg.num_layers)):
+            a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+            a, (k, v) = split_attention(
+                a, p["attn"], cfg, window=int(self.windows[l]),
+                rope_base=self._rope_base(l), layout=layout, impl=self.impl)
+            h, _ = self._mlp_residual(self._attn_residual(h, a, p), p,
+                                      layout=layout)
+            ks.append(k)
+            vs.append(v)
+        logits = self._mesh_logits(params, layout.row(h, S - 1), layout)
+        state = {
+            "cache_k": torch.stack(ks),
+            "cache_v": torch.stack(vs),
+            "pos": torch.full((B,), S, dtype=torch.int32,
+                              device=tokens.device),
+        }
+        return state, logits
+
+    def _mesh_decode(self, params, state, tokens: torch.Tensor, layout):
+        """A decode step on a serving mesh, as the reference's
+        ``decode_step`` lays it out: the lanes (this rank's rows, whole on
+        every ``model`` rank), the state this rank's shards, the cache
+        window written in place (``split_decode``), the MLP split by
+        ``d_ff`` and the experts by ``model``, lossless."""
+        cfg = self.cfg
+        pos = state["pos"]
+        h = self._mesh_embed(params["embed"], tokens, layout)
+        for l, p in enumerate(unstack_layers(params["layers"],
+                                             cfg.num_layers)):
+            a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
+            o = split_decode(a, p["attn"], cfg, state["cache_k"][l],
+                             state["cache_v"][l], pos,
+                             window=int(self.windows[l]),
+                             rope_base=self._rope_base(l), layout=layout)
+            h, _ = self._mlp_residual(self._attn_residual(h, o, p), p,
+                                      lossless=True, layout=layout)
+        new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
+                     "pos": pos + 1}
+        return new_state, self._mesh_logits(params, h, layout)
 
     # ----------------------------------------------- serving (paged cache)
 
@@ -717,4 +844,11 @@ def _split_layout():
     """The training layout bound here if it splits the work over
     ``model``, else None."""
     layout = current_layout()
-    return layout if layout is not None and layout.split_model else None
+    return layout if layout is not None and layout.split_model and \
+        not layout.serving else None
+
+
+def _serve_layout():
+    """The serving mesh's ``ServeLayout`` bound here, or None."""
+    layout = current_layout()
+    return layout if layout is not None and layout.serving else None

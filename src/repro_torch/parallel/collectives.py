@@ -29,6 +29,10 @@ heads); :func:`mean_over` averages a value over the axes, and
 whole; :func:`all_to_all` is ``jax.lax.all_to_all(tiled=True)``, its own
 transpose with the two dimensions swapped.
 
+:func:`softmax_over` is a serving step's one collective of its own: the
+softmax of a decode step's scores over a cache whose rows are split over
+``model`` (``models.attention.decode_attn``), no gradient.
+
 ``compressed_psum`` is the int8 all-reduce for the bandwidth-starved hop:
 every member all-gathers the per-block int8 payloads and scales and sums
 the dequantized blocks itself.  ``ErrorFeedback`` carries the quantization
@@ -53,7 +57,7 @@ __all__ = ["BLOCK", "ErrorFeedback", "all_to_all", "bind_axis",
            "bound_group", "compressed_grad_tree", "compressed_psum",
            "dequantize_int8", "gather_over", "gather_sum_grads", "maybe_psum",
            "mean_over", "quantize_int8", "reduce_scatter_over", "scale_grad",
-           "sum_grads_over"]
+           "softmax_over", "sum_grads_over"]
 
 BLOCK = 256
 
@@ -232,6 +236,22 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``,
     differentiable."""
     return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+# ------------------------------------------------ a serving step's softmax
+
+
+def softmax_over(s: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``torch.softmax(s, -1)`` where the last dimension of ``s`` is split
+    over the ranks of ``axis``, each holding its columns: the rows' max,
+    then the sums of their exponentials, all-reduced over the axis in
+    fp32.  Returns this rank's columns of the weights, already divided by
+    the global sum (the reference's ``jax.nn.softmax`` over the whole row;
+    no later rescale)."""
+    s = s.float()
+    m = mesh.all_reduce(s.amax(dim=-1, keepdim=True), [axis], op="max")
+    e = torch.exp(s - m)
+    return e / mesh.all_reduce(e.sum(dim=-1, keepdim=True), [axis])
 
 
 # ------------------------------------------------ compressed reduction

@@ -25,8 +25,10 @@ Below the rules, the functions that move trees between layouts on a
 :func:`gather_leaf_to_host0` (one whole leaf on rank 0 alone, for a
 checkpoint), and :class:`TrainLayout` with :class:`Shards`: how a
 training step gathers each leaf where it is used and reduces its
-gradient as the backward leaves it.  Slices are contiguous chunks, in the
-rank order of the axes, as JAX lays out a ``NamedSharding``.
+gradient as the backward leaves it; :class:`ServeLayout`, the same for a
+serving step, with the decode cache's window.  Slices are contiguous
+chunks, in the rank order of the axes, as JAX lays out a
+``NamedSharding``.
 
 The serving part: a model's ``tp_param_specs()`` and
 ``tp_pool_specs(store)`` give one :class:`P` per leaf; ``P(None, None,
@@ -57,6 +59,7 @@ __all__ = [
     "AbstractMesh",
     "NamedSharding",
     "P",
+    "ServeLayout",
     "Shards",
     "TrainLayout",
     "batch_rows",
@@ -612,6 +615,10 @@ class TrainLayout:
     block keeps split) and that gather's backward keeps this rank's chunk.
     """
 
+    #: a serving step's layout (:class:`ServeLayout`) sets these
+    serving = False
+    decoding = False
+
     def __init__(self, mesh, shardings, *, split_model: bool = False,
                  seq_len: int = 0) -> None:
         self.mesh = mesh
@@ -631,9 +638,11 @@ class TrainLayout:
         return Shards(self, params, self.shardings, "")
 
     def leaf(self, path: str, t: torch.Tensor,
-             split: Sequence[Tuple[str, ...]]) -> torch.Tensor:
+             split: Sequence[Tuple[str, ...]], layer: bool = False
+             ) -> torch.Tensor:
         """The shard ``t`` of the leaf at ``path``, split per dimension over
-        the axes ``split``, as the step computes with it."""
+        the axes ``split``, as the step computes with it (``layer``: one
+        layer's slice of a stacked leaf)."""
         mesh = self.mesh
         batch = [a for a in BATCH_AXES if a in mesh.shape]
         used = {a for names in split for a in names}
@@ -696,6 +705,113 @@ class TrainLayout:
         return reduce_scatter_over(y, self.mesh, "model", dim)
 
 
+class ServeLayout(TrainLayout):
+    """How a serving rank computes ``TransformerLM``'s prefill or decode
+    step with its shards, as the reference's serving cell lays it out
+    (``launch/dryrun.py``'s ``build_cell``, the model's ``constrain``
+    sites); ``models.common.mesh_context`` binds it.  No gradients.
+
+    The weights rest as ``shardings`` gives them (``param_shardings``,
+    training or serving rules).  A leaf is all-gathered where the model
+    reads it (:class:`Shards`; a layer's leaves when the layer runs, so a
+    rank holds one layer's gathered weights at a time): over the batch
+    axes it is split on, and over ``model`` unless its ``model`` split is
+    one the work is split by, the training rules' (a rank's q heads, its
+    slice of ``d_ff``, its experts, its slice of the vocabulary).  The
+    serving rules re-home a dense leaf's FSDP split onto ``model`` where
+    that axis is free (``wk``/``wv`` on ``D``, ``wq``/``wo`` where the
+    heads do not divide): such a leaf is gathered whole where it is read.
+
+    Prefill (``decoding`` False): the residual stream is this rank's
+    chunk of the sequence of ``seq_len`` tokens padded to a multiple of
+    ``model``, as in training.  A decode step (``decoding`` True): every
+    ``model`` rank holds the same lanes whole, :meth:`gather_seq` is the
+    identity and :meth:`scatter_seq` the sum over ``model``.
+
+    The decode cache of ``max_seq`` rows is this rank's shard of
+    ``decode_state_shardings(layout=cache_layout)``: rows ``cache_rows``
+    and kv heads ``cache_heads`` (``[lo, hi)`` each).  ``seq`` splits the
+    rows over ``model`` and ``heads`` the kv heads, each only where the
+    axis divides them (``fit_spec``); else the cache is whole on every
+    rank, as the reference's is.
+    """
+
+    serving = True
+
+    def __init__(self, mesh, shardings, *, num_heads: int,
+                 num_kv_heads: int, max_seq: int, seq_len: int = 0,
+                 cache_layout: str = "seq", decoding: bool = False) -> None:
+        if cache_layout not in ("seq", "heads"):
+            raise ValueError(f"cache layout {cache_layout!r}: seq or heads")
+        super().__init__(mesh, shardings, split_model=True, seq_len=seq_len)
+        self.decoding = bool(decoding)
+        self.max_seq = max_seq
+        self.cache_layout = cache_layout
+        self.heads_divisible = num_heads % self.model_size == 0
+        M, r = self.model_size, self.rank
+
+        def window(full: int, split: bool) -> Tuple[int, int]:
+            if not split or M == 1:
+                return 0, full
+            return r * (full // M), (r + 1) * (full // M)
+
+        self.cache_rows = window(max_seq, cache_layout == "seq"
+                                 and max_seq % M == 0)
+        self.cache_heads = window(num_kv_heads, cache_layout == "heads"
+                                  and num_kv_heads % M == 0)
+        self._work_dims: Dict[str, frozenset] = {}
+
+    @property
+    def rows_split(self) -> bool:
+        """Whether this rank's cache holds only some of the rows."""
+        return self.cache_rows[1] - self.cache_rows[0] < self.max_seq
+
+    def _model_work_dims(self, path: str, t: torch.Tensor,
+                         split: Sequence[Tuple[str, ...]], layer: bool
+                         ) -> frozenset:
+        """The dimensions of the leaf at ``path`` whose ``model`` split the
+        work keeps: those the training rules split over ``model``."""
+        if path not in self._work_dims:
+            mesh = self.mesh
+            whole = tuple(n * math.prod(mesh.shape[a] for a in names)
+                          for n, names in zip(t.shape, split))
+            spec = fit_spec(mesh, param_spec(
+                path, t.dim() + layer,
+                heads_divisible=self.heads_divisible), (1,) * layer + whole)
+            self._work_dims[path] = frozenset(
+                d - layer for d, e in enumerate(spec)
+                if "model" in _names(e))
+        return self._work_dims[path]
+
+    def leaf(self, path: str, t: torch.Tensor,
+             split: Sequence[Tuple[str, ...]], layer: bool = False
+             ) -> torch.Tensor:
+        keep = self._model_work_dims(path, t, split, layer)
+        for d, names in enumerate(split):
+            # the innermost axis first, as TrainLayout.leaf
+            for a in reversed(names):
+                if self.mesh.shape[a] > 1 and not (a == "model" and d in keep):
+                    t = self.mesh.all_gather(t, a, d)
+        return t
+
+    def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return x if self.decoding else super().gather_seq(x, dim)
+
+    def scatter_seq(self, y: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        if not self.decoding:
+            return super().scatter_seq(y, dim)
+        return self.mesh.all_reduce(y, ["model"]) if self.split_model else y
+
+    def row(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Row ``i`` of the sequence (dimension 1) from the rank whose chunk
+        holds it, on every rank (the others add zeros: exact)."""
+        if not self.split_model:
+            return x[:, i]
+        owner, at = divmod(i, self.chunk)
+        mine = x[:, at] if self.rank == owner else torch.zeros_like(x[:, 0])
+        return self.mesh.all_reduce(mine, ["model"])
+
+
 class Shards(MappingABC):
     """A tree of this rank's shards that gathers a leaf where the model
     reads it (:meth:`TrainLayout.leaf`).  Reading a subtree gives its
@@ -715,7 +831,8 @@ class Shards(MappingABC):
         if isinstance(value, Mapping):
             return Shards(self._layout, value, s, path, self._layer)
         split = s._split((1,) * (value.dim() + self._layer))
-        return self._layout.leaf(path, value, split[self._layer:])
+        return self._layout.leaf(path, value, split[self._layer:],
+                                 self._layer)
 
     def __iter__(self) -> Iterator:
         return iter(self._tree)

@@ -1,7 +1,8 @@
 """The port's dry run (``repro_torch.launch.dryrun``): one production cell
 end to end in a subprocess as rank 0 of a fake world of 256, a dense
-``train_4k`` cell's peak and useful-FLOP ratio, the cells it declines,
-and one cell beside the reference's own dry-run JSON."""
+``train_4k`` cell's and a dense ``decode_32k`` cell's peak and useful-FLOP
+ratio, the option it declines and the decode layout it runs, and one cell
+beside the reference's own dry-run JSON."""
 
 import json
 import subprocess
@@ -79,18 +80,45 @@ def test_dryrun_skips_ineligible_cell(tmp_path):
 
 @pytest.mark.parametrize("flags,why", [
     (["--remat", "dots"], "remat"),
-    (["--decode-layout", "heads"], "decode-layout"),
+    (["--decode-layout", "heads"], None),
 ])
 def test_dryrun_port_declines_options(tmp_path, capsys, flags, why):
-    """Options the port has no program for print ``[n/a-port]`` with the
-    reason and write nothing."""
+    """An option the port has no program for (``--remat dots``) prints
+    ``[n/a-port]`` with the reason and writes nothing.  ``--decode-layout
+    heads`` has one: gemma2-9b ``decode_32k`` runs (in a subprocess, whose
+    fake world stays out of this one) with the cache split by kv heads
+    where they divide ``model``; its 8 kv heads do not divide 16, so each
+    rank holds its 8 lanes of the cache whole (90.2 GB), as the
+    reference's layout leaves them, and the cell does not fit."""
+    if why is None:
+        d = _port_cell(tmp_path, *flags, arch="gemma2-9b",
+                       shape="decode_32k")
+        assert d["ok"] and d["decode_layout"] == "heads"
+        assert d["memory"]["argument_bytes"] > 90e9
+        assert d["memory"]["fits"] is False
+        return
     main(["--arch", "whisper-tiny", "--shape", "decode_32k", "--device",
           "cpu", "--out", str(tmp_path), *flags])
     out = capsys.readouterr().out
     assert out.startswith("[n/a-port] whisper-tiny__decode_32k__16x16")
     assert why in out
     assert not list(tmp_path.glob("*"))
-    assert port_skip("seq", "full") is None
+    assert port_skip("full") is None
+
+
+def test_dryrun_dense_decode_cell_fits_with_its_cache_split(tmp_path):
+    """gemma2-9b ``decode_32k`` on 16 x 16 in ``seq``: the weights rest in
+    their shards, and each rank holds 2048 of the 32768 rows of its 8
+    lanes' cache (5.6 GB, not 90.2), so it fits one H100's 80 GB; with the
+    attention split over the rows and the products over heads, ``d_ff``
+    and the vocabulary, its useful-FLOP ratio is at least 4x the 0.028 of
+    a rank that repeated the step on whole weights and rows."""
+    d = _port_cell(tmp_path, arch="gemma2-9b", shape="decode_32k")
+    assert d["decode_layout"] == "seq"
+    assert d["memory"]["fits"] is True
+    assert d["memory"]["argument_bytes"] < 10e9
+    assert d["roofline"]["useful_flop_ratio"] >= 4 * 0.028
+    assert "all-reduce" in d["collectives"]
 
 
 def test_dryrun_beside_reference_json(tmp_path):
