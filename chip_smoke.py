@@ -194,22 +194,31 @@ prints no result line):
    its published widths, 1 of 94 layers, bf16, expert-parallel on
    (data=1, model=2): 64 experts a rank, the copies dropped past each
    rank's capacity, finite losses, peak memory (``[mesh-train-moe]``); (a)
-   phase 15's small fp32 configs of gemma2, qwen3-moe, RWKV6 and hymba and
-   llama4-scout's reduced one, with a ragged loss mask, 3 steps on a 2 x 2
-   mesh on the card against the same mesh of CPU ranks (phase 15's
-   limits) and, for the dense ones, against one device on the card
-   (``[mesh-train-small]``); (e) qwen2.5-32b at its published widths, 2
-   of 64 layers, bf16, global batch 2 of 1024 tokens, 3 steps on (data=1,
-   model=3): its 40 q heads and 1024 tokens divide 3 neither, so
-   attention runs sequence-parallel on a padded sequence, held against
-   one device at (b)'s limits (``[mesh-train-sp]``); no rank left.  The
-   steps run the reference's training layout: weights gathered layer by
-   layer, a dense model's work split over ``model`` (``launch/steps.py``).
-   The ranks time-share one card: step times check the path and are not
-   a data-parallel speed.  ``--phases 1,2,18`` runs it alone;
-   ``--mesh-cells dense,moe`` runs only those of its cells (a parent tree
-   without the sequence-parallel layout cannot hold (e)'s ranks on one
-   card).
+   phase 15's small fp32 configs of gemma2, qwen3-moe, RWKV6, hymba and
+   whisper (with its frames) and llama4-scout's reduced one, with a
+   ragged loss mask, 3 steps on a 2 x 2 mesh on the card against the same
+   mesh of CPU ranks (phase 15's limits) and, but for the MoE (capacity
+   per shard), against one device on the card (``[mesh-train-small]``);
+   (e) qwen2.5-32b at its published widths, 2 of 64 layers, bf16, global
+   batch 2 of 1024 tokens, 3 steps on (data=1, model=3): its 40 q heads
+   and 1024 tokens divide 3 neither, so attention runs sequence-parallel
+   on a padded sequence, held against one device at (b)'s limits
+   (``[mesh-train-sp]``); (f) rwkv6-3b and
+   hymba-1.5b at their published widths, 1 of 32 layers each, bf16,
+   global batch 2 of 1024 tokens, 3 steps on (data=1, model=2): RWKV6's
+   recurrence on each rank's one row, hymba's query rows and halves of
+   ``d_inner``, against one device at (b)'s limits and the first step's
+   loss within 2e-4, each rank's parameters, moments and peak
+   (``[mesh-train-split]``; peak lr 1e-3: at 3e-3 hymba's bf16 steps
+   drift apart on any layout); no rank left.
+   The steps run the reference's training layout: weights gathered layer
+   by layer, every family's work split over ``model``
+   (``launch/steps.py``).  The ranks time-share one card: step times
+   check the path and are not a data-parallel speed.  ``--phases
+   1,2,18`` runs it alone; ``--mesh-cells dense,moe`` (of
+   ``dense,moe,small,sp,split``) runs only those of its cells (a parent
+   tree without the sequence-parallel layout cannot hold (e)'s ranks on
+   one card).
 
 19. the cost model and the dry run (``repro_torch.launch.hlo_cost``,
    ``launch/dryrun.py``): (a) phase 15's full-width gemma2-9b step (8
@@ -4169,8 +4178,34 @@ MESH_CKPT_LAYERS, MESH_CKPT_STEPS, MESH_CKPT_NEXT = 1, 1, 2
 #: parameters (the vocabulary and d_ff split over model) with their fp32
 #: moments: ~11 GB a rank
 MESH_SP_LAYERS, MESH_SP_B, MESH_SP_S, MESH_SP_STEPS = 2, 2, 1024, 3
+#: (f): rwkv6-3b and hymba-1.5b at their published widths, 1 of 32 layers
+#: each, bf16, global batch 2 of 1024 tokens, 3 steps on (data=1,
+#: model=2): RWKV6's time mix on each rank's one row of the whole
+#: sequence and its channel mix's d_ff of 8960 by halves; hymba's 25 q
+#: heads by query rows, its d_inner of 3200 and d_ff of 5504 by halves.
+#: Peak lr 1e-3, not (b)'s 3e-3: there hymba's bf16 steps are
+#: ill-conditioned whatever the layout.  On an H100 (700 W,
+#: experiments/mesh_train_conditioning.py) one device's bf16 gnorm spiked
+#: to 6.97 at step 2 against fp32's 3.74 (0.865 apart); this mesh read
+#: 4.52 there (0.352 from bf16's one device), the data-only (data=2,
+#: model=1) 6.67 (0.065), while in fp32 the split read 3.4e-6 / 8.6e-4 of
+#: one device's loss and gnorm.  At 1e-3 the split reads 6.2e-4 / 0.0147
+#: and the data-only mesh 1.24e-4 / 0.0288, against bf16's own 0.0604
+#: from fp32 on one device
+MESH_SPLIT_ARCHS = ("rwkv6-3b", "hymba-1.5b")
+MESH_SPLIT_LAYERS, MESH_SPLIT_B, MESH_SPLIT_S, MESH_SPLIT_STEPS = \
+    1, 2, 1024, 3
+MESH_SPLIT_LR = 1e-3
+#: (f): the first step's loss against one device's, relative: one bf16
+#: forward from equal weights, before any update can amplify a rounding.
+#: Sound runs on the H100 (700 W) read 7.24e-6 (rwkv6-3b) and 3.14e-5
+#: (hymba-1.5b); copies of src/ whose RWKV time mix lands on the wrong
+#: rows, or whose hymba SSM drops the sum of xc @ w_B and xc @ w_C over
+#: the ranks, read 7.04e-4 and 3.81e-3: the first passes (b)'s limits over
+#: 3 steps (0.00394, 0.00994), the first step's loss catches both
+MESH_SPLIT_LOSS0_RTOL = 2e-4
 #: phase 18's cells, all run by default (``--mesh-cells``)
-MESH_CELLS = ("dense", "moe", "small", "sp")
+MESH_CELLS = ("dense", "moe", "small", "sp", "split")
 #: (b): a mesh run's loss and gradient norm against one device's,
 #: relative, the largest over the steps.  bf16 rounds each rank's
 #: half-batch products where one device rounds the whole batch's, and
@@ -4269,17 +4304,12 @@ def _run_mesh(job, n: int, *args) -> list:
     return [results[r] for r in range(n)]
 
 
-class _RaggedLM:
-    """``SyntheticLM`` with a seeded ragged loss mask: each row keeps its
+class _RaggedLM(_ModalityLM):
+    """``_ModalityLM`` with a seeded ragged loss mask: each row keeps its
     own share of the tokens, so the data shards' mask counts differ."""
 
-    def __init__(self, dc):
-        from repro_torch.data import SyntheticLM
-
-        self.base = SyntheticLM(dc)
-
     def batch_at(self, step):
-        b = self.base.batch_at(step)
+        b = super().batch_at(step)
         rng = np.random.default_rng(2000 + step)
         B, S = b["tokens"].shape
         keep = rng.random((B, 1)) * 0.8 + 0.1
@@ -4288,20 +4318,20 @@ class _RaggedLM:
 
 
 def _mesh_trainer(model, mesh, steps, batch, seq, *, ragged=False,
-                  start=0, ckpt=None):
-    """A ``Trainer`` (on ``mesh`` if given) over seeded batches, peak lr
-    3e-3 after a 1-step warmup, and its loader."""
+                  start=0, ckpt=None, peak_lr=3e-3):
+    """A ``Trainer`` (on ``mesh`` if given) over seeded batches, ``peak_lr``
+    after a 1-step warmup, and its loader."""
     from repro_torch.data import DataConfig, Loader, SyntheticLM
     from repro_torch.optim import ScheduleConfig
     from repro_torch.runtime import Trainer, TrainerConfig
 
     dc = DataConfig(global_batch=batch, seq_len=seq,
                     vocab_size=model.cfg.vocab_size)
-    data = _RaggedLM(dc) if ragged else SyntheticLM(dc)
+    data = _RaggedLM(model.cfg, dc) if ragged else SyntheticLM(dc)
     loader = Loader(data, dc, start_step=start)
     tr = Trainer(model, loader, TrainerConfig(
         total_steps=steps, log_every=1, ckpt_every=10 ** 9,
-        schedule=ScheduleConfig(peak_lr=3e-3, warmup_steps=1,
+        schedule=ScheduleConfig(peak_lr=peak_lr, warmup_steps=1,
                                 decay_steps=100)), ckpt=ckpt, mesh=mesh)
     return tr, loader
 
@@ -4564,20 +4594,22 @@ def _check_launches(tag: str, ranks) -> None:
 
 
 def _mesh_small_cells():
-    """(tag, config, seq): phase 15's gemma2, qwen3-moe, RWKV6 and hymba
-    cells, and llama4-scout's reduced config."""
+    """(tag, config, seq): phase 15's gemma2, qwen3-moe, RWKV6, hymba and
+    whisper cells, and llama4-scout's reduced config."""
     from repro_torch.configs import get_reduced
 
     cells = {tag: (tag, cfg, seq) for tag, cfg, seq in _train_cells()}
     scout = dataclasses.replace(get_reduced("llama4-scout-17b-a16e"),
                                 dtype="float32")
     return [cells["gemma2"], cells["qwen3-moe"],
-            ("llama4-scout", scout, 32), cells["rwkv6"], cells["hymba"]]
+            ("llama4-scout", scout, 32), cells["rwkv6"], cells["hymba"],
+            cells["whisper"]]
 
 
 def _mesh_small() -> None:
     """(a) ``[mesh-train-small]``: the card's mesh against the CPU's mesh,
-    and for the dense families against one device on the card."""
+    and for every family but the MoE (capacity per shard) against one
+    device on the card."""
     from repro_torch.models import build_model
     from repro_torch.models.common import param_tree
     from repro_torch.optim import adamw_init
@@ -4641,7 +4673,8 @@ def _mesh_small() -> None:
 
 def _one_device_dense(layers: int, steps: int, start: int = 0,
                       state=None, arch: str = "gemma2-9b",
-                      batch: int = MESH_B, seq: int = MESH_S) -> list:
+                      batch: int = MESH_B, seq: int = MESH_S,
+                      peak_lr: float = 3e-3) -> list:
     """``arch``'s ``layers``-layer cut (gemma2-9b's by default) trained on
     one device on the card from seed 0 (or from ``state``, a restored
     {"params", "opt"} at ``start``): its curve and step times."""
@@ -4650,7 +4683,8 @@ def _one_device_dense(layers: int, steps: int, start: int = 0,
 
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     model = build_model(cfg, device="cuda")
-    tr, loader = _mesh_trainer(model, None, steps, batch, seq, start=start)
+    tr, loader = _mesh_trainer(model, None, steps, batch, seq, start=start,
+                               peak_lr=peak_lr)
     if state is None:
         params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
     else:
@@ -4865,6 +4899,94 @@ def _mesh_sp() -> None:
                              f"{r0['curve']} is off one device's {want}")
 
 
+def _job_split(arch: str) -> dict:
+    """(f) in a rank: ``arch``'s 1-layer cut on (1, 2), its work split over
+    ``model``: its curve, step times, resident bytes, memory and host
+    bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+
+    mesh = make_host_mesh(1, 2, device="cuda")
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=MESH_SPLIT_LAYERS)
+    model = build_model(cfg, device="cuda")
+    tr, loader = _mesh_trainer(model, mesh, MESH_SPLIT_STEPS, MESH_SPLIT_B,
+                               MESH_SPLIT_S, peak_lr=MESH_SPLIT_LR)
+    params, opt = tr.init_state(torch.Generator("cuda").manual_seed(0))
+    sh = tr.shardings
+    out = {"p_bytes": _tree_bytes(params),
+           "m_bytes": _tree_bytes(opt["mu"]) + _tree_bytes(opt["nu"]),
+           "p_whole": _whole_bytes(params, sh["params"]),
+           "m_whole": 2 * _whole_bytes(opt["mu"], sh["opt"]["mu"])}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times: list = []
+    _timed(tr, times)
+    counters = _zero_counters()
+    mesh.staged_bytes = 0
+    params, opt = tr.run(params, opt)
+    loader.stop()
+    out.update(curve=_curve(tr), times=times,
+               launches={k: fn.launches for k, fn in counters.items()},
+               staged=mesh.staged_bytes / MESH_SPLIT_STEPS,
+               peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _mesh_split() -> None:
+    """(f) ``[mesh-train-split]``: each of ``MESH_SPLIT_ARCHS`` on (1, 2)
+    against one device."""
+    for arch in MESH_SPLIT_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        want, one_times = _one_device_dense(
+            MESH_SPLIT_LAYERS, MESH_SPLIT_STEPS, arch=arch,
+            batch=MESH_SPLIT_B, seq=MESH_SPLIT_S, peak_lr=MESH_SPLIT_LR)
+        one_peak = torch.cuda.max_memory_allocated()
+        _free_card()
+        t0 = time.perf_counter()
+        ranks = _run_mesh(_job_split, 2, arch)
+        mesh_s = time.perf_counter() - t0
+        _check_launches(f"mesh-train-split {arch}",
+                        [r["launches"] for r in ranks])
+        r0 = ranks[0]
+        loss, gnorm = _curve_drift(r0["curve"], want)
+        first = _rel(r0["curve"][0][0], want[0][0])
+        for r, x in enumerate(ranks):
+            log(f"[mesh-train-split] {arch} rank {r}: parameters "
+                f"{x['p_bytes'] / 1e9:.3f} GB of {x['p_whole'] / 1e9:.3f} "
+                f"({x['p_bytes'] / x['p_whole']:.3f}), moments "
+                f"{x['m_bytes'] / 1e9:.3f} GB of {x['m_whole'] / 1e9:.3f} "
+                f"({x['m_bytes'] / x['m_whole']:.3f}); peak "
+                f"(max_memory_allocated) {x['peak'] / 1e9:.2f} GB against "
+                f"one device's {one_peak / 1e9:.2f}; step times "
+                f"{[round(t, 3) for t in x['times']]} s; "
+                f"{x['staged'] / 1e9:.2f} GB a step staged through the "
+                f"host; launches {sum(x['launches'].values())}")
+        log(f"[mesh-train-split] {arch} x{MESH_SPLIT_LAYERS} layer bf16 on "
+            f"(data=1, model=2), 2 gloo ranks on cuda:0, B={MESH_SPLIT_B} "
+            f"S={MESH_SPLIT_S}, {MESH_SPLIT_STEPS} steps at peak lr "
+            f"{MESH_SPLIT_LR:g}: losses "
+            f"{[round(c[0], 4) for c in r0['curve']]} against one device's "
+            f"{[round(c[0], 4) for c in want]}, gnorms "
+            f"{[round(c[1], 3) for c in r0['curve']]} against "
+            f"{[round(c[1], 3) for c in want]}: step-0 loss rel "
+            f"{first:.3g}, loss max rel {loss:.3g}, gnorm max rel "
+            f"{gnorm:.3g} (limits {MESH_SPLIT_LOSS0_RTOL:g}, "
+            f"{MESH_LOSS_RTOL:g}, {MESH_GNORM_RTOL:g}); median step "
+            f"{np.median(r0['times'][1:]) * 1e3:.1f} ms against one "
+            f"device's {np.median(one_times[1:]) * 1e3:.1f} ms (two ranks "
+            f"time-sharing one card); launches 0; {mesh_s:.1f}s with the "
+            "spawn and init")
+        if not (np.isfinite(np.array(r0["curve"])).all()
+                and first <= MESH_SPLIT_LOSS0_RTOL
+                and loss <= MESH_LOSS_RTOL and gnorm <= MESH_GNORM_RTOL):
+            raise AssertionError(f"[mesh-train-split] {arch}: the mesh's "
+                                 f"curve {r0['curve']} is off one "
+                                 f"device's {want}")
+        _free_card()
+
+
 def _mesh_moe() -> None:
     """(c) ``[mesh-train-moe]``."""
     from repro_torch.configs import get_config
@@ -4907,12 +5029,13 @@ def phase_mesh_training() -> dict:
     at full width against one device, (d) its checkpoint across mesh
     shapes, (c) expert-parallel MoE at full width, (a) every family's
     small config against the CPU's mesh, (e) sequence-parallel attention
+    at full width against one device, (f) RWKV6's and the hybrid's split
     at full width against one device; the cells of ``--mesh-cells``.
     Returns the launches (none)."""
     import multiprocessing
 
     runs = {"dense": _mesh_dense, "moe": _mesh_moe, "small": _mesh_small,
-            "sp": _mesh_sp}
+            "sp": _mesh_sp, "split": _mesh_split}
     for cell in MESH_CELLS:
         runs[cell]()
         _free_card()

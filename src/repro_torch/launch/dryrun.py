@@ -19,12 +19,12 @@ on CPU fake tensors.
   the reference's GSPMD layout: the parameters and AdamW moments rest
   split by the reference's rules (``parallel/sharding.py``), each layer's
   leaves are all-gathered over ``data`` inside its checkpointed layer and
-  their gradients reduce-scattered as the backward leaves it, and a
-  ``TransformerLM`` splits its work over ``model`` (the sequence between
-  sublayers, q heads or query rows, ``d_ff``, experts, the logits of the
-  rank's own tokens) on its rows of the global batch (split over ``pod``
-  and ``data``).  ``RwkvLM``, the hybrid and whisper still repeat their
-  whole forward and backward on every ``model`` rank.
+  their gradients reduce-scattered as the backward leaves it, and the
+  model splits its work over ``model`` (the sequence between sublayers,
+  q heads or query rows, ``d_ff``, experts, RWKV's recurrence on the
+  rank's rows, the hybrid's ``d_inner``, the logits of the rank's own
+  tokens) on its rows of the global batch (split over ``pod`` and
+  ``data``).
 * ``prefill`` / ``decode`` of a ``TransformerLM``: the reference's serving
   cell.  The weights rest in their shards (the training rules, or the
   serving rules with ``--serve-params``) and each layer's are gathered
@@ -187,7 +187,7 @@ def build_cell(arch: str, shape_name: str, mesh, *,
             kind="train").items()}
         step = make_train_step(model, shardings=shardings)
         args = (shards, adamw_init(shards), batch)
-    elif getattr(model, "seq_parallel", False):
+    elif getattr(model, "serve_parallel", False):
         if shape.kind == "prefill":
             batch = {k: _fake(v, dev) for k, v in make_batch_stub(
                 cfg, batch=shape.global_batch, seq=shape.seq_len,

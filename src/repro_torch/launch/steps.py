@@ -17,8 +17,8 @@ lays it out:
 1. with ``accum_steps`` n, microbatch i is rows ``[i·B/n, (i+1)·B/n)`` of
    the global batch, and of it the rank takes its rows over the batch
    axes (``batch_rows``), as the reference's scan splits each microbatch
-   over ``data``; for a model that splits its work over ``model``
-   (``seq_parallel``: ``TransformerLM``) also its chunk of the sequence,
+   over ``data``; where the mesh has a ``model`` axis, over which every
+   family splits its work, also its chunk of the sequence,
    as ``batch_specs`` splits tokens and targets ``P(("pod", "data"),
    "model")`` (padded at the end with masked tokens where the axis does
    not divide the sequence);
@@ -44,15 +44,23 @@ lays it out:
 
 **What the mesh splits.** The stored state, parameters and moments, split
 by the rules; within a step, the weights, gathered over ``data`` one
-layer at a time and freed after use; and for ``TransformerLM`` the work
-over ``model``: the residual stream is sequence-parallel, attention is
-split by q heads where they divide the axis and by query rows where they
-do not (only K/V are gathered), the MLP's hidden by ``d_ff``, the experts
-by the MoE block's expert parallelism, and the logits by the rank's own
+layer at a time and freed after use; and the work over ``model``, as the
+reference's ``constrain`` sites lay it out.  In every family the
+residual stream is sequence-parallel and the logits are the rank's own
 tokens against the whole vocabulary (the table gathered over ``model``
-where it is read).  The other families (``RwkvLM``, the hybrid,
-whisper) get the per-layer gathers, but every ``model`` rank still
-computes their whole forward and backward.
+where it is read).  ``TransformerLM`` splits attention by q heads where
+they divide the axis and by query rows where they do not (only K/V are
+gathered), the MLP's hidden by ``d_ff`` and the experts by the MoE
+block's expert parallelism.  ``RwkvLM`` runs its time mix (the WKV
+recurrence) on the rank's rows of the whole sequence, the batch split
+over ``("data", "model")`` (all the rows where ``model`` does not divide
+them), and splits its channel mix by ``d_ff``.  The hybrid splits its
+attention as ``TransformerLM`` does, its SSM branch by ``d_inner`` (whole
+on every rank where ``model`` does not divide it) and its MLP by
+``d_ff``.  Whisper's encoder and decoder are sequence-parallel over
+their own lengths (the encoder's frames padded as the tokens are), with
+attention split by heads where they divide the axis and by query rows
+where they do not, and the MLP by ``d_ff``.
 
 **Serving on a mesh** (``make_prefill_fn`` / ``make_decode_fn`` with
 ``shardings=``; ``TransformerLM`` only) the weights rest in their shards,
@@ -64,8 +72,9 @@ training step's forward does; the decode cache is the rank's window of
 (``heads``) split over ``model`` where the axis divides them; a decode
 step repeats the lanes on every ``model`` rank and splits the attention
 over the cache's window (a softmax over ``model``), q heads, ``d_ff``,
-experts and the vocabulary.  The other families keep their serving path:
-every rank holds their whole weights and its rows of the cache.
+experts and the vocabulary.  The other families (no ``serve_parallel``)
+keep their serving path: every rank holds their whole weights and its
+rows of the cache.
 """
 
 from __future__ import annotations
@@ -116,15 +125,13 @@ def make_train_step(
     leaves_of = tree_leaves(shardings) if shardings is not None else []
     mesh = leaves_of[0].mesh if leaves_of else None
 
-    split = bool(getattr(model, "seq_parallel", False))
-
     def single(params, batch):
         """(loss, metrics, grads) of one microbatch on this rank; on a
         mesh the gradients of this rank's shards, summed over the
         ranks."""
         denom = layout = None
         if mesh is not None:
-            layout = TrainLayout(mesh, shardings, split_model=split,
+            layout = TrainLayout(mesh, shardings,
                                  seq_len=batch["tokens"].shape[1])
             batch = batch_rows(batch, mesh, seq_axis="model"
                                if layout.split_model else None)
@@ -196,7 +203,7 @@ def _serving_layout(model, shardings, layout: str, max_seq: int, *,
                   seq_len: int = 0, decoding: bool = False):
     """The mesh of ``shardings`` and the ``ServeLayout`` of a serving step
     on it."""
-    if not getattr(model, "seq_parallel", False):
+    if not getattr(model, "serve_parallel", False):
         raise ValueError(f"{type(model).__name__} has no serving layout on "
                          "a mesh")
     cfg = model.cfg

@@ -15,10 +15,11 @@ parameter tree a model's ``loss`` reads on a mesh gathers each leaf where
 it is read, and :func:`unstack_layers` splits it into layers whose leaves
 are gathered inside their :func:`remat_call`.  The reference's
 ``constrain`` is not ported as a function: where its GSPMD layout splits
-work over ``model``, a model body reads the layout and computes its part
-(``models/transformer.py``, ``models/attention.py``, ``models/moe.py``,
-:func:`split_mlp`).  Serving on a mesh runs shard-local modules instead
-(:mod:`repro_torch.launch.mesh`).
+work over ``model``, a model body reads the layout (:func:`split_layout`)
+and computes its part (``models/transformer.py``, ``models/attention.py``,
+``models/moe.py``, ``models/rwkv.py``, ``models/hybrid.py``,
+``models/encdec.py``, :func:`split_mlp`, :func:`whole_table`).  Serving
+on a mesh runs shard-local modules instead (:mod:`repro_torch.launch.mesh`).
 """
 
 from __future__ import annotations
@@ -57,10 +58,12 @@ __all__ = [
     "remat_call",
     "scale_embedding",
     "softcap",
+    "split_layout",
     "split_mlp",
     "take_embedding",
     "torch_dtype",
     "unstack_layers",
+    "whole_table",
 ]
 
 # --------------------------------------------------------------------------
@@ -208,6 +211,26 @@ def current_mesh():
 def current_layout():
     """The training step's ``TrainLayout`` bound here, or None."""
     return _LAYOUT.get()
+
+
+def split_layout():
+    """The training layout bound here if it splits the work over
+    ``model`` (a ``TrainLayout`` on a ``model`` axis of more than one
+    rank), else None."""
+    layout = _LAYOUT.get()
+    return layout if layout is not None and layout.split_model and \
+        not layout.serving else None
+
+
+def whole_table(table: torch.Tensor, vocab: int) -> torch.Tensor:
+    """A ``(V, D)`` embedding table whole: on a training mesh that splits
+    the work over ``model``, all-gathered over it (the vocabulary is
+    stored split) where it is used, each rank then looking up and scoring
+    its own tokens; the table itself elsewhere."""
+    layout = split_layout()
+    if layout is None:
+        return table
+    return layout.whole(table, 0, vocab)
 
 
 def axis_size(name: str) -> int:

@@ -20,6 +20,17 @@ Weights live on the module; the serving functions take no ``params``
 argument.  ``loss(params, batch)`` trains on ``batch["frames"]`` through
 the same layers, grad-enabled, each decoder layer under activation
 checkpointing, as the reference's default ``remat="full"``.
+
+On a training mesh that splits the work over ``model``
+(``models.common.split_layout``) the reference's ``constrain`` sites lay
+it out: the encoder's residual is the rank's chunk of its frames (padded
+at their end to a multiple of ``model``), the decoder's the rank's chunk
+of the tokens; each attention reads its input whole (:func:`_split_mha`:
+by heads where they divide ``model``, else the rank's query rows against
+gathered K/V), cross-attention the whole encoder output, and its output
+comes back to the chunk; the MLP splits ``d_ff`` (:func:`_mlp`); the
+decoder's positions are its chunk's rows of ``pos_embed``; the logits are
+the rank's own tokens against the whole table.
 """
 
 from __future__ import annotations
@@ -39,9 +50,11 @@ from .common import (
     frozen,
     remat_call,
     resolve_device,
+    split_layout,
     take_embedding,
     torch_dtype,
     unstack_layers,
+    whole_table,
 )
 
 __all__ = ["EncDecLM", "layer_norm", "sinusoids"]
@@ -87,6 +100,78 @@ def _mha(x, kv, p, cfg, *, causal, positions=None):
         scale=1.0 / math.sqrt(hd), causal=causal, chunk=min(512, Sk))
     y = out.reshape(B, Sq, H * hd) @ p["wo"] + p["bo"]
     return y, (k, v)
+
+
+def _split_mha(x, p, cfg, layout, *, causal, length, kv=None):
+    """:func:`_mha` on a mesh that splits it over ``model`` (``layout``, a
+    ``TrainLayout``): ``x`` (B, c, D) is this rank's chunk of a sequence of
+    ``length`` positions padded to a multiple of the axis, and so is the
+    output.  Self-attention reads the whole sequence (its first ``length``
+    rows as keys: no padding is attended); cross-attention reads ``kv``
+    (B, Sk, D), the whole encoder output.
+
+    Where the heads divide the axis, the queries are gathered and the rank
+    computes its heads ``[r·H/M, (r+1)·H/M)`` (``wq``, ``bq`` and ``wo``
+    as their stored ``model`` shards, ``wk``, ``wv`` and ``bv`` sliced
+    from the replicated leaves); its partial output projection is
+    reduce-scattered back to its chunk and ``bo`` added once.  Else the
+    rank computes all heads for its own queries against gathered K/V
+    (self-attention projects its chunk's K/V and gathers only them), and
+    ``wo`` is a local product."""
+    B, c, D = x.shape
+    H, hd = cfg.num_heads, cfg.hd
+    start, _ = layout.span(length)
+    attn = dict(window=0, scale=1.0 / math.sqrt(hd), causal=causal)
+    if H % layout.model_size:
+        whole = lambda k, d, n: layout.whole(p[k], d, n)
+        q = (x @ whole("wq", 1, H * hd)).reshape(B, c, H, hd) \
+            + whole("bq", 0, H)
+        src = x if kv is None else kv
+        k = (src @ whole("wk", 1, H * hd)).reshape(B, -1, H, hd)
+        v = (src @ whole("wv", 1, H * hd)).reshape(B, -1, H, hd) \
+            + whole("bv", 0, H)
+        if kv is None:
+            k = layout.gather_seq(k)[:, :length]
+            v = layout.gather_seq(v)[:, :length]
+        Sk = k.shape[1]
+        out = blockwise_attn(
+            q.reshape(B, c, H, 1, hd), k, v,
+            q_positions=torch.arange(start, start + c, device=x.device),
+            k_positions=torch.arange(Sk, device=x.device),
+            chunk=min(512, Sk), **attn)
+        return out.reshape(B, c, H * hd) @ whole("wo", 0, H * hd) + p["bo"]
+    h0, h1 = layout.part(H)
+    Hr = h1 - h0
+    local = lambda k, d, n: layout.local(p[k], d, n)
+    xg = layout.gather_seq(x)
+    S = xg.shape[1]
+    src = xg[:, :length] if kv is None else kv
+    Sk = src.shape[1]
+    q = (xg @ local("wq", 1, H * hd)).reshape(B, S, Hr, hd) \
+        + local("bq", 0, H)
+    k = (src @ local("wk", 1, H * hd)).reshape(B, Sk, Hr, hd)
+    v = (src @ local("wv", 1, H * hd)).reshape(B, Sk, Hr, hd) \
+        + local("bv", 0, H)
+    out = blockwise_attn(
+        q.reshape(B, S, Hr, 1, hd), k, v,
+        q_positions=torch.arange(S, device=x.device),
+        k_positions=torch.arange(Sk, device=x.device),
+        chunk=min(512, Sk), **attn)
+    y = out.reshape(B, S, Hr * hd) @ local("wo", 0, H * hd)
+    return layout.scatter_seq(y) + p["bo"]
+
+
+def _mlp(x, p, layout=None, d_ff: int = 0):
+    """Whisper's GELU MLP; ``layout``: a training mesh's that splits its
+    hidden over ``model`` (the reference's ``constrain(m, "data", None,
+    "model")``): the rank's chunk ``x`` gathered, its slice of ``d_ff``
+    (``w1``/``b1`` by columns, ``w2`` by rows), the partial product
+    reduce-scattered back to its chunk and ``b2`` added once."""
+    if layout is None:
+        return _gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+    h = _gelu(layout.gather_seq(x) @ layout.local(p["w1"], 1, d_ff)
+              + layout.local(p["b1"], 0, d_ff))
+    return layout.scatter_seq(h @ layout.local(p["w2"], 0, d_ff)) + p["b2"]
 
 
 def _attend(q, k, v, mask=None):
@@ -199,18 +284,26 @@ class EncDecLM(nn.Module):
 
     def _encode(self, frames: torch.Tensor, layers, final_ln) -> torch.Tensor:
         """The encoder over per-layer parameter dicts ``layers`` and the
-        final LayerNorm's ``{"scale", "bias"}``."""
+        final LayerNorm's ``{"scale", "bias"}``.  On a training mesh that
+        splits the work over ``model``, the output is this rank's chunk of
+        the frames (padded at their end to a multiple of the axis)."""
         cfg = self.cfg
-        pos = torch.from_numpy(sinusoids(frames.shape[1], cfg.d_model)).to(
-            frames.device)
+        layout = split_layout()
+        T = frames.shape[1]
+        pos = torch.from_numpy(sinusoids(T, cfg.d_model)).to(frames.device)
         h = (frames + pos).to(self.dtype)
+        if layout is not None:
+            h = layout.take_chunk(h)
         for p in layers:
             a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
-            y, _ = _mha(a, a, p["attn"], cfg, causal=False)
+            if layout is not None:
+                y = _split_mha(a, p["attn"], cfg, layout, causal=False,
+                               length=T)
+            else:
+                y, _ = _mha(a, a, p["attn"], cfg, causal=False)
             h = h + y
             m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
-            m = _gelu(m @ p["mlp"]["w1"] + p["mlp"]["b1"])
-            h = h + (m @ p["mlp"]["w2"] + p["mlp"]["b2"])
+            h = h + _mlp(m, p["mlp"], layout, cfg.d_ff)
         return layer_norm(h, final_ln["scale"], final_ln["bias"])
 
     @torch.no_grad()
@@ -260,8 +353,22 @@ class EncDecLM(nn.Module):
                        positions=positions)
         h = h + y2
         m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
-        m = _gelu(m @ p["mlp"]["w1"] + p["mlp"]["b1"])
-        return h + (m @ p["mlp"]["w2"] + p["mlp"]["b2"]), kv, xkv
+        return h + _mlp(m, p["mlp"]), kv, xkv
+
+    def _split_dec_layer(self, h, p, enc_out, layout):
+        """One decoder layer on a mesh that splits it over ``model``: ``h``
+        is this rank's chunk of the tokens, ``enc_out`` the whole encoder
+        output."""
+        cfg = self.cfg
+        S = layout.seq_len
+        a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
+        h = h + _split_mha(a, p["self_attn"], cfg, layout, causal=True,
+                           length=S)
+        x = layer_norm(h, p["ln_x"]["scale"], p["ln_x"]["bias"])
+        h = h + _split_mha(x, p["cross_attn"], cfg, layout, causal=False,
+                           length=S, kv=enc_out)
+        m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
+        return h + _mlp(m, p["mlp"], layout, cfg.d_ff)
 
     def _final(self, h: torch.Tensor) -> torch.Tensor:
         h = layer_norm(h, self.dec_final_ln.scale, self.dec_final_ln.bias)
@@ -287,22 +394,42 @@ class EncDecLM(nn.Module):
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The reference's ``forward(params, tokens, frames=)``:
         teacher-forced (B, S, V) logits (+ the aux loss, 0),
-        differentiable in ``params``."""
+        differentiable in ``params``.  On a mesh that splits the work over
+        ``model``, ``tokens`` are this rank's chunk of the sequence, and so
+        are the logits; ``frames`` are whole."""
         cfg = self.cfg
+        D = cfg.d_model
+        layout = split_layout()
         frames = frames.to(self.device)
         enc_out = self._encode(
             frames, unstack_layers(params["enc_layers"], cfg.encoder_layers),
             params["enc_final_ln"])
         S = tokens.shape[1]
-        positions = torch.arange(S, device=tokens.device)
-        h = take_embedding(params["embed"], tokens) + params["pos_embed"][:S]
-        layer = lambda h, p: self._dec_layer(h, p, enc_out, positions)[0]
+        embed = whole_table(params["embed"], cfg.vocab_size)
+        if layout is None:
+            positions = torch.arange(S, device=tokens.device)
+            h = take_embedding(embed, tokens) + params["pos_embed"][:S]
+            layer = lambda h, p: self._dec_layer(h, p, enc_out,
+                                                 positions)[0]
+            table = params["embed"]
+        else:
+            # the chunk's rows of the positions (zeros past the table, on
+            # padding), and the encoder output whole for cross-attention
+            start = layout.seq_start
+            pos = params["pos_embed"][start:start + S]
+            pos = torch.cat([pos, pos.new_zeros((S - pos.shape[0], D))])
+            h = take_embedding(embed, tokens) + pos
+            enc_out = layout.gather_seq(enc_out)[:, :frames.shape[1]]
+            layer = lambda h, p: self._split_dec_layer(h, p, enc_out, layout)
+            # gathered once: its two uses add their gradients before its
+            # one reduction
+            table = embed
         for p in unstack_layers(params["dec_layers"], cfg.num_layers):
             h = remat_call(layer, h, p)
         h = layer_norm(h, params["dec_final_ln"]["scale"],
                        params["dec_final_ln"]["bias"])
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        return h @ params["embed"].T, aux
+        return h @ table.T, aux
 
     def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         """(ce, {"ce", "aux", "tokens"}), as the reference's ``loss``;

@@ -23,7 +23,18 @@ on the module; the serving functions take no ``params`` argument.
 attention through :func:`~repro_torch.models.attention.blockwise_attn`
 (``impl="xla"``; the flash kernel has no backward) and the SSM through
 :func:`ssm_scan`, each layer under activation checkpointing (the
-reference's default ``remat="full"``).
+reference's default ``remat="full"``).  On a training mesh that splits
+the work over ``model`` (``models.common.split_layout``) the reference's
+``constrain`` sites lay it out: the residual stream is the rank's chunk
+of the sequence; attention goes through
+:func:`~repro_torch.models.attention.split_attention`; the SSM branch
+splits ``d_inner`` over ``model`` (``xc``, ``z``, ``dt`` and the scan on
+the rank's columns, ``xc @ w_B`` and ``xc @ w_C`` summed over the ranks,
+``y @ w_out`` reduce-scattered to the chunk; the whole branch on every
+rank where ``model`` does not divide ``d_inner``, as ``fit_spec`` drops
+the axis); the MLP goes through
+:func:`~repro_torch.models.common.split_mlp`; the logits are the rank's
+own tokens against the whole table.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from .attention import (
     attn_params_shape,
     decode_attn,
     qkv,
+    split_attention,
     update_cache,
 )
 from .common import (
@@ -52,9 +64,12 @@ from .common import (
     remat_call,
     resolve_device,
     rms_norm,
+    split_layout,
+    split_mlp,
     take_embedding,
     torch_dtype,
     unstack_layers,
+    whole_table,
 )
 
 __all__ = ["FP32_PARAMS", "HybridLM", "hymba_windows", "ssm_scan",
@@ -223,14 +238,57 @@ class HybridLM(nn.Module):
         y = y * F.silu(z)
         return y @ p["w_out"], h
 
-    def _fuse(self, h, attn_y, ssm_y, p):
-        """The residual add of both branches, then the gated MLP."""
+    def _split_ssm_branch(self, x, p, layout):
+        """:meth:`_ssm_branch` on a mesh that splits ``d_inner`` over
+        ``model``: ``x`` is this rank's chunk (B, c, D) of the sequence, and
+        so is the output.  The rank takes its columns ``[lo, hi)`` of both
+        halves of ``w_in`` (the stored ``model`` split of its ``2·di``
+        outputs is not the halves': the leaf is gathered whole), gathers
+        ``xc`` whole for ``w_dt``'s input, sums the ranks' ``xc @ w_B`` and
+        ``xc @ w_C``, scans its columns and reduce-scatters its part of
+        ``y @ w_out``."""
+        di, N = self.di, self.N
+        xg = layout.gather_seq(x)
+        w_in = layout.whole(p["w_in"], 1, 2 * di)
+        if di % layout.model_size:
+            # the reference's constraint cannot split d_inner (fit_spec
+            # drops the axis): the whole branch on every rank, each keeping
+            # its chunk (the other leaves are stored whole)
+            w = {k: p[k] for k in ("w_dt", "dt_bias", "w_B", "w_C", "A_log",
+                                   "D_skip", "w_out")}
+            h0 = torch.zeros((x.shape[0], di, N), dtype=torch.float32,
+                             device=x.device)
+            y, _ = self._ssm_branch(xg, {"w_in": w_in, **w}, h0)
+            return y.narrow(1, layout.seq_start, layout.chunk)
+        lo, hi = layout.part(di)
+        local = lambda k, d: layout.local(p[k], d, di)
+        xc = xg @ w_in[:, lo:hi]
+        z = xg @ w_in[:, di + lo:di + hi]
+        dt = F.softplus(layout.whole(xc, 2, di) @ local("w_dt", 1)
+                        + local("dt_bias", 0))
+        Bp = layout.sum_parts(xc @ local("w_B", 0))
+        Cp = layout.sum_parts(xc @ local("w_C", 0))
+        A = -torch.exp(local("A_log", 0))
+        h0 = torch.zeros((x.shape[0], hi - lo, N), dtype=torch.float32,
+                         device=x.device)
+        _, y = ssm_scan(xc, dt, Bp, Cp, A, h0)
+        y = y + local("D_skip", 0).to(y.dtype) * xc
+        y = y * F.silu(z)
+        return layout.scatter_seq(y @ local("w_out", 0))
+
+    def _fuse(self, h, attn_y, ssm_y, p, layout=None):
+        """The residual add of both branches, then the gated MLP
+        (``layout``: a training mesh's that splits it over ``model``)."""
         cfg = self.cfg
         h = h + 0.5 * (rms_norm(attn_y, p["attn_norm"], cfg.norm_eps)
                        + rms_norm(ssm_y, p["ssm_norm"], cfg.norm_eps))
         m = rms_norm(h, p["ln2"], cfg.norm_eps)
-        return h + gated_mlp(m, p["mlp"]["wu"], p["mlp"]["wg"],
-                             p["mlp"]["wd"], cfg.activation)
+        mlp = p["mlp"]
+        if layout is not None:
+            return h + split_mlp(m, mlp["wu"], mlp["wg"], mlp["wd"],
+                                 cfg.activation, layout, cfg.d_ff)
+        return h + gated_mlp(m, mlp["wu"], mlp["wg"], mlp["wd"],
+                             cfg.activation)
 
     def _layers(self, h: torch.Tensor, positions: torch.Tensor):
         """Every layer over the full prompt from a zero SSM state; yields
@@ -270,7 +328,14 @@ class HybridLM(nn.Module):
 
     def _train_layer(self, h, p, l: int, positions):
         cfg = self.cfg
+        layout = split_layout()
         a = rms_norm(h, p["ln1"], cfg.norm_eps)
+        if layout is not None:
+            attn_y = split_attention(
+                a, p["attn"], cfg, window=int(self.windows[l]),
+                rope_base=cfg.rope_base, layout=layout)
+            ssm_y = self._split_ssm_branch(a, p["ssm"], layout)
+            return self._fuse(h, attn_y, ssm_y, p, layout)
         attn_y = attention_block(
             a, p["attn"], cfg, window=int(self.windows[l]),
             rope_base=cfg.rope_base, positions=positions, impl="xla")
@@ -282,16 +347,23 @@ class HybridLM(nn.Module):
     def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The reference's ``forward(params, tokens)``: (B, T, V) logits
-        (+ the aux loss, 0), differentiable in ``params``."""
+        (+ the aux loss, 0), differentiable in ``params``.  On a mesh that
+        splits the work over ``model``, ``tokens`` are this rank's chunk of
+        the sequence, and so are the logits."""
         cfg = self.cfg
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        h = take_embedding(params["embed"], tokens)
+        embed = whole_table(params["embed"], cfg.vocab_size)
+        h = take_embedding(embed, tokens)
         for l, p in enumerate(unstack_layers(params["layers"],
                                              cfg.num_layers)):
             h = remat_call(self._train_layer, h, p, l, positions)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        return h @ params["embed"].T, aux
+        # split over model, the tied table is gathered once (its two uses
+        # add their gradients before its one reduction); elsewhere each
+        # use reads the leaf
+        table = embed if split_layout() is not None else params["embed"]
+        return h @ table.T, aux
 
     def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         """(ce, {"ce", "aux", "tokens"}), as the reference's ``loss``."""

@@ -287,7 +287,7 @@ def moe_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ArchConfig,
         if mesh.shape.get("model", 1) > 1 and not split:
             raise ValueError("an MoE block on a mesh with a model axis "
                              "takes the sequence split over it (a "
-                             "TrainLayout with split_model)")
+                             "TrainLayout bound)")
         seq_len = layout.seq_len if split else x.shape[1]
         out, aux = _expert_parallel(x, p, cfg, mesh, seq_len,
                                     lossless=lossless)

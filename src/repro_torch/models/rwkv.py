@@ -20,7 +20,15 @@ the module; the serving functions take no ``params`` argument.
 the recurrence in :func:`wkv6_scan` (the XLA scan's counterpart,
 differentiable; the kernel has no backward, nor has the reference's
 Pallas kernel a VJP), each layer under activation checkpointing (the
-reference's default ``remat="full"``).
+reference's default ``remat="full"``).  On a training mesh that splits
+the work over ``model`` (``models.common.split_layout``) the reference's
+``constrain`` sites lay it out: the residual stream is the rank's chunk
+of the sequence between layers; the time mix runs on the rank's rows of
+the whole sequence, the batch split over ``("data", "model")`` (§Perf-A2;
+all the rows where ``model`` does not divide them), with its weights
+whole; the channel mix splits ``d_ff`` over ``model``, its partial
+product reduce-scattered to the chunk and gated there; and the logits
+are the rank's own tokens against the whole table.
 """
 
 from __future__ import annotations
@@ -41,9 +49,11 @@ from .common import (
     remat_call,
     resolve_device,
     rms_norm,
+    split_layout,
     take_embedding,
     torch_dtype,
     unstack_layers,
+    whole_table,
 )
 
 __all__ = ["FP32_PARAMS", "RwkvLM", "wkv6_scan", "wkv6_step"]
@@ -254,6 +264,9 @@ class RwkvLM(nn.Module):
 
     def _train_layer(self, h, p):
         cfg = self.cfg
+        layout = split_layout()
+        if layout is not None:
+            return self._split_layer(h, p, layout)
         state0 = torch.zeros((h.shape[0], self.H, self.hd, self.hd),
                              dtype=torch.float32, device=h.device)
         a = rms_norm(h, p["ln1"], cfg.norm_eps)
@@ -263,17 +276,54 @@ class RwkvLM(nn.Module):
         m, _ = self._channel_mix(m, p, None)
         return h + m
 
+    def _split_layer(self, h, p, layout):
+        """One layer on a mesh that splits its work over ``model``: ``h`` is
+        this rank's chunk of the (padded) sequence of its rows, and so is
+        the output.  The time mix runs on the rank's rows of the whole
+        sequence (the token shift and the recurrence need it whole) with
+        its weights whole; the channel mix on the gathered sequence with
+        the rank's slice of ``d_ff``, its gate on the chunk alone."""
+        cfg = self.cfg
+        D, F_, H = cfg.d_model, cfg.d_ff, self.H
+        rows = layout.seq_to_rows(h)
+        tm = {k: p[k] for k in ("ln1", "mu_x", "mu_rkvwg", "tm_w1", "tm_w2",
+                                "w0", "dw1", "dw2", "lnx_scale", "lnx_bias")}
+        for k in ("wr", "wk", "wv", "wg"):
+            tm[k] = layout.whole(p[k], 1, D)
+        tm["wo"] = layout.whole(p["wo"], 0, D)
+        tm["u"] = layout.whole(p["u"], 0, H)
+        state0 = torch.zeros((rows.shape[0], H, self.hd, self.hd),
+                             dtype=torch.float32, device=h.device)
+        a = rms_norm(rows, tm["ln1"], cfg.norm_eps)
+        a, _, _ = self._time_mix(a, tm, state0, None, impl="xla")
+        h = h + layout.rows_to_seq(a, h.shape[0])
+        m = rms_norm(h, p["ln2"], cfg.norm_eps)
+        whole = layout.gather_seq(m)
+        xx = _token_shift(whole) - whole
+        xk = whole + xx * p["cmu_k"]
+        xr = m + xx.narrow(1, layout.seq_start, layout.chunk) * p["cmu_r"]
+        k = torch.square(torch.relu(xk @ layout.local(p["wck"], 1, F_)))
+        kv = layout.scatter_seq(k @ layout.local(p["wcv"], 0, F_))
+        return h + torch.sigmoid(xr @ layout.whole(p["wcr"], 1, D)) * kv
+
     def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The reference's ``forward(params, tokens)``: (B, T, V) logits
-        (+ the aux loss, 0), differentiable in ``params``."""
+        (+ the aux loss, 0), differentiable in ``params``.  On a mesh that
+        splits the work over ``model``, ``tokens`` are this rank's chunk of
+        the sequence, and so are the logits."""
         cfg = self.cfg
-        h = take_embedding(params["embed"], tokens)
+        embed = whole_table(params["embed"], cfg.vocab_size)
+        h = take_embedding(embed, tokens)
         for p in unstack_layers(params["layers"], cfg.num_layers):
             h = remat_call(self._train_layer, h, p)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        return h @ params["embed"].T, aux
+        # split over model, the tied table is gathered once (its two uses
+        # add their gradients before its one reduction); elsewhere each
+        # use reads the leaf
+        table = embed if split_layout() is not None else params["embed"]
+        return h @ table.T, aux
 
     def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         """(ce, {"ce", "aux", "tokens"}), as the reference's ``loss``."""

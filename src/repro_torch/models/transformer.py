@@ -107,10 +107,12 @@ from .common import (
     rms_norm,
     scale_embedding,
     softcap,
+    split_layout,
     split_mlp,
     take_embedding,
     torch_dtype,
     unstack_layers,
+    whole_table,
 )
 from .moe import FP32_PARAMS as MOE_FP32_PARAMS
 from .moe import moe_block, moe_params_shape
@@ -122,10 +124,10 @@ class TransformerLM(nn.Module):
     """Decoder-only LM (dense or MoE); parameters are allocated, not
     initialised — call :meth:`init` or ``load_state_dict``."""
 
-    #: a training step on a mesh splits this family's work over ``model``
-    #: (``parallel.sharding.TrainLayout``): the sequence between
-    #: sublayers, q heads (or query rows), ``d_ff`` and experts
-    seq_parallel = True
+    #: a serving step on a mesh splits this family's work over ``model``
+    #: as a training step does (``parallel.sharding.ServeLayout``:
+    #: ``_mesh_prefill``, ``_mesh_decode``)
+    serve_parallel = True
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  impl: str = "kernel") -> None:
@@ -336,7 +338,7 @@ class TransformerLM(nn.Module):
     def _train_layer(self, h: torch.Tensor, p: Dict[str, Any], l: int,
                      positions: torch.Tensor):
         cfg = self.cfg
-        layout = _split_layout()
+        layout = split_layout()
         a = rms_norm(h, p["ln1"], cfg.norm_eps, plus_one=cfg.post_norms)
         if layout is not None:
             a = split_attention(a, p["attn"], cfg, window=int(self.windows[l]),
@@ -352,16 +354,6 @@ class TransformerLM(nn.Module):
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return h, aux
 
-    def _whole_table(self, table: torch.Tensor) -> torch.Tensor:
-        """A ``(V, D)`` table whole: on a mesh that splits the work over
-        ``model``, all-gathered over it (the vocabulary is stored split)
-        where it is used, each rank then looking up and scoring its own
-        tokens."""
-        layout = _split_layout()
-        if layout is None:
-            return table
-        return layout.whole(table, 0, self.cfg.vocab_size)
-
     def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor, *,
                       patch_embeds: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -371,13 +363,13 @@ class TransformerLM(nn.Module):
         over ``model``, ``tokens`` are this rank's chunk of the sequence,
         and so are the logits."""
         cfg = self.cfg
-        layout = _split_layout()
+        layout = split_layout()
         start = layout.seq_start if layout is not None else 0
         positions = torch.arange(start, start + tokens.shape[1],
                                  device=tokens.device)
         # gathered once (on a mesh, a read gathers it): a tied table's two
         # uses add their gradients before its one reduction
-        embed = self._whole_table(params["embed"])
+        embed = whole_table(params["embed"], cfg.vocab_size)
         h = self._embed_inputs(tokens, patch_embeds, table=embed,
                                start=start)
         auxes = []
@@ -387,8 +379,8 @@ class TransformerLM(nn.Module):
             auxes.append(aux)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps,
                      plus_one=cfg.post_norms)
-        table = (self._whole_table(params["unembed"]) if "unembed" in params
-                 else embed)
+        table = (whole_table(params["unembed"], cfg.vocab_size)
+                 if "unembed" in params else embed)
         return self._unembed(h, table), torch.stack(auxes).sum()
 
     def loss(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor]):
@@ -838,14 +830,6 @@ class TransformerLM(nn.Module):
         return type(self), {"cfg": dataclasses.replace(
             cfg, num_heads=cfg.num_heads // n,
             num_kv_heads=cfg.num_kv_heads // n, head_dim=cfg.hd)}
-
-
-def _split_layout():
-    """The training layout bound here if it splits the work over
-    ``model``, else None."""
-    layout = current_layout()
-    return layout if layout is not None and layout.split_model and \
-        not layout.serving else None
 
 
 def _serve_layout():

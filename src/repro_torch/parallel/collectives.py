@@ -19,12 +19,12 @@ residual over ``model``, whose ranks take other heads or another slice of
 ``d_ff``): its backward reduce-scatters the sum of the ranks' gradients.
 :func:`reduce_scatter_over` is its transpose: the sum of the ranks'
 partial products, this rank's chunk of it, and the gradient all-gathered.
-:func:`gather_over` gathers chunks that every rank then uses alike (a
-family that computes the same layer on every ``model`` rank) and keeps
-this rank's chunk of the gradient (a sum there would count the gradient
-once per rank).  :func:`sum_grads_over` is the identity whose gradient is
+:func:`sum_grads_over` is the identity whose gradient is
 summed over the axes (a weight each rank applied to its own tokens or
-heads); :func:`mean_over` averages a value over the axes, and
+heads); :func:`sum_over` sums the ranks' partial products into a whole
+that each rank then uses differently (the hybrid's ``xc @ w_B`` over its
+slice of ``d_inner``), so its backward sums the gradients too;
+:func:`mean_over` averages a value over the axes, and
 :func:`scale_grad` divides the gradient of a value each rank computed
 whole; :func:`all_to_all` is ``jax.lax.all_to_all(tiled=True)``, its own
 transpose with the two dimensions swapped.
@@ -55,9 +55,9 @@ from ..tree import tree_leaves, tree_map, tree_unflatten_like
 
 __all__ = ["BLOCK", "ErrorFeedback", "all_to_all", "bind_axis",
            "bound_group", "compressed_grad_tree", "compressed_psum",
-           "dequantize_int8", "gather_over", "gather_sum_grads", "maybe_psum",
+           "dequantize_int8", "gather_sum_grads", "maybe_psum",
            "mean_over", "quantize_int8", "reduce_scatter_over", "scale_grad",
-           "softmax_over", "sum_grads_over"]
+           "softmax_over", "sum_grads_over", "sum_over"]
 
 BLOCK = 256
 
@@ -103,12 +103,6 @@ def maybe_psum(x: torch.Tensor, axis_name: str = "model") -> torch.Tensor:
 # ------------------------------------------ a training step's collectives
 
 
-def _chunk_of(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    n = mesh.shape[axis]
-    size = x.shape[dim] // n
-    return x.narrow(dim, mesh.coords[axis] * size, size)
-
-
 class _GatherSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
@@ -133,23 +127,23 @@ class _ReduceScatter(torch.autograd.Function):
         return mesh.all_gather(g, axis, dim), None, None, None
 
 
-class _Gather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
-        ctx.args = (mesh, axis, dim)
-        return mesh.all_gather(x, axis, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        mesh, axis, dim = ctx.args
-        return _chunk_of(g, mesh, axis, dim).contiguous(), None, None, None
-
-
 class _SumGrads(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
         ctx.args = (mesh, axes)
         return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return mesh.all_reduce(g, axes), None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return mesh.all_reduce(x, axes)
 
     @staticmethod
     def backward(ctx, g):
@@ -210,15 +204,16 @@ def reduce_scatter_over(x: torch.Tensor, mesh, axis: str, dim: int
     return _ReduceScatter.apply(x, mesh, axis, dim)
 
 
-def gather_over(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """The ranks' chunks joined along ``dim``, used alike by every rank;
-    the backward keeps this rank's chunk of the gradient."""
-    return _Gather.apply(x, mesh, axis, dim)
-
-
 def sum_grads_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``x``, with its gradient summed over the ranks of ``axes``."""
     return _SumGrads.apply(x, mesh, tuple(axes))
+
+
+def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over ``axes``, on every rank;
+    each rank uses the sum differently, so the backward sums the ranks'
+    gradients as well."""
+    return _Sum.apply(x, mesh, tuple(axes))
 
 
 def mean_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:

@@ -49,10 +49,11 @@ import torch
 
 from ..tree import tree_flatten_with_path, tree_unflatten_like
 from .collectives import (
-    gather_over,
+    all_to_all,
     gather_sum_grads,
     reduce_scatter_over,
     sum_grads_over,
+    sum_over,
 )
 
 __all__ = [
@@ -603,33 +604,33 @@ class TrainLayout:
     summed over the ranks and cut to this rank's shard: no reduction is
     left for the step.
 
-    ``split_model``: the model splits its work over ``model`` (a family
-    whose ``seq_parallel`` is true).  Its leaves keep their ``model``
+    ``split_model`` (a ``model`` axis of more than one rank): the model
+    splits its work over ``model``.  Its leaves keep their ``model``
     split (a rank's q heads, its slice of ``d_ff``, its experts, its
     slice of the vocabulary), the residual stream is this rank's
     ``chunk`` of the sequence (``seq_len`` padded to a multiple of the
     axis), and a leaf replicated over ``model`` has its gradient summed
     over it (each rank's gradient is its tokens' or its heads' part).
-    Otherwise every ``model`` rank computes the same thing, the leaves are
-    gathered over ``model`` too (an expert leaf excepted, which the MoE
-    block keeps split) and that gather's backward keeps this rank's chunk.
+    Between the sequence's chunks and the batch's rows,
+    :meth:`seq_to_rows` and :meth:`rows_to_seq` move a tensor (RWKV's
+    recurrence runs on the rank's rows of the whole sequence); a second
+    sequence (whisper's encoder frames) is chunked by :meth:`span` and
+    :meth:`take_chunk`.
     """
 
     #: a serving step's layout (:class:`ServeLayout`) sets these
     serving = False
     decoding = False
 
-    def __init__(self, mesh, shardings, *, split_model: bool = False,
-                 seq_len: int = 0) -> None:
+    def __init__(self, mesh, shardings, *, seq_len: int = 0) -> None:
         self.mesh = mesh
         self.shardings = shardings
         self.model_size = mesh.shape.get("model", 1)
-        self.split_model = bool(split_model) and self.model_size > 1
+        self.split_model = self.model_size > 1
         self.seq_len = seq_len
         #: this rank's columns of the sequence: [seq_start, + chunk)
-        self.chunk = (-(-seq_len // self.model_size) if self.split_model
-                      else seq_len)
-        self.rank = mesh.coords.get("model", 0) if self.split_model else 0
+        self.chunk = -(-seq_len // self.model_size)
+        self.rank = mesh.coords.get("model", 0)
         self.seq_start = self.rank * self.chunk
 
     def tree(self, params) -> "Shards":
@@ -649,7 +650,6 @@ class TrainLayout:
         sums = [a for a in batch if a not in used and mesh.shape[a] > 1]
         if self.split_model and "model" not in used:
             sums.append("model")
-        keep_model = self.split_model or expert_parallel(path)
         if sums:
             t = sum_grads_over(t, mesh, sums)
         for d, names in enumerate(split):
@@ -660,8 +660,6 @@ class TrainLayout:
                     continue
                 if a in batch:
                     t = gather_sum_grads(t, mesh, a, d)
-                elif not keep_model:
-                    t = gather_over(t, mesh, a, d)
         return t
 
     # -------------------------------------- the split over ``model``
@@ -704,6 +702,64 @@ class TrainLayout:
             return y
         return reduce_scatter_over(y, self.mesh, "model", dim)
 
+    def sum_parts(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum over ``model`` of the ranks' partial ``y`` (each the
+        product of its slice of a contracted dimension), on every rank,
+        which each then uses for its own part of the work."""
+        if not self.split_model:
+            return y
+        return sum_over(y, self.mesh, ["model"])
+
+    def span(self, length: int) -> Tuple[int, int]:
+        """``(start, size)`` of this rank's chunk of a sequence of
+        ``length`` positions padded at its end to a multiple of ``model``
+        (``seq_start`` and ``chunk`` for the tokens)."""
+        if not self.split_model:
+            return 0, length
+        size = -(-length // self.model_size)
+        return self.rank * size, size
+
+    def take_chunk(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's chunk (:meth:`span`) of ``x``, whole along ``dim``:
+        zeros pad its end to a multiple of ``model``."""
+        if not self.split_model:
+            return x
+        start, size = self.span(x.shape[dim])
+        pad = size * self.model_size - x.shape[dim]
+        if pad:
+            x = torch.cat([x, x.new_zeros(
+                (*x.shape[:dim], pad, *x.shape[dim + 1:]))], dim=dim)
+        return x.narrow(dim, start, size)
+
+    def rows_divide(self, rows: int) -> bool:
+        """Whether ``model`` splits ``rows`` of the batch (dimension 0),
+        as the reference's ``(("data", "model"), ...)`` constraint splits
+        them; where it does not, ``fit_spec`` drops the axis and every
+        ``model`` rank takes all the rows."""
+        return self.split_model and rows % self.model_size == 0
+
+    def seq_to_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """From this rank's chunk of the sequence of all its rows, ``x``
+        ``(B, chunk, ...)``, to its rows of the whole (padded) sequence,
+        ``(B / model, chunk · model, ...)``: an all-to-all over
+        ``model``.  Where ``model`` does not divide B, every ``model``
+        rank takes all the rows: the sequence gathered."""
+        if not self.split_model:
+            return x
+        if not self.rows_divide(x.shape[0]):
+            return self.gather_seq(x)
+        return all_to_all(x, self.mesh, "model", 0, 1)
+
+    def rows_to_seq(self, y: torch.Tensor, rows: int) -> torch.Tensor:
+        """:meth:`seq_to_rows`'s inverse for a batch of ``rows``: from this
+        rank's rows of the whole sequence back to its chunk of all the
+        rows (where every rank held all the rows, its chunk of them)."""
+        if not self.split_model:
+            return y
+        if not self.rows_divide(rows):
+            return y.narrow(1, self.seq_start, self.chunk)
+        return all_to_all(y, self.mesh, "model", 1, 0)
+
 
 class ServeLayout(TrainLayout):
     """How a serving rank computes ``TransformerLM``'s prefill or decode
@@ -743,7 +799,7 @@ class ServeLayout(TrainLayout):
                  cache_layout: str = "seq", decoding: bool = False) -> None:
         if cache_layout not in ("seq", "heads"):
             raise ValueError(f"cache layout {cache_layout!r}: seq or heads")
-        super().__init__(mesh, shardings, split_model=True, seq_len=seq_len)
+        super().__init__(mesh, shardings, seq_len=seq_len)
         self.decoding = bool(decoding)
         self.max_seq = max_seq
         self.cache_layout = cache_layout

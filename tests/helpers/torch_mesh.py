@@ -21,7 +21,8 @@ from repro_torch.runtime import Trainer
 from repro_torch.tree import tree_flatten_with_path, tree_map
 
 __all__ = ["MaskedLM", "moe_ep_ranks", "mesh_train_ranks", "ckpt_ranks",
-           "layout_ranks", "one_step", "patches_of", "trainer_cfg"]
+           "frames_of", "layout_ranks", "masked_lm", "one_step", "patches_of",
+           "trainer_cfg"]
 
 STEPS = 3
 
@@ -30,11 +31,13 @@ class MaskedLM:
     """A package's ``SyntheticLM`` with a seeded ragged loss mask (a row's
     share of live tokens differs from row to row, so the data shards'
     mask counts differ) and, given ``patches`` (P, D), seeded fp32
-    ``patch_embeds``."""
+    ``patch_embeds``, or given ``frames`` (T_enc, D), seeded fp32 encoder
+    ``frames`` (whisper's stub input)."""
 
-    def __init__(self, base, patches=None):
+    def __init__(self, base, patches=None, frames=None):
         self.base = base
         self.patches = patches
+        self.frames = frames
 
     def batch_at(self, step):
         b = self.base.batch_at(step)
@@ -45,6 +48,9 @@ class MaskedLM:
         if self.patches:
             b["patch_embeds"] = (rng.standard_normal((B, *self.patches))
                                  .astype(np.float32) * 0.5)
+        if self.frames:
+            b["frames"] = rng.standard_normal(
+                (B, *self.frames)).astype(np.float32)
         return b
 
 
@@ -53,11 +59,24 @@ def patches_of(cfg, on: bool):
     return (cfg.num_patches, cfg.d_model) if on and cfg.num_patches else None
 
 
-def trainer_cfg(pkg, opt, accum, steps=STEPS, ckpt_every=10 ** 9):
+def frames_of(cfg):
+    """The ``frames`` argument of :class:`MaskedLM` for ``cfg``: whisper's
+    encoder input, which its ``loss`` always reads."""
+    return (cfg.encoder_len, cfg.d_model) if cfg.family == "audio" else None
+
+
+def masked_lm(base, cfg, patches: bool = False) -> MaskedLM:
+    """:class:`MaskedLM` over ``base`` with ``cfg``'s modality input:
+    llava's patches (if ``patches``), whisper's frames."""
+    return MaskedLM(base, patches_of(cfg, patches), frames_of(cfg))
+
+
+def trainer_cfg(pkg, opt, accum, steps=STEPS, ckpt_every=10 ** 9,
+                peak_lr=3e-3):
     return pkg.TrainerConfig(
         total_steps=steps, accum_steps=accum, log_every=1,
         ckpt_every=ckpt_every,
-        schedule=opt.ScheduleConfig(peak_lr=3e-3, warmup_steps=2,
+        schedule=opt.ScheduleConfig(peak_lr=peak_lr, warmup_steps=2,
                                     decay_steps=5))
 
 
@@ -100,7 +119,7 @@ def moe_ep_ranks(rank, n, data, model, cfg, x, p, w):
     e_loc = E // M if E % M == 0 else E
     e_lo = mesh.coords["model"] * e_loc if E % M == 0 else 0
     S = x.shape[1]
-    layout = TrainLayout(mesh, None, split_model=True, seq_len=S)
+    layout = TrainLayout(mesh, None, seq_len=S)
     c, start = layout.chunk, layout.seq_start
 
     def chunk(a):
@@ -139,7 +158,7 @@ def remat_thread_ranks(rank, n, cfg, x, p):
     from repro_torch.parallel.sharding import TrainLayout
 
     mesh = _on_mesh(1, n)
-    layout = TrainLayout(mesh, None, split_model=True, seq_len=x.shape[1])
+    layout = TrainLayout(mesh, None, seq_len=x.shape[1])
     e = cfg.num_experts // n
     leaves = {k: torch.from_numpy(v[rank * e:(rank + 1) * e] if k in
                                   ("wg", "wu", "wd") else v)
@@ -163,16 +182,16 @@ def remat_thread_ranks(rank, n, cfg, x, p):
 # --------------------------------------------------------------- trainer
 
 def _mesh_trainer(mesh, cfg, weights, accum, steps, seq, ckpt=None,
-                  ckpt_every=10 ** 9, start=0, patches=False):
+                  ckpt_every=10 ** 9, start=0, patches=False, peak_lr=3e-3):
     import repro_torch.optim as PO
     import repro_torch.runtime as PR
 
     model = _ported(cfg, weights)
     dc = DataConfig(global_batch=4, seq_len=seq, vocab_size=cfg.vocab_size)
-    loader = Loader(MaskedLM(SyntheticLM(dc), patches_of(cfg, patches)), dc,
+    loader = Loader(masked_lm(SyntheticLM(dc), cfg, patches), dc,
                     start_step=start)
-    tr = Trainer(model, loader, trainer_cfg(PR, PO, accum, steps, ckpt_every),
-                 ckpt=ckpt, mesh=mesh)
+    tr = Trainer(model, loader, trainer_cfg(PR, PO, accum, steps, ckpt_every,
+                                            peak_lr), ckpt=ckpt, mesh=mesh)
     return tr, loader
 
 
@@ -183,13 +202,15 @@ def mesh_train_ranks(rank, n, data, model, cases):
     return {name: _train_case(mesh, *args) for name, *args in cases}
 
 
-def _train_case(mesh, cfg, weights, accum, seq, patches=False):
-    """``STEPS`` steps of ``Trainer(mesh=)`` from ``weights``: the metrics
-    log, the whole parameters after (gathered), this rank's resident
-    elements of parameters and moments and the shard shapes the rules
-    give, and the elements ``init_state`` keeps."""
+def _train_case(mesh, cfg, weights, accum, seq, patches=False,
+                peak_lr=3e-3):
+    """``STEPS`` steps of ``Trainer(mesh=)`` from ``weights`` (peak
+    learning rate ``peak_lr``): the metrics log, the whole parameters
+    after (gathered), this rank's resident elements of parameters and
+    moments and the shard shapes the rules give, and the elements
+    ``init_state`` keeps."""
     tr, loader = _mesh_trainer(mesh, cfg, weights, accum, STEPS, seq,
-                               patches=patches)
+                               patches=patches, peak_lr=peak_lr)
     sh = tr.shardings
     start = param_tree(tr.model)
     params = tree_map(torch.clone, shard_tree(start, sh["params"]))
@@ -235,7 +256,7 @@ def one_step(mesh, cfg, weights, seq, patches=False):
                              % mesh.shape["model"] == 0)
         params = tree_map(torch.clone, shard_tree(params, sh))
     dc = DataConfig(global_batch=4, seq_len=seq, vocab_size=cfg.vocab_size)
-    data = MaskedLM(SyntheticLM(dc), patches_of(cfg, patches))
+    data = masked_lm(SyntheticLM(dc), cfg, patches)
     batch = {k: torch.as_tensor(v) for k, v in data.batch_at(0).items()}
     seen, real = {}, steps.adamw_update
 
@@ -258,7 +279,7 @@ def one_step(mesh, cfg, weights, seq, patches=False):
 
 def layout_ranks(rank, n, data, model, train_cases, step_cases):
     """On one (data, model) mesh: each ``train_cases`` entry ``(name, cfg,
-    weights, accum, seq, patches)`` trained (:func:`_train_case`'s
+    weights, accum, seq, patches, peak_lr)`` trained (:func:`_train_case`'s
     results), then each ``step_cases`` entry ``(name, cfg, weights, seq,
     patches)`` stepped once (:func:`one_step`'s)."""
     mesh = _on_mesh(data, model)

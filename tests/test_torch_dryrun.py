@@ -1,8 +1,8 @@
 """The port's dry run (``repro_torch.launch.dryrun``): one production cell
-end to end in a subprocess as rank 0 of a fake world of 256, a dense
-``train_4k`` cell's and a dense ``decode_32k`` cell's peak and useful-FLOP
-ratio, the option it declines and the decode layout it runs, and one cell
-beside the reference's own dry-run JSON."""
+end to end in a subprocess as rank 0 of a fake world of 256, a dense and
+whisper's ``train_4k`` cell's and a dense ``decode_32k`` cell's peak and
+useful-FLOP ratio, the option it declines and the decode layout it runs,
+and one cell beside the reference's own dry-run JSON."""
 
 import json
 import subprocess
@@ -66,6 +66,19 @@ def test_dryrun_dense_train_cell_fits_and_splits_the_work(tmp_path):
     assert d["memory"]["fits"] is True
     assert d["memory"]["peak_bytes"] <= 80e9
     assert d["roofline"]["useful_flop_ratio"] >= 0.5
+    assert "reduce-scatter" in d["collectives"]
+
+
+def test_dryrun_whisper_train_cell_splits_the_work(tmp_path):
+    """whisper-tiny ``train_4k`` on 16 x 16: with its encoder and decoder
+    split over ``model`` (each sequence chunked, attention by query rows,
+    its 6 heads not dividing 16, the MLP by ``d_ff``), a rank's peak is
+    5.7 GB and its useful-FLOP ratio 0.581, where a rank that repeated the
+    step read 79.1 GB and 0.042."""
+    d = _port_cell(tmp_path, arch="whisper-tiny", shape="train_4k")
+    assert d["kind"] == "train" and d["chips"] == 256
+    assert d["memory"]["peak_bytes"] <= 12e9
+    assert d["roofline"]["useful_flop_ratio"] >= 4 * 0.042
     assert "reduce-scatter" in d["collectives"]
 
 

@@ -31,24 +31,9 @@ mesh (capacity per shard); and a 1 x 4 rank's FLOPs (``CostMode``) below
 half of the one-device step's.
 """
 
-import dataclasses
-
-import jax
 import numpy as np
 import pytest
-from helpers import torch_mesh
-from helpers.torch_dist import run_ranks
-from helpers.torch_port import fp32_config, model_pair
-
-import repro.data as JD
-import repro.optim as JO
-import repro.runtime as JR
-from repro.checkpoint.ckpt import tree_to_records as ref_records
-from repro.models.common import mesh_context as jax_mesh_context
-from repro_torch.models import build_model
-from repro_torch.models.common import ArchConfig, param_tree
-from repro_torch.parallel.sharding import AbstractMesh, param_shardings
-from repro_torch.tree import tree_flatten_with_path
+from helpers.mesh_layout import layout_runs, model_replicated
 
 LOSS_RTOL, GNORM_RTOL, LR_RTOL, UPDATE_REL = 1e-4, 1e-3, 1e-6, 5e-3
 GRAD_REL = 1e-4
@@ -76,103 +61,14 @@ ALL_REPLICATED = {"qwen2.5-1x3"}
 BY_ID = {c[0]: c for c in CASES}
 
 
-def _loader(pkg, cfg, patches):
-    dc = pkg.DataConfig(global_batch=4, seq_len=SEQ,
-                        vocab_size=cfg.vocab_size)
-    return pkg.Loader(torch_mesh.MaskedLM(pkg.SyntheticLM(dc),
-                                          torch_mesh.patches_of(cfg, patches)),
-                      dc)
-
-
-def _nested(records):
-    out = {}
-    for key, v in records.items():
-        *path, leaf = key.split("/")
-        node = out
-        for k in path:
-            node = node.setdefault(k, {})
-        node[leaf] = v
-    return out
-
-
-def _jax_mesh(shape):
-    n = shape[0] * shape[1]
-    return jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(shape),
-                             ("data", "model"))
-
-
-def _reference_grads(jax_model, params, cfg, shape, patches):
-    """The reference's gradient of its loss on the step-0 batch, on its
-    mesh, by path."""
-    dc = JD.DataConfig(global_batch=4, seq_len=SEQ,
-                       vocab_size=cfg.vocab_size)
-    batch = torch_mesh.MaskedLM(JD.SyntheticLM(dc), torch_mesh.patches_of(
-        cfg, patches)).batch_at(0)
-    batch = {k: jax.numpy.asarray(v) for k, v in batch.items()}
-    mesh = _jax_mesh(shape)
-    with mesh, jax_mesh_context(mesh):
-        grads = jax.jit(jax.grad(lambda p: jax_model.loss(p, batch)[0]))(
-            params)
-    return {k: np.asarray(v) for k, v in dict(ref_records(grads)).items()}
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Per case: the reference's mesh run and the starting weights; per
     mesh shape, one spawn of the port's ranks for its cases; the
     one-device (or, for the MoE, the reference's mesh) gradients and
     FLOPs of the stepped cases."""
-    refs, starts, cfgs, want = {}, {}, {}, {}
-    by_shape = {}
-    for name, arch, shape, accum, patches in CASES:
-        jcfg = fp32_config(arch)
-        jax_model, params, _ = model_pair(jcfg)
-        starts[name] = dict(ref_records(params))
-        loader = _loader(JD, jcfg, patches)
-        tr = JR.Trainer(jax_model, loader,
-                        torch_mesh.trainer_cfg(JR, JO, accum), donate=False)
-        mesh = _jax_mesh(shape)
-        with mesh, jax_mesh_context(mesh):
-            p, _ = tr.run(params, JO.adamw_init(params))
-        loader.stop()
-        refs[name] = (tr.metrics_log, dict(ref_records(p)))
-        cfg = ArchConfig(**dataclasses.asdict(jcfg))
-        cfgs[name] = cfg
-        weights = _nested({k: np.asarray(v) for k, v in starts[name].items()})
-        train, step = by_shape.setdefault(shape, ([], []))
-        train.append((name, cfg, weights, accum, SEQ, patches))
-        if name in STEPPED:
-            step.append((name, cfg, weights, SEQ, patches))
-            if name in MOE:
-                want[name] = {"grads": _reference_grads(
-                    jax_model, params, jcfg, shape, patches)}
-            else:
-                want[name] = torch_mesh.one_step(None, cfg, weights, SEQ,
-                                                 patches)
-    ranks = {}
-    for shape, (train, step) in by_shape.items():
-        got = run_ranks(torch_mesh.layout_ranks, shape[0] * shape[1],
-                        tmp_path_factory.mktemp("layout"), *shape, train,
-                        step, timeout=300)
-        for name, *_ in train:
-            ranks[name] = [(g[0][name], g[1].get(name)) for g in got]
-    return refs, ranks, starts, cfgs, want
-
-
-def _model_replicated(cfg, shape, paths):
-    """The leaves the training rules replicate over ``model`` on a mesh of
-    ``shape``."""
-    mesh = AbstractMesh(shape, ("data", "model"))
-    sh = param_shardings(param_tree(build_model(cfg, device="meta")), mesh,
-                         heads_divisible=cfg.num_heads % shape[1] == 0)
-    out = set()
-    for p, s in tree_flatten_with_path(sh):
-        names = {a for e in s.spec if e is not None
-                 for a in (e if isinstance(e, tuple) else (e,))}
-        if "model" not in names:
-            out.add("/".join(map(str, p)))
-    assert out <= set(paths)
-    return out
+    return layout_runs(tmp_path_factory, CASES, STEPPED, seq=SEQ,
+                       mesh_grads=MOE)
 
 
 @pytest.mark.parametrize("name", [c[0] for c in CASES])
@@ -223,7 +119,7 @@ def test_model_replicated_gradients_equal_one_devices(runs, name):
     _, ranks, _, cfgs, want = runs
     shape = BY_ID[name][2]
     ref = want[name]["grads"]
-    replicated = _model_replicated(cfgs[name], shape, ref)
+    replicated = model_replicated(cfgs[name], shape, ref)
     assert any(k.endswith("attn/wk") for k in replicated)
     if BY_ID[name][1] == "qwen2.5-32b":
         assert {"layers/attn/wq", "layers/attn/wo"} <= replicated
@@ -237,7 +133,7 @@ def test_model_replicated_gradients_equal_one_devices(runs, name):
 def test_model_split_gradients_equal_one_devices(runs, name):
     _, ranks, _, cfgs, want = runs
     ref = want[name]["grads"]
-    split = set(ref) - _model_replicated(cfgs[name], BY_ID[name][2], ref)
+    split = set(ref) - model_replicated(cfgs[name], BY_ID[name][2], ref)
     assert split
     for _, stepped in ranks[name]:
         assert set(stepped["grads"]) == set(ref)
