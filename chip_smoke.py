@@ -27,7 +27,11 @@ prints no result line):
    dim 256 with its window and softcap, to 6000 tokens, and at the
    hybrid's and the VLM's heads: hymba's 25 q / 5 kv heads of 64 with a
    window of 1024, llava's 56 q / 8 kv heads of 128; K1 also at llava's 7
-   q heads per kv head), WKV6 (K3), segment zero-fill (K4); K1 and K2 also at the
+   q heads per kv head; K2 also at a query offset, a serving rank's rows
+   of the sequence, ``[flash-offset]``: hymba's heads with its window,
+   qwen's 40 / 8 of 128, gemma2's 16 / 8 of 256 with a window and the
+   softcap, each timed beside the offset-0 call over the whole sequence),
+   WKV6 (K3), segment zero-fill (K4); K1 and K2 also at the
    reduced configs' head dims 8, 12 and 16, which the bindings zero-pad to
    the 64-wide instance.  WKV6 also runs on decays that RWKV6's own law
    gives (w = exp(-exp(dec)), dec over [-8, 5], down to w = 0) and on runs
@@ -210,7 +214,7 @@ prints no result line):
    ``d_inner``, against one device at (b)'s limits and the first step's
    loss within 2e-4, each rank's parameters, moments and peak
    (``[mesh-train-split]``; peak lr 1e-3: at 3e-3 hymba's bf16 steps
-   drift apart on any layout); no rank left.
+   drift apart on any layout; both in one spawn of ranks); no rank left.
    The steps run the reference's training layout: weights gathered layer
    by layer, every family's work split over ``model``
    (``launch/steps.py``).  The ranks time-share one card: step times
@@ -234,37 +238,52 @@ prints no result line):
    ``decode_32k`` dry-run as rank 0 of a fake world of 16 x 16: per-rank
    FLOPs, bytes, wire bytes by collective, the peak against 80 GB (a
    training cell that does not fit fails) and the useful-FLOP ratio
-   (``[dryrun]``).  ``--phases 1,2,19`` runs it alone.
+   (``[dryrun]``; host work alone, started at the lowest priority before
+   phase 3 when other phases run too).
+   ``--phases 1,2,19`` runs it alone.
 
-20. serving on a mesh in the reference's serving layout
+20. serving on a mesh in the reference's serving layout, every family
    (``make_prefill_fn`` / ``make_decode_fn(shardings=, layout="seq")``:
    the weights at rest in the serving rules' shards, each layer's
    gathered where it runs, the prefill sequence-parallel over ``model``,
-   the decode cache each rank's window of its rows), gloo ranks on
-   ``cuda:0``, each cell against one device running the same weights,
-   dtype (bf16) and prompt: (a) gemma2-9b at its published widths, 4 of
-   42 layers, on (data=2, model=2): 4 lanes of a 1280-token prompt into a
-   cache of 2048 (the prompt crosses the ranks' window boundary at 1024),
-   then 64 greedy decode steps on rank 1's window; each rank runs K2 on 8
-   of the 16 heads at head dim 256 with window and softcap
-   (``[mesh-serve-dense]``); (b) qwen2.5-32b, 2 of 64 layers, on (1, 3):
-   its 40 heads, 1000 tokens and 2048 rows divide 3 none, so attention
-   splits by query rows on a padded sequence (the plain route: K2 takes
-   no query offset) and the cache stays whole (``[mesh-serve-sp]``); (c)
+   each rank's window of the decode state), gloo ranks on ``cuda:0``,
+   each cell against one device running the same weights, dtype (bf16)
+   and prompt: (a) gemma2-9b at its published widths, 4 of 42 layers, on
+   (data=2, model=2): 4 lanes of a 1280-token prompt into a cache of 2048
+   (the prompt crosses the ranks' window boundary at 1024), then 64 greedy
+   decode steps on rank 1's window; each rank runs K2 on 8 of the 16 heads
+   at head dim 256 with window and softcap (``[mesh-serve-dense]``); (b)
+   qwen2.5-32b, 2 of 64 layers, on (1, 3): its 40 heads, 1000 tokens and
+   2048 rows divide 3 none, so attention splits by query rows on a padded
+   sequence, each rank running K2 on its 334 rows at their offset (0, 334,
+   668), and the cache stays whole (``[mesh-serve-sp]``); (c)
    qwen3-moe-235b-a22b, 1 of 94 layers, on (1, 2), its capacity factor
    raised so no copy is dropped on one device or on a shard, 64 experts a
-   rank (``[mesh-serve-moe]``).  Each rank's logits at every step, its
-   greedy tokens (fed one device's) and its window of the cache after the
-   prefill and after the steps against one device's
-   (``MESH_SERVE_LOGIT_REL``, ``MESH_SERVE_CACHE_REL``; a token may differ
-   only where one device's top-2 margin is under twice the logit
-   difference there; a logits row whose token took other experts is
-   logged and left out of the logits limit); each rank's K2 launches on
-   a line of its own, its
-   weights and peak memory beside one device's.  The ranks time-share
-   one card: times check the path and are not a parallel speed.
-   ``--phases 1,2,20`` runs it alone; ``--mesh-serve-cells dense`` runs
-   only those of its cells.
+   rank (``[mesh-serve-moe]``); (d) rwkv6-3b, 2 of 32 layers, on (1, 2):
+   4 lanes of 1000 tokens, each rank running K3 on its 2 rows and keeping
+   32 of each head's 64 value columns of the state (``[mesh-serve-rwkv]``);
+   (e) hymba-1.5b, 4 of 32 layers (layer 1 has its window of 1024), on
+   (1, 2): 4 lanes of 1500 tokens into 2048 rows, its 25 q / 5 kv heads
+   dividing 2 neither (K2 at offsets 0 and 750), its ``d_inner`` split,
+   its one-device run repeated in fp32 as a witness of bf16's own drift,
+   to which the ranks' logits are held too (``[mesh-serve-hybrid]``); (f) whisper-tiny at full depth on (1, 2): 4
+   lanes of 1500 frames and 60 tokens into 128 rows, its cross K/V split
+   by heads, no kernel on the path (``[mesh-serve-audio]``); (d)-(f) 16
+   steps; the cells of one mesh shape share one spawn of ranks.  Each
+   rank's logits at every step, its greedy tokens (fed one
+   device's) and its window of every decode-state leaf after the prefill
+   and after the steps against one device's (``MESH_SERVE_LOGIT_REL``,
+   ``MESH_SERVE_CACHE_REL``; a token may differ only where one device's
+   top-2 margin is under twice the logit difference there; a logits row
+   whose token took other experts is logged and left out of the logits
+   limit); each rank's launches and K2's query offsets on a line of their
+   own, its weights and peak memory beside one device's; a launch of a
+   kernel off the cell's path, a rank that ran the plain route where one
+   device ran the kernel, or a query-rows rank whose K2 offset is not its
+   chunk's first position fails.  The ranks time-share one card: times
+   check the path and are not a parallel speed.  ``--phases 1,2,20`` runs
+   it alone; ``--mesh-serve-cells rwkv,hybrid,audio`` runs only those of
+   its cells.
 
 With all twenty, a summary follows: one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the phases that ran it), then the result
@@ -703,6 +722,101 @@ def check_flash() -> dict:
     # numbers ride along
     main.update(extra)
     return main
+
+
+# K2 with a query offset, as a serving rank's query rows meet the gathered
+# sequence (Sq, Sk, q_offset, H, K, hd, window, cap): hymba-1.5b's
+# 25 q / 5 kv heads of 64 with its window of 1024, rank 1's 750 rows of
+# phase 20's 1500-token prompt; qwen2.5-32b's 40 / 8 heads of 128, rank 2
+# of 3 on 1000 tokens padded to 1002; gemma2-9b's 16 / 8 of 256 with a
+# window of 512 and the softcap of 50.  No offset is a multiple of the
+# tiles' rows (64 on the tensor-core route, 32 on the CUDA-core route)
+FLASH_OFFSET_CASES = [(750, 1500, 750, 25, 5, 64, 1024, 0.0),
+                      (334, 1002, 668, 40, 8, 128, 0, 0.0),
+                      (1000, 2048, 1037, 16, 8, 256, 512, 50.0)]
+
+
+def check_flash_offset() -> dict:
+    """K2 at a query offset against its plain version (``q_offset`` of
+    ``flash_attention_ref``), in bf16 and fp32, timed beside the offset-0
+    call over the whole sequence (the one-device prefill, whose last Sq
+    rows these are).  Returns the bf16 rows by case: ``offset`` (hymba's)
+    and ``offset_hd128`` / ``offset_hd256``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    out_rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for Sq, Sk, off, H, K, hd, window, cap in FLASH_OFFSET_CASES:
+            g = torch.Generator("cuda").manual_seed(Sq + off + hd)
+            G = H // K
+            q = torch.randn((1, Sk, K, G, hd), generator=g,
+                            device="cuda").to(dtype)
+            k = torch.randn((1, Sk, K, hd), generator=g, device="cuda").to(dtype)
+            v = torch.randn((1, Sk, K, hd), generator=g, device="cuda").to(dtype)
+            qo = q[:, off:off + Sq].contiguous()
+            scale = hd ** -0.5
+            kw = dict(window=window, scale=scale, logit_cap=cap, causal=True)
+            run = lambda: flash_attention(qo, k, v, q_offset=off, **kw)
+            full = lambda: flash_attention(q, k, v, **kw)
+            plain = lambda: flash_attention_ref(
+                qo.reshape(1, Sq, H, hd), k, v, window, scale=scale,
+                logit_cap=cap, causal=True, q_offset=off)
+            out = run()
+            what = (f"flash_attention {str(dtype)[6:]} Sq={Sq} Sk={Sk} "
+                    f"q_offset={off} H={H} K={K} hd={hd} window={window} "
+                    f"cap={cap}")
+            if out.shape != qo.shape:
+                raise AssertionError(f"{what}: shape {tuple(out.shape)}")
+            err, share = compare(out.reshape(1, Sq, H, hd), plain(), dtype,
+                                 what)
+            # the offset rows of the whole call are the same function
+            whole = full()[:, off:off + Sq]
+            err_whole, _ = compare(out, whole, dtype, what + " vs offset 0")
+            ms = time_ms(run)
+            full_ms = time_ms(full)
+            plain_ms = time_ms(plain, iters=3)
+            pairs = sum(min(i + 1, window) if window else i + 1
+                        for i in range(off, off + Sq))
+            # the K/V rows some query sees: from the first one's window
+            # start to the last one's position
+            lo = max(0, off - window + 1) if window else 0
+            seen = min(off + Sq, Sk) - lo
+            isz = q.element_size()
+            nbytes = (2 * qo.numel() + 2 * seen * K * hd) * isz
+            flops = 4 * pairs * H * hd
+            bms, by = bound(nbytes, flops, dtype)
+            lib_ms = None
+            if not window and not cap:
+                # SDPA's causal mask is top-left aligned: an explicit mask
+                mask = (torch.arange(Sk, device="cuda")[None, :]
+                        <= torch.arange(off, off + Sq, device="cuda")[:, None])
+                qt, kt, vt = (qo.reshape(1, Sq, H, hd).transpose(1, 2),
+                              k.transpose(1, 2), v.transpose(1, 2))
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale,
+                    enable_gqa=True))
+            log(f"[flash-offset] {what}: max|err|={err:.3g} "
+                f"({share:.3f} x {tol_str(dtype)}), against the offset-0 "
+                f"call's rows {err_whole:.3g} | {ms:.4f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s of the function), the "
+                f"offset-0 call over all {Sk} rows {full_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), sdpa "
+                + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"))
+            if dtype == torch.bfloat16:
+                key = "offset" if hd == 64 else f"offset_hd{hd}"
+                out_rows[key] = {
+                    "max_abs_err": err, "ms": ms, "offset0_ms": full_ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib_ms,
+                    "shape": f"B=1 Sq={Sq} Sk={Sk} q_offset={off} H={H} "
+                             f"K={K} hd={hd} causal"
+                             + (f" window {window}" if window else "")
+                             + (f" cap {cap:g}" if cap else "") + " bf16",
+                    "tol": tol_str(dtype)}
+    return out_rows
 
 
 # the reduced configs' head dims under the kernels' smallest instance, which
@@ -4934,19 +5048,33 @@ def _job_split(arch: str) -> dict:
     return out
 
 
+def _job_splits(archs) -> list:
+    """(f) in a rank: :func:`_job_split` of each of ``archs`` in turn."""
+    out = []
+    for arch in archs:
+        out.append(_job_split(arch))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_split() -> None:
     """(f) ``[mesh-train-split]``: each of ``MESH_SPLIT_ARCHS`` on (1, 2)
-    against one device."""
+    against one device, the archs in one spawn of ranks."""
+    ones = []
     for arch in MESH_SPLIT_ARCHS:
         torch.cuda.reset_peak_memory_stats()
         want, one_times = _one_device_dense(
             MESH_SPLIT_LAYERS, MESH_SPLIT_STEPS, arch=arch,
             batch=MESH_SPLIT_B, seq=MESH_SPLIT_S, peak_lr=MESH_SPLIT_LR)
-        one_peak = torch.cuda.max_memory_allocated()
+        ones.append((want, one_times, torch.cuda.max_memory_allocated()))
         _free_card()
-        t0 = time.perf_counter()
-        ranks = _run_mesh(_job_split, 2, arch)
-        mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs = _run_mesh(_job_splits, 2, MESH_SPLIT_ARCHS)
+    mesh_s = time.perf_counter() - t0
+    for i, (arch, (want, one_times, one_peak)) in enumerate(
+            zip(MESH_SPLIT_ARCHS, ones)):
+        ranks = [r[i] for r in runs]
         _check_launches(f"mesh-train-split {arch}",
                         [r["launches"] for r in ranks])
         r0 = ranks[0]
@@ -4976,8 +5104,8 @@ def _mesh_split() -> None:
             f"{MESH_LOSS_RTOL:g}, {MESH_GNORM_RTOL:g}); median step "
             f"{np.median(r0['times'][1:]) * 1e3:.1f} ms against one "
             f"device's {np.median(one_times[1:]) * 1e3:.1f} ms (two ranks "
-            f"time-sharing one card); launches 0; {mesh_s:.1f}s with the "
-            "spawn and init")
+            f"time-sharing one card); launches 0; the spawn, init and "
+            f"both archs' runs {mesh_s:.1f}s")
         if not (np.isfinite(np.array(r0["curve"])).all()
                 and first <= MESH_SPLIT_LOSS0_RTOL
                 and loss <= MESH_LOSS_RTOL and gnorm <= MESH_GNORM_RTOL):
@@ -5231,29 +5359,53 @@ def _cost_decode() -> dict:
     return out
 
 
-def _dryrun_cells() -> None:
-    """Each cell of DRYRUN_CELLS through ``python -m
-    repro_torch.launch.dryrun`` (fake CUDA tensors on a fake world of 256),
-    the cells in processes of their own side by side, each JSON read back
-    and logged."""
-    out_dir = ROOT / "experiments" / "dryrun_torch"     # the CLI's default
-    env = dict(os.environ, PYTHONPATH=_SRC)
-    t0 = time.perf_counter()
-    procs = [(arch, shape, subprocess.Popen(
+#: the dry run's processes, (arch, shape, Popen), and when they started
+_DRYRUN: list = []
+_DRYRUN_T0 = 0.0
+_DRYRUN_OUT = ROOT / "experiments" / "dryrun_torch"     # the CLI's default
+
+
+def _start_dryrun() -> None:
+    """Starts each cell of DRYRUN_CELLS through ``python -m
+    repro_torch.launch.dryrun`` (fake CUDA tensors on a fake world of 256:
+    host work alone), in processes of their own side by side, once, at the
+    lowest priority and on one thread each.  With phase 19 among others
+    they start before phase 3 and take the cores the phases leave idle;
+    phase 19 reads them."""
+    global _DRYRUN_T0
+    if _DRYRUN:
+        return
+    env = dict(os.environ, PYTHONPATH=_SRC, OMP_NUM_THREADS="1")
+    _DRYRUN_T0 = time.perf_counter()
+    _DRYRUN.extend((arch, shape, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", str(out_dir)],
+         "--shape", shape, "--out", str(_DRYRUN_OUT)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT)) for arch, shape in DRYRUN_CELLS]
+        cwd=ROOT, preexec_fn=lambda: os.nice(19)))
+        for arch, shape in DRYRUN_CELLS)
+
+
+def _stop_dryrun() -> None:
+    """Kills the dry run's processes that are still running."""
+    for _, _, proc in _DRYRUN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _dryrun_cells() -> None:
+    """Each cell of DRYRUN_CELLS through the dry run's CLI
+    (:func:`_start_dryrun`, if not started yet), each JSON read back and
+    logged."""
+    out_dir = _DRYRUN_OUT
+    _start_dryrun()
     runs = []
     try:
-        for arch, shape, proc in procs:
+        for arch, shape, proc in _DRYRUN:
             out, err = proc.communicate(timeout=600)
             runs.append((arch, shape, proc.returncode, out, err))
     finally:
-        for _, _, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        _stop_dryrun()
     for arch, shape, rc, out, err in runs:
         if rc or "[ok]" not in out:
             raise AssertionError(f"[dryrun] {arch} {shape} failed:\n"
@@ -5276,7 +5428,8 @@ def _dryrun_cells() -> None:
             raise AssertionError(f"[dryrun] {arch} {shape}: a rank's peak "
                                  f"{mem['peak_bytes'] / 1e9:.1f} GB does not "
                                  "fit the card")
-    log(f"[dryrun] {len(runs)} cells in {time.perf_counter() - t0:.1f} s")
+    log(f"[dryrun] {len(runs)} cells in {time.perf_counter() - _DRYRUN_T0:.1f}"
+        " s since they started")
 
 
 def phase_cost_model() -> dict:
@@ -5294,33 +5447,64 @@ def phase_cost_model() -> dict:
 # ------------------------------------------------------------- phase 20
 
 #: phase 20's cells, all run by default (``--mesh-serve-cells``)
-MESH_SERVE_CELLS = ("dense", "sp", "moe")
+MESH_SERVE_CELLS = ("dense", "sp", "moe", "rwkv", "hybrid", "audio")
 #: per cell: (arch, layers, (data, model), lanes, prompt tokens, max_seq,
 #: greedy decode steps).  dense: the prompt crosses the ranks' window
 #: boundary at 1024 and the steps land on rank 1's window; sp: neither the
 #: 40 q heads, the 1000 tokens nor the 2048 rows divide 3 (the query-rows
-#: split on a padded sequence, the cache whole on every rank)
+#: split on a padded sequence, K2 at each rank's offset, the cache whole on
+#: every rank); rwkv: each rank runs K3 on its 2 of the 4 rows and keeps
+#: 32 of each head's 64 value columns of the state; hybrid: 4 layers, so
+#: that layer 1 has the window of 1024, its 25 q and 5 kv heads dividing 2
+#: neither (the query-rows split, K2 at each rank's offset) and its
+#: ``d_inner`` of 3200 split; audio: whisper at full depth, the 1500
+#: frames split, 6 heads (its cross K/V split by heads), the steps crossing
+#: the ranks' window boundary at 64
 MESH_SERVE = {
     "dense": ("gemma2-9b", 4, (2, 2), 4, 1280, 2048, 64),
     "sp": ("qwen2.5-32b", 2, (1, 3), 4, 1000, 2048, 16),
     "moe": ("qwen3-moe-235b-a22b", 1, (1, 2), 2, 512, 1024, 16),
+    "rwkv": ("rwkv6-3b", 2, (1, 2), 4, 1000, 1024, 16),
+    "hybrid": ("hymba-1.5b", 4, (1, 2), 4, 1500, 2048, 16),
+    "audio": ("whisper-tiny", 4, (1, 2), 4, 60, 128, 16),
 }
-#: the mesh's logits (relative L2, each step's rows) and each rank's cache
-#: window (relative L2, each layer) against one device's, bf16.  Each rank
-#: rounds its partial products (its heads' share of ``wo``, its slice of
-#: ``d_ff``) to bf16 before they are summed over ``model``, where one
-#: device rounds each whole product once, so neither is bit-equal (layer
-#: 0's cache, before any such sum, is).  Sound runs on the H100 read
-#: 0.0547-0.056 (logits) and 0.0263-0.0289 (caches, the deepest layer)
-#: for gemma2-9b x4, 0.00774 / 0.00522 for qwen2.5-32b x2 and 0.00903 / 0
-#: for qwen3-moe x1; copies of src/ whose decode softmax is each rank's
-#: own, or whose cache write ignores the rank's window, read 1.08 / 0.433
-#: and 0.899 / 0.45.  The limits sit 1.8x and 1.7x above the sound
-#: readings, 9x below the broken ones.  A logits row whose token took
-#: other experts than on one device (a near tie of the router, moved by
-#: that rounding) is logged and left out: one expert more or less is a
-#: different sum, not a rounding
+#: the kernel each cell's path runs (whisper's runs none: its attention is
+#: the reference's plain blockwise route)
+MESH_SERVE_KERNEL = {"dense": "flash_attention", "sp": "flash_attention",
+                     "moe": "flash_attention", "rwkv": "wkv6",
+                     "hybrid": "flash_attention", "audio": None}
+#: the mesh's logits (relative L2, each step's rows) and each rank's window
+#: of each decode-state leaf (relative L2, each layer) against one
+#: device's, bf16.  Each rank rounds its partial products (its heads'
+#: share of ``wo``, its slice of ``d_ff``) to bf16 before they are summed
+#: over ``model``, where one device rounds each whole product once, so
+#: neither is bit-equal (layer 0's cache, before any such sum, is).  Sound
+#: runs on the H100 read 0.0547-0.056 (logits) and 0.0263-0.0289 (caches,
+#: the deepest layer) for gemma2-9b x4, 0.00774 / 0.00522 for qwen2.5-32b
+#: x2 and 0.00903 / 0 for qwen3-moe x1; copies of src/ whose decode
+#: softmax is each rank's own, or whose cache write ignores the rank's
+#: window, read 1.08 / 0.433 and 0.899 / 0.45.  The limits sit 1.8x and
+#: 1.7x above the sound readings, 9x below the broken ones.  A logits row
+#: whose token took other experts than on one device (a near tie of the
+#: router, moved by that rounding) is logged and left out: one expert more
+#: or less is a different sum, not a rounding
 MESH_SERVE_LOGIT_REL, MESH_SERVE_CACHE_REL = 0.1, 0.05
+#: hymba's logits limit against one device's bf16 run.  Its fp32 witness
+#: (below) shows what moves it: at decode step 8 one device's own bf16
+#: logits depart 0.210 from its fp32 run while the ranks' depart 0.035, so
+#: the two bf16 runs read 0.233 apart there; at the other 16 steps one
+#: device's bf16 departs 0.017-0.075 from fp32 and the ranks' 0.018-0.073
+#: (the H100, the same each run).  Copies of src/ that drop K2's query
+#: offset or the sum over ``model`` of the SSM's ``xc @ w_B`` /
+#: ``xc @ w_C`` read 0.873 and 1.11.  The limit sits 1.7x above the sound
+#: reading, 2.2x below the broken ones
+MESH_SERVE_LOGIT_LIMIT = {"hybrid": 0.4}
+#: the cells whose one-device run is repeated in fp32 (the same weights
+#: upcast, the same prompt, fed the bf16 run's greedy tokens): how far bf16
+#: alone moves each step's logits, logged beside each rank's distance to
+#: that run, which is held to ``MESH_SERVE_LOGIT_REL`` (hymba: sound 0.073,
+#: the copy without K2's query offset 0.873)
+MESH_SERVE_FP32_WITNESS = ("hybrid",)
 
 
 def _serve_cfg(cell: str):
@@ -5344,28 +5528,45 @@ def _serve_model(cfg):
         torch.Generator("cuda").manual_seed(0))
 
 
+def _serve_inputs(cfg, B: int) -> dict:
+    """The prefill's inputs besides the prompt, on the CPU: whisper's
+    seeded frames (B, 1500, D) in its dtype, else none."""
+    if cfg.family != "audio":
+        return {}
+    g = torch.Generator().manual_seed(21)
+    frames = torch.randn((B, cfg.encoder_len, cfg.d_model), generator=g)
+    return {"frames": (frames * 0.5).to(getattr(torch, cfg.dtype))}
+
+
+def _state_of(state) -> dict:
+    """The decode state's leaves but ``pos``, copied to the CPU."""
+    return {k: v.to("cpu", copy=True) for k, v in state.items() if k != "pos"}
+
+
 def _serve_one_device(cell: str, path: str) -> dict:
-    """The cell on one device (the same weights, dtype and prompt): the
-    prefill, then greedy decode steps, saved to ``path`` for the ranks
-    (prompt, greedy tokens, each step's logits, the cache after the
-    prefill and after the steps).  Returns its K2 launches, peak memory
-    and times."""
+    """The cell on one device (the same weights, dtype, prompt and frames):
+    the prefill, then greedy decode steps, saved to ``path`` for the ranks
+    (prompt, inputs, greedy tokens, each step's logits, the decode state
+    after the prefill and after the steps).  Returns its kernel launches,
+    peak memory and times."""
     _, _, _, B, S, max_seq, steps = MESH_SERVE[cell]
     cfg = _serve_cfg(cell)
     model = _serve_model(cfg)
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=(
         torch.Generator().manual_seed(20)), dtype=torch.int32)
+    inputs = _serve_inputs(cfg, B)
     counters = _zero_counters()
     routes: list = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with _spy_routing(_route_log(routes)):
         t0 = time.perf_counter()
-        state, logits = model.prefill(prompt.cuda(), max_seq=max_seq)
+        state, logits = model.prefill(
+            prompt.cuda(), max_seq=max_seq,
+            **{k: v.cuda() for k, v in inputs.items()})
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
-        cache0 = [state[k].to("cpu", copy=True)
-                  for k in ("cache_k", "cache_v")]
+        state0 = _state_of(state)
         rows, stream, times = [logits.cpu()], [], []
         for _ in range(steps):
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -5375,16 +5576,48 @@ def _serve_one_device(cell: str, path: str) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             rows.append(logits.cpu())
-    out = {"k2": counters["flash_attention"].launches,
+    out = {"launches": {k: fn.launches for k, fn in counters.items()},
            "peak": torch.cuda.max_memory_allocated(),
            "prefill_s": t_prefill, "step_ms": float(np.median(times)) * 1e3}
-    torch.save({"prompt": prompt, "stream": torch.stack(stream),
-                "logits": torch.stack(rows), "cache0": cache0,
-                "cache1": [state[k].cpu() for k in ("cache_k", "cache_v")],
-                "routes": _logit_row_routes(routes, cfg.num_layers, B, S, 0,
-                                            S)},
-               path)
+    saved = {"prompt": prompt, "inputs": inputs,
+             "stream": torch.stack(stream), "logits": torch.stack(rows),
+             "state0": state0, "state1": _state_of(state),
+             "routes": _logit_row_routes(routes, cfg.num_layers, B, S, 0, S)}
+    if cell in MESH_SERVE_FP32_WITNESS:
+        del state
+        saved["logits32"] = _fp32_run(model, cfg, prompt, inputs,
+                                      saved["stream"], max_seq)
+        out["bf16_vs_fp32"] = [_rows_rel(r, w) for r, w in
+                               zip(saved["logits"], saved["logits32"])]
+    torch.save(saved, path)
     return out
+
+
+def _fp32_run(model, cfg, prompt, inputs, stream, max_seq: int
+              ) -> torch.Tensor:
+    """The one-device run in fp32: ``model``'s weights upcast, the same
+    prompt, fed ``stream`` (the bf16 run's greedy tokens).  Each step's
+    logits (the prefill's first), on the CPU."""
+    from repro_torch.models import build_model
+
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"),
+                      device="cuda")
+    m32.load_state_dict({k: v.float() for k, v in
+                         model.state_dict().items()})
+    state, logits = m32.prefill(
+        prompt.cuda(), max_seq=max_seq,
+        **{k: v.float().cuda() for k, v in inputs.items()})
+    rows = [logits.float().cpu()]
+    for tok in stream:
+        state, logits = m32.decode_step(state, tok.cuda())
+        rows.append(logits.float().cpu())
+    return torch.stack(rows)
+
+
+def _rows_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The relative L2 distance of logits rows ``got`` to ``want``."""
+    d = torch.linalg.norm(got.float() - want.float())
+    return float(d / max(float(torch.linalg.norm(want.float())), 1e-30))
 
 
 def _route_log(routes: list):
@@ -5422,13 +5655,41 @@ def _window_rel(got: torch.Tensor, want: torch.Tensor) -> list:
             for l in range(w.shape[0])]
 
 
+@contextlib.contextmanager
+def k2_offsets(out: list):
+    """Records the ``q_offset`` that K2's entry point (``ops.flash_attention``,
+    through which every model reaches the kernel) hands on in the block: to
+    the kernel's binding on the card, one launch each, or to its plain
+    version on the CPU.  The serving-mesh tests' ranks record theirs with
+    it too."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    names = ("flash_attention_cuda", "flash_attention_ref")
+    real = {name: getattr(fa_ops, name) for name in names}
+
+    def spy(fn):
+        def call(*args, **kw):
+            out.append(int(kw.get("q_offset", 0)))
+            return fn(*args, **kw)
+        return call
+
+    for name in names:
+        setattr(fa_ops, name, spy(real[name]))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(fa_ops, name, real[name])
+
+
 def _job_serve(cell: str, path: str) -> dict:
     """A rank of the cell: the weights at rest in the serving rules'
     shards, the prefill and the decode steps (fed one device's greedy
     tokens) through ``make_prefill_fn`` / ``make_decode_fn(shardings=)``
     in the ``seq`` layout, held to one device's saved run: logits, greedy
-    tokens and the rank's window of the cache.  Returns its judgements,
-    K2 launches, peak memory and times."""
+    tokens and the rank's window of each decode-state leaf.  Returns its
+    judgements, kernel launches (and K2's query offsets), peak memory and
+    times."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_decode_fn, make_prefill_fn
     from repro_torch.models.common import param_tree
@@ -5459,16 +5720,20 @@ def _job_serve(cell: str, path: str) -> dict:
     mesh.staged_bytes = 0
     rows = B // data
     lo = mesh.coords["data"] * rows
+    m = mesh.coords["model"]
     routes: list = []
+    offsets: list = []
+    batch = {"tokens": ref["prompt"].cuda(),
+             **{k: v.cuda() for k, v in ref["inputs"].items()}}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with _spy_routing(_route_log(routes)):
+    with _spy_routing(_route_log(routes)), k2_offsets(offsets):
         t0 = time.perf_counter()
-        state, logits = prefill(params, {"tokens": ref["prompt"].cuda()})
+        state, logits = prefill(params, batch)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
-        k2_prefill = counters["flash_attention"].launches
-        pre = [state[k].to("cpu", copy=True) for k in ("cache_k", "cache_v")]
+        prefill_launches = {k: fn.launches for k, fn in counters.items()}
+        pre = _state_of(state)
         got, times = [logits.float().cpu()], []
         for i in range(steps):
             t0 = time.perf_counter()
@@ -5477,25 +5742,26 @@ def _job_serve(cell: str, path: str) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             got.append(logits.float().cpu())
-    c0 = pre[0].shape[2]
-    r0 = mesh.coords["model"] * c0 if c0 < max_seq else 0
-    win = (slice(None), slice(lo, lo + rows), slice(r0, r0 + c0))
-
-    def window_rel(name, caches):
-        """Per layer, the larger of K's and V's distance to one device's."""
-        return [max(kv) for kv in zip(*(_window_rel(t, ref[name][i][win])
-                                        for i, t in enumerate(caches)))]
-
-    cache0 = window_rel("cache0", pre)
-    cache1 = window_rel("cache1", [state[k].cpu()
-                                   for k in ("cache_k", "cache_v")])
+    post = _state_of(state)
+    windows, state_rel = {}, {}
+    for key, t in pre.items():
+        # the rank's lanes, and where a dimension is split, its chunk
+        whole = ref["state0"][key].shape
+        spans = [(m * n if n < w else 0, (m + 1) * n if n < w else w)
+                 for n, w in zip(t.shape[2:], whole[2:])]
+        win = (slice(None), slice(lo, lo + rows),
+               *(slice(a, b) for a, b in spans))
+        windows[key] = spans
+        state_rel[key] = (_window_rel(t, ref["state0"][key][win]),
+                          _window_rel(post[key], ref["state1"][key][win]))
+    w32 = ref.get("logits32")
+    rel32 = [] if w32 is None else [_rows_rel(g, w32[i][lo:lo + rows])
+                                    for i, g in enumerate(got)]
     c = -(-S // model_n)
-    mine = _logit_row_routes(routes, cfg.num_layers, rows, S,
-                             mesh.coords["model"] * c, c)
-    flips = [(i, lo + b) for i, (m, w) in enumerate(zip(mine, ref["routes"]))
-             if m is not None
-             for b in range(rows) if not torch.equal(m[:, b],
-                                                     w[:, lo + b])]
+    mine = _logit_row_routes(routes, cfg.num_layers, rows, S, m * c, c)
+    flips = [(i, lo + b) for i, (r, w) in enumerate(zip(mine, ref["routes"]))
+             if r is not None
+             for b in range(rows) if not torch.equal(r[:, b], w[:, lo + b])]
     rel, forks, clear = [], 0, []
     for i, g in enumerate(got):
         w = ref["logits"][i][lo:lo + rows].float()
@@ -5510,60 +5776,96 @@ def _job_serve(cell: str, path: str) -> dict:
                                                      .max()):
                 clear.append((i, lo + b))
     return {"launches": {k: fn.launches for k, fn in counters.items()},
-            "k2_prefill": k2_prefill, "peak": torch.cuda.max_memory_allocated(),
-            "p_bytes": p_bytes, "p_whole": p_whole,
-            "window": (lo, lo + rows, r0, r0 + c0), "rel": rel,
-            "flips": flips, "forks": forks, "clear": clear,
-            "cache_rel": (cache0, cache1), "prefill_s": t_prefill,
+            "prefill_launches": prefill_launches,
+            "k2_offsets": sorted(set(offsets)), "chunk": c,
+            "peak": torch.cuda.max_memory_allocated(),
+            "p_bytes": p_bytes, "p_whole": p_whole, "lanes": (lo, lo + rows),
+            "windows": windows, "rel": rel, "flips": flips, "forks": forks,
+            "clear": clear, "state_rel": state_rel, "rel32": rel32,
+            "prefill_s": t_prefill,
             "step_ms": float(np.median(times)) * 1e3,
             "staged": mesh.staged_bytes}
 
 
-def _logit_rel(x: dict, skip) -> float:
-    """A rank's largest relative L2 distance of a step's logits rows to one
-    device's, the rows ``skip`` (step, lane) left out."""
-    lo = x["window"][0]
-    worst = 0.0
+def _logit_rel(x: dict, skip) -> list:
+    """A rank's relative L2 distance of each step's logits rows to one
+    device's (the prefill's first), the rows ``skip`` (step, lane) left
+    out."""
+    lo = x["lanes"][0]
+    out = []
     for i, step in enumerate(x["rel"]):
         kept = [dw for b, dw in enumerate(step) if (i, lo + b) not in skip]
-        if kept:
-            d = sum(a * a for a, _ in kept) ** 0.5
-            w = sum(b * b for _, b in kept) ** 0.5
-            worst = max(worst, d / max(w, 1e-30))
-    return worst
+        d = sum(a * a for a, _ in kept) ** 0.5
+        w = sum(b * b for _, b in kept) ** 0.5
+        out.append(d / max(w, 1e-30) if kept else 0.0)
+    return out
 
 
-def _mesh_serve(cell: str) -> int:
-    """One cell: one device, then the ranks against it.  Returns the K2
-    launches summed over the ranks."""
+def _job_serve_cells(cells, paths) -> list:
+    """A rank of each cell of ``cells`` (one mesh shape) in turn:
+    :func:`_job_serve`'s results."""
+    out = []
+    for cell, path in zip(cells, paths):
+        out.append(_job_serve(cell, path))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_serve(cells) -> dict:
+    """Cells of one mesh shape: each on one device, then one spawn of
+    ranks running them all against those runs, each cell judged.  Returns
+    each kernel's launches summed over the ranks and cells."""
     import tempfile
 
-    arch, layers, (data, model_n), B, S, max_seq, steps = MESH_SERVE[cell]
-    tag = f"mesh-serve-{cell}"
+    data, model_n = MESH_SERVE[cells[0]][2]
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "one_device.pt")
+        paths = [os.path.join(d, f"{cell}.pt") for cell in cells]
+        ones = []
         t0 = time.perf_counter()
-        one = _serve_one_device(cell, path)
-        _free_card()
+        for cell, path in zip(cells, paths):
+            ones.append(_serve_one_device(cell, path))
+            _free_card()
         t1 = time.perf_counter()
-        ranks = _run_mesh(_job_serve, data * model_n, cell, path)
+        runs = _run_mesh(_job_serve_cells, data * model_n, cells, paths)
         t2 = time.perf_counter()
-    k2 = [r["launches"]["flash_attention"] for r in ranks]
+    log(f"[mesh-serve] {', '.join(cells)} on (data={data}, model={model_n}):"
+        f" one device {t1 - t0:.1f} s, the ranks {t2 - t1:.1f} s with the "
+        f"spawn")
+    out: dict = {}
+    for i, (cell, one) in enumerate(zip(cells, ones)):
+        for name, n in _judge_serve(cell, one, [r[i] for r in runs]).items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def _judge_serve(cell: str, one: dict, ranks: list) -> dict:
+    """Logs a cell's ranks against its one-device run and fails it past
+    its limits.  Returns each kernel's launches summed over the ranks."""
+    arch, layers, (data, model_n), B, S, max_seq, steps = MESH_SERVE[cell]
+    kernel = MESH_SERVE_KERNEL[cell]
+    tag = f"mesh-serve-{cell}"
     flips = sorted({f for x in ranks for f in x["flips"]})
     for x in ranks:
-        x["logit_rel"] = _logit_rel(x, flips)
-        x["logit_rel_all"] = _logit_rel(x, [])
+        x["logit_steps"] = _logit_rel(x, flips)
+        x["logit_rel"] = max(x["logit_steps"])
+        x["logit_rel_all"] = max(_logit_rel(x, []))
     for r, x in enumerate(ranks):
-        lo, hi, r0, r1 = x["window"]
-        log(f"[{tag}] rank {r}: K2 launches {x['launches']['flash_attention']}"
-            f" ({x['k2_prefill']} in the prefill), other kernels "
-            f"{ {k: v for k, v in x['launches'].items() if k != 'flash_attention'} }")
-        log(f"[{tag}] rank {r}: lanes [{lo}, {hi}), cache rows [{r0}, {r1}) "
-            f"of {max_seq}: cache within "
-            f"{[round(e, 4) for e in x['cache_rel'][0]]} / "
-            f"{[round(e, 4) for e in x['cache_rel'][1]]} of one device's "
-            f"(relative L2 by layer, after the prefill / the steps); logits "
-            f"within {x['logit_rel']:.3g}; "
+        lo, hi = x["lanes"]
+        runs = {k: v for k, v in x["launches"].items() if v}
+        log(f"[{tag}] rank {r}: launches {runs or 'none'} ("
+            f"{ {k: v for k, v in x['prefill_launches'].items() if v} } in "
+            f"the prefill); K2's query offsets {x['k2_offsets']}")
+        state = "; ".join(
+            f"{k} {x['windows'][k]} within "
+            f"{[round(e, 4) for e in x['state_rel'][k][0]]} / "
+            f"{[round(e, 4) for e in x['state_rel'][k][1]]}"
+            for k in x["state_rel"])
+        log(f"[{tag}] rank {r}: lanes [{lo}, {hi}); decode state (its "
+            f"window past the lanes, relative L2 by layer to one device's "
+            f"after the prefill / the steps): {state}; logits within "
+            f"{x['logit_rel']:.3g} (by step, the prefill's first: "
+            f"{[round(e, 4) for e in x['logit_steps']]}); "
             f"{x['forks']} greedy tokens of {(steps + 1) * (hi - lo)} differ, "
             f"{len(x['clear'])} at a clear margin; weights "
             f"{x['p_bytes'] / 1e9:.3f} GB of {x['p_whole'] / 1e9:.3f}; peak "
@@ -5573,59 +5875,84 @@ def _mesh_serve(cell: str) -> int:
             f"{one['prefill_s']:.2f} s, {one['step_ms']:.1f} ms; ranks "
             f"time-sharing one card over gloo: not a parallel speed); "
             f"{x['staged'] / 1e9:.2f} GB staged through the host")
+    if "bf16_vs_fp32" in one:
+        log(f"[{tag}] fp32 witness (one device in fp32: the same weights "
+            f"upcast, fed the same tokens; logits' relative L2 by step, the "
+            f"prefill's first): one device's bf16 "
+            f"{[round(e, 4) for e in one['bf16_vs_fp32']]}; "
+            + "; ".join(f"rank {r}'s {[round(e, 4) for e in x['rel32']]}"
+                        for r, x in enumerate(ranks))
+            + f" (the ranks' limit {MESH_SERVE_LOGIT_REL:g})")
     worst = max(x["logit_rel"] for x in ranks)
     every = max(x["logit_rel_all"] for x in ranks)
-    cache = max(max(max(c) for c in x["cache_rel"]) for x in ranks)
+    logit_limit = MESH_SERVE_LOGIT_LIMIT.get(cell, MESH_SERVE_LOGIT_REL)
+    state = max(max(max(e) for e in pair) for x in ranks
+                for pair in x["state_rel"].values())
     if flips:
         log(f"[{tag}] {len(flips)} of {(steps + 1) * B} logits rows come "
             f"from a token whose experts differ from one device's at a "
             f"layer (step, lane): {flips[:12]}; over every row the logits "
             f"are within {every:.3g}; the limit below holds the others")
     clear = [x["clear"] for x in ranks if x["clear"]]
+    counts = {name: [x["launches"][name] for x in ranks]
+              for name in ranks[0]["launches"]}
     log(f"[{tag}] {arch} x{layers} {_serve_cfg(cell).dtype} on "
         f"(data={data}, model={model_n}), "
         f"{data * model_n} gloo ranks on cuda:0, {B} lanes of {S} tokens "
-        f"into a cache of {max_seq} (seq layout, serving rules), {steps} "
-        f"greedy steps: logits within {worst:.3g}, caches within "
-        f"{cache:.3g} of one device's (limits {MESH_SERVE_LOGIT_REL:g}, "
-        f"{MESH_SERVE_CACHE_REL:g}); K2 {k2} a rank, one device "
-        f"{one['k2']}; one device {t1 - t0:.1f} s, the ranks {t2 - t1:.1f}"
-        f" s with the spawn")
-    if worst > MESH_SERVE_LOGIT_REL or cache > MESH_SERVE_CACHE_REL or clear:
+        f"into {max_seq} rows (seq layout, serving rules), {steps} "
+        f"greedy steps: logits within {worst:.3g}, decode state within "
+        f"{state:.3g} of one device's (limits {logit_limit:g}, "
+        f"{MESH_SERVE_CACHE_REL:g}); "
+        + (f"{kernel} {counts[kernel]} a rank, one device "
+           f"{one['launches'][kernel]}" if kernel else "no kernel on the "
+           "path"))
+    if worst > logit_limit or state > MESH_SERVE_CACHE_REL or clear:
         raise AssertionError(f"[{tag}] off one device: logits {worst:.3g}, "
-                             f"caches {cache:.3g}, forks at clear margins "
-                             f"{clear}")
-    other = [x["launches"] for x in ranks
-             if any(v for k, v in x["launches"].items()
-                    if k != "flash_attention")]
+                             f"decode state {state:.3g}, forks at clear "
+                             f"margins {clear}")
+    worst32 = max(max(x["rel32"], default=0.0) for x in ranks)
+    if worst32 > MESH_SERVE_LOGIT_REL:
+        raise AssertionError(f"[{tag}] logits {worst32:.3g} off one "
+                             f"device's fp32 run (limit "
+                             f"{MESH_SERVE_LOGIT_REL:g})")
+    other = {k: v for k, v in counts.items() if k != kernel and any(v)}
     if other:
-        raise AssertionError(f"[{tag}] kernels other than K2 launched: "
+        raise AssertionError(f"[{tag}] kernels off the path launched: "
                              f"{other}")
+    if kernel and one["launches"][kernel] and not all(counts[kernel]):
+        raise AssertionError(f"[{tag}] {kernel} launches {counts[kernel]}: "
+                             "a rank ran the plain route")
     cfg = _serve_cfg(cell)
-    if cfg.num_heads % model_n == 0 and one["k2"] and not all(k2):
-        raise AssertionError(f"[{tag}] K2 launches {k2}: a rank computing "
-                             "whole q heads ran the plain route")
-    return sum(k2)
+    if kernel == "flash_attention" and cfg.num_heads % model_n and \
+            one["launches"][kernel]:
+        # the query-rows split: each rank's queries start at its chunk
+        want = [[r * x["chunk"]] for r, x in enumerate(ranks)]
+        got = [x["k2_offsets"] for x in ranks]
+        if got != want:
+            raise AssertionError(f"[{tag}] K2's query offsets {got}, the "
+                                 f"ranks' chunks start at {want}")
+    return {name: sum(v) for name, v in counts.items()}
 
 
 def phase_mesh_serving() -> dict:
-    """Phase 20: ``TransformerLM`` served on a mesh in the reference's
-    serving layout, gloo ranks on ``cuda:0``, each cell of
-    ``--mesh-serve-cells`` against one device.  Returns the ranks' K2
-    launches."""
+    """Phase 20: every family served on a mesh in the reference's serving
+    layout, gloo ranks on ``cuda:0``, each cell of ``--mesh-serve-cells``
+    against one device.  Returns each kernel's launches over the ranks."""
     import multiprocessing
 
-    k2 = 0
+    out = {name: 0 for name in _launch_counters()}
+    groups: dict = {}                  # the cells of each mesh shape
     for cell in MESH_SERVE_CELLS:
-        k2 += _mesh_serve(cell)
+        groups.setdefault(MESH_SERVE[cell][2], []).append(cell)
+    for cells in groups.values():
+        for name, n in _mesh_serve(cells).items():
+            out[name] += n
         _free_card()
     left = [p.pid for p in multiprocessing.active_children()
             if p.name.startswith("repro-torch-rank")]
     if left:
         raise AssertionError(f"[mesh-serve] ranks left: {left}")
     log("[mesh-serve] every rank started here has ended")
-    out = {name: 0 for name in _launch_counters()}
-    out["flash_attention"] = k2
     return out
 
 
@@ -5678,18 +6005,30 @@ def main(argv=None) -> int:
     _CARD = phase_device()
     if 2 in phases:          # otherwise the kernels build at first launch
         phase_build()
+    if 19 in phases and phases - {1, 2, 19}:
+        _start_dryrun()
+    try:
+        return _run_phases(phases)
+    finally:
+        _stop_dryrun()
+
+
+def _run_phases(phases: set) -> int:
+    """Phases 3-20 of ``phases``, then the summary lines with all of them.
+    Returns the exit code."""
     results = {}
     if 3 in phases:
         t0 = time.perf_counter()
         results["paged_attention"] = check_paged()
         results["flash_attention"] = check_flash()
+        results["flash_attention"].update(check_flash_offset())
         check_small_head_dims()
         results["wkv6"] = check_wkv6()
         results["segment_zero"] = check_segment_zero()
         log(f"[smoke] phase 3 took {time.perf_counter() - t0:.1f} s")
     # each kernel's launches on the serving paths, by phase (K1: phases 4,
     # 8, 9, 11, 13, 16, 17 and 19; K2: 4, 7, 8, 9, 10, 11, 12, 13, 16, 17
-    # and 20, phases 17's and 20's summed over the ranks; K3: 6);
+    # and 20, phases 17's and 20's summed over the ranks; K3: 6 and 20);
     # K4 is on no path, and the paths of phases 14, 15 and 18 have no kernel
     runs = {4: phase_serving, 5: phase_card_vs_cpu, 6: phase_rwkv_serving,
             7: phase_gemma_serving, 8: phase_chunked_and_rebatching,
@@ -5740,10 +6079,13 @@ def main(argv=None) -> int:
         # qwen3-moe's grouping, "g7" at llava's; K2: "h64" at qwen3-moe's
         # heads, "w512" with a window at head dim 128, "w8192" at llama4's
         # window and 10000 tokens, "hd256" at gemma2's head dim, "hymba"
-        # at hymba's heads and window, "llava" at llava's heads; K4:
+        # at hymba's heads and window, "llava" at llava's heads, "offset"
+        # (hymba's) and "offset_hd128" / "offset_hd256" at a query offset,
+        # a serving rank's rows of the sequence; K4:
         # "inplace_zero_ms", narrow().zero_() (not the same function)
         for key in ("warm_ms", "g16", "g7", "h64", "w512", "w8192", "hd256",
-                    "hymba", "llava", "inplace_zero_ms"):
+                    "hymba", "llava", "offset", "offset_hd128",
+                    "offset_hd256", "inplace_zero_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,11 @@
 // src/repro/kernels/flash_attention/flash_attention.py (body `_kernel`).
 // Computes causal or non-causal GQA attention with a sliding window
 // (`q - k < window`, 0 = global) and a logit softcap `cap * tanh(s / cap)`,
-// positions implicitly arange, with an online softmax across KV tiles.
+// with an online softmax across KV tiles.  Keys sit at positions 0..Sk-1
+// and query row i at position q_offset + i (0 in the reference's kernel;
+// a serving rank's chunk of the sequence starts later), so Sq < Sk works.
+// Rows in memory (loads and stores of q and out, the TMA boxes) stay row
+// indices; only the masks and the KV-tile ranges read positions.
 //
 // Layouts (contiguous, the model's own):
 //   q    (B, Sq, K*G, HD)    query head h reads kv head h / G
@@ -47,6 +51,9 @@
 //   * tiles wholly in the future (causal) or outside the window are never
 //     loaded, and a warpgroup skips the tiles none of its rows can see;
 //     masks are applied only on tiles that straddle a boundary;
+//   * two instances a head dim: one reads q_offset, the other takes it as 0
+//     (a whole prompt's prefill), so the offset costs a whole prompt
+//     nothing;
 //   * the output, acc / max(l, 1e-30) rounded once to bf16, is staged in
 //     the warpgroup's own Q region (free once its last wgmma is done; 16-byte
 //     chunks XOR-swizzled by row, so neither side conflicts on banks) and
@@ -108,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out, int Sq,
                      int Sk, int K, int G, int window, float scale,
-                     float logit_cap, int causal) {
+                     float logit_cap, int causal, int q_offset) {
   constexpr int kDims = HD / kSplit;  // dims owned by one thread
   static_assert(2 * kBK * HD * sizeof(float) <= 48 * 1024,
                 "K/V tiles past the static shared-memory limit");
@@ -125,6 +132,7 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int c = tid % kSplit;        // dims c, c + 8, c + 16, ...
   const int qi = q0 + r;
   const bool q_valid = qi < Sq;
+  const int qp = q_offset + qi;      // its position
 
   float qv[kDims];
   float acc[kDims];
@@ -137,10 +145,10 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m = kNegInf;
   float l = 0.f;
 
-  // KV range this tile of queries can see
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  // KV range this tile of queries can see (by position)
+  const int q_last = q_offset + min(q0 + kBQ, Sq) - 1;
   const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_lo = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   const size_t kv_row = (size_t)K * HD;
   const float* kb = k + (size_t)b * Sk * kv_row + (size_t)kh * HD;
   const float* vb = v + (size_t)b * Sk * kv_row + (size_t)kh * HD;
@@ -169,8 +177,8 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (logit_cap != 0.f) part = logit_cap * tanhf(part / logit_cap);
       const int kj = j0 + j;
       bool ok = q_valid && kj < Sk;
-      if (causal) ok = ok && kj <= qi;
-      if (window > 0) ok = ok && qi - kj < window;
+      if (causal) ok = ok && kj <= qp;
+      if (window > 0) ok = ok && qp - kj < window;
       s[j] = ok ? part : kNegInf;
       m_tile = fmaxf(m_tile, s[j]);
     }
@@ -521,15 +529,18 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 // Accumulator fragments (wgmma m64nN, fp32): thread t of a warpgroup holds,
 // for each 8-column chunk i, elements 4i + r at row 16 * (t / 32) +
 // (t % 32) / 4 + 8 * (r >> 1) and column 8i + 2 * (t % 4) + (r & 1).
-template <int HD>
+// kOffset: an instance that reads q_offset; the other takes it as 0, so a
+// whole prompt's prefill keeps the code it had without the offset.
+template <int HD, bool kOffset>
 __global__ void __launch_bounds__(Plan<HD>::kThreads, 1)
 flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
                  __grid_constant__ const CUtensorMap tk,
                  __grid_constant__ const CUtensorMap tv,
                  __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
                  int G, int window, float scale, float logit_cap,
-                 int causal) {
+                 int causal, int q_offset_arg) {
   using L = Plan<HD>;
+  const int q_offset = kOffset ? q_offset_arg : 0;
   constexpr int kHalves = L::kHalves;
   constexpr int kStages = L::kStages;
   constexpr int kSteps = HD / 16;          // K-steps of Q K^T
@@ -552,15 +563,17 @@ flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
   const int g_hi = min(g_lo + kRows, Sq) - 1;      // and last live row
   const bool live = g_lo < Sq;
   const int row0 = g_lo + warp * 16 + lane / 4;    // rows row0, row0 + 8
+  const int pos_lo = q_offset + g_lo;              // their positions
+  const int pos_hi = q_offset + g_hi;
 
   const uint32_t bar_q = base + L::bar;
   const uint32_t bar_full = bar_q + 8;             // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * kStages;
 
-  // the kv tiles any row of the block can see
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  // the kv tiles any row of the block can see (by position)
+  const int q_last = q_offset + min(q0 + kBQ, Sq) - 1;
   const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_lo = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   const int j_first = (k_lo / kBK) * kBK;
   const int n_tiles = k_hi > j_first ? (k_hi - j_first + kBK - 1) / kBK : 0;
 
@@ -618,8 +631,8 @@ flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
     const int stage = it % kStages;
     const int j0 = j_first + it * kBK;
     bool run = live;
-    if (causal) run = run && j0 <= g_hi;
-    if (window > 0) run = run && j0 + kBK - 1 > g_lo - window;
+    if (causal) run = run && j0 <= pos_hi;
+    if (window > 0) run = run && j0 + kBK - 1 > pos_lo - window;
     // wait for the tile even where it is skipped: a release may only count
     // towards the fill it follows
     mbar_wait(bar_full + 8 * stage, (it / kStages) & 1);
@@ -647,8 +660,8 @@ flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
       // the softcap (of the scaled score) in fp32, then the masks where the
       // tile straddles one; the online softmax state of rows row0, row0 + 8
       const bool inside = j0 + kBK <= Sk && g_hi == g_lo + kRows - 1 &&
-                          (!causal || j0 + kBK - 1 <= g_lo) &&
-                          (window <= 0 || g_hi - j0 < window);
+                          (!causal || j0 + kBK - 1 <= pos_lo) &&
+                          (window <= 0 || pos_hi - j0 < window);
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int e = 0; e < kBK / 2; ++e) {
@@ -656,10 +669,11 @@ flash_prefill_tc(__grid_constant__ const CUtensorMap tq,
         if (logit_cap != 0.f) x = logit_cap * tanhf(x * scale / logit_cap);
         if (!inside) {
           const int qi = row0 + 8 * ((e >> 1) & 1);
+          const int qp = q_offset + qi;
           const int kj = j0 + 8 * (e >> 2) + 2 * quad + (e & 1);
           bool ok = qi < Sq && kj < Sk;
-          if (causal) ok = ok && kj <= qi;
-          if (window > 0) ok = ok && qi - kj < window;
+          if (causal) ok = ok && kj <= qp;
+          if (window > 0) ok = ok && qp - kj < window;
           x = ok ? x : kNegInf;
         }
         s[e] = x;
@@ -817,29 +831,42 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int K, int G, int window, float scale,
-           float logit_cap, int causal, cudaStream_t stream) {
+template <int HD, bool kOffset>
+int launch_tc(const CUtensorMap& tq, const CUtensorMap& tk,
+              const CUtensorMap& tv, void* out, int B, int Sq, int Sk, int K,
+              int G, int window, float scale, float logit_cap, int causal,
+              int q_offset, cudaStream_t stream) {
   using L = Plan<HD>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::bytes);
+        flash_prefill_tc<HD, kOffset>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
+  const dim3 grid(K * G, B, (Sq + kBQ - 1) / kBQ);
+  flash_prefill_tc<HD, kOffset><<<grid, L::kThreads, L::bytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, Sq, Sk, K * G, G, window, scale,
+      logit_cap, causal, q_offset);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Sk, int K, int G, int window, float scale,
+           float logit_cap, int causal, int q_offset, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, K * G, HD) ||
       !make_map(&tk, k, B, Sk, K, HD) || !make_map(&tv, v, B, Sk, K, HD)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(K * G, B, (Sq + kBQ - 1) / kBQ);
-  flash_prefill_tc<HD><<<grid, L::kThreads, L::bytes, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, Sq, Sk, K * G, G, window, scale,
-      logit_cap, causal);
-  return (int)cudaGetLastError();
+  if (q_offset) {
+    return launch_tc<HD, true>(tq, tk, tv, out, B, Sq, Sk, K, G, window,
+                               scale, logit_cap, causal, q_offset, stream);
+  }
+  return launch_tc<HD, false>(tq, tk, tv, out, B, Sq, Sk, K, G, window,
+                              scale, logit_cap, causal, 0, stream);
 }
 
 }  // namespace tc
@@ -847,37 +874,40 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 template <int HD, int kBK>
 void launch_cc(const void* q, const void* k, const void* v, void* out, int B,
                int Sq, int Sk, int K, int G, int window, float scale,
-               float logit_cap, int causal, cudaStream_t stream) {
+               float logit_cap, int causal, int q_offset,
+               cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, K * G, B);
   flash_prefill_kernel<HD, kBK><<<grid, kThreads, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
-      K, G, window, scale, logit_cap, causal);
+      K, G, window, scale, logit_cap, causal, q_offset);
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core route;
 // every pointer 16-byte aligned); hd in {64, 128, 256} (the Python wrapper
-// pads a smaller head dim up to one of them and checks the rest).  Returns
-// cudaGetLastError() after the launch.
+// pads a smaller head dim up to one of them and checks the rest); query row
+// i at position q_offset + i (>= 0).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int K, int G, int hd, int window,
                                      float scale, float logit_cap, int causal,
-                                     int dtype, void* stream) {
+                                     int q_offset, int dtype, void* stream) {
   if (hd != 64 && hd != 128 && hd != 256) return (int)cudaErrorInvalidValue;
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || K == 0 || G == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
     if (hd == 64) {
       launch_cc<64, 32>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                        logit_cap, causal, s);
+                        logit_cap, causal, q_offset, s);
     } else if (hd == 128) {
       launch_cc<128, 32>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                         logit_cap, causal, s);
+                         logit_cap, causal, q_offset, s);
     } else {
       launch_cc<256, 16>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                         logit_cap, causal, s);
+                         logit_cap, causal, q_offset, s);
     }
     return (int)cudaGetLastError();
   }
@@ -887,12 +917,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (align % 16) return (int)cudaErrorMisalignedAddress;
   if (hd == 64) {
     return tc::launch<64>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                          logit_cap, causal, s);
+                          logit_cap, causal, q_offset, s);
   }
   if (hd == 128) {
     return tc::launch<128>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                           logit_cap, causal, s);
+                           logit_cap, causal, q_offset, s);
   }
   return tc::launch<256>(q, k, v, out, B, Sq, Sk, K, G, window, scale,
-                         logit_cap, causal, s);
+                         logit_cap, causal, q_offset, s);
 }

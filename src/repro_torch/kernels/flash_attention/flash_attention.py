@@ -22,7 +22,7 @@ __all__ = ["flash_attention_cuda", "head_dim_instance"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 #: device type the kernel runs on (a module constant, so a test can point
 #: the dispatch at another device type with the loader mocked)
@@ -46,9 +46,10 @@ def head_dim_instance(hd: int, instances=INSTANCES) -> int:
 
 
 def flash_attention_cuda(q, k, v, window, *, scale, logit_cap=0.0,
-                         causal=True):
+                         causal=True, q_offset=0):
     """q: (B, Sq, K*G, hd); k/v: (B, Sk, K, hd) — one CUDA device,
-    contiguous; ``window`` an int, 0 = global."""
+    contiguous; ``window`` an int, 0 = global; query row i at position
+    ``q_offset + i``, key j at j."""
     B, Sq, KG, hd = q.shape
     Bk, Sk, K, hd_k = k.shape
     dev = q.device
@@ -71,6 +72,9 @@ def flash_attention_cuda(q, k, v, window, *, scale, logit_cap=0.0,
             f"(instances {', '.join(map(str, INSTANCES))}), got head dim "
             f"{hd}: a config with head_dim above {INSTANCES[-1]} needs a "
             "new instance of csrc/flash_attention.cu")
+    if int(q_offset) < 0:
+        raise ValueError(f"flash_attention kernel takes a query offset >= 0, "
+                         f"got {q_offset}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous tensors")
     inst = head_dim_instance(hd)
@@ -90,7 +94,8 @@ def flash_attention_cuda(q, k, v, window, *, scale, logit_cap=0.0,
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Sq, Sk, K, KG // K, inst, int(window), float(scale),
-                float(logit_cap), int(bool(causal)), _DTYPES[q.dtype],
+                float(logit_cap), int(bool(causal)), int(q_offset),
+                _DTYPES[q.dtype],
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "repro_flash_attention")
     return out if inst == hd else out[..., :hd].contiguous()

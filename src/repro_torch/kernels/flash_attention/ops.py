@@ -4,9 +4,11 @@
 :mod:`repro_torch.models.attention` and returns the same layout.  A tensor
 on the CPU runs the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the hand-written kernel or raises — there is no fallback.
-``flash_attention.launches`` counts kernel launches.  Positions are
-implicitly ``arange``, as in the reference: ``q_positions`` and
-``k_positions`` are accepted and not read.
+``flash_attention.launches`` counts kernel launches.  Keys sit at
+positions ``arange(Sk)`` and query row i at ``q_offset + i`` (0 in the
+reference, whose kernel has no offset; a serving rank's chunk of the
+sequence starts later): ``q_positions`` and ``k_positions`` are accepted
+and not read.
 """
 
 from __future__ import annotations
@@ -19,16 +21,18 @@ __all__ = ["flash_attention"]
 
 def flash_attention(qg, k, v, *, q_positions=None, k_positions=None,
                     window, scale: float, logit_cap: float = 0.0,
-                    causal: bool = True):
+                    causal: bool = True, q_offset: int = 0):
     B, Sq, K, G, hd = qg.shape
     q = qg.reshape(B, Sq, K * G, hd)
     window = int(window)
     if q.device.type == "cpu":
         out = flash_attention_ref(q, k, v, window, scale=scale,
-                                  logit_cap=logit_cap, causal=causal)
+                                  logit_cap=logit_cap, causal=causal,
+                                  q_offset=int(q_offset))
     else:
         out = flash_attention_cuda(q, k, v, window, scale=scale,
-                                   logit_cap=logit_cap, causal=causal)
+                                   logit_cap=logit_cap, causal=causal,
+                                   q_offset=int(q_offset))
         flash_attention.launches += 1
     return out.reshape(B, Sq, K, G, hd)
 

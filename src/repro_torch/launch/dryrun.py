@@ -25,21 +25,19 @@ on CPU fake tensors.
   rank's rows, the hybrid's ``d_inner``, the logits of the rank's own
   tokens) on its rows of the global batch (split over ``pod`` and
   ``data``).
-* ``prefill`` / ``decode`` of a ``TransformerLM``: the reference's serving
-  cell.  The weights rest in their shards (the training rules, or the
-  serving rules with ``--serve-params``) and each layer's are gathered
-  when it runs, a ``model`` split kept where the work is split by it (q
-  heads, ``d_ff``, experts, the vocabulary); ``make_prefill_fn`` /
+* ``prefill`` / ``decode``: the reference's serving cell, every family.
+  The weights rest in their shards (the training rules, or the serving
+  rules with ``--serve-params``) and each layer's are gathered when it
+  runs, a ``model`` split kept where the work is split by it (q heads,
+  ``d_ff``, ``d_inner``, experts, the vocabulary); ``make_prefill_fn`` /
   ``make_decode_fn(shardings=, layout=)`` run on the rank's rows of the
   batch (split over ``pod`` and ``data`` where they divide), the prefill
   sequence-parallel over ``model``, and the decode state is the rank's
   shards of ``decode_state_shardings(layout=--decode-layout)``: the
-  cache's rows (``seq``) or kv heads (``heads``) split over ``model``
-  where the axis divides them, else whole, as the reference lays it out.
-* ``prefill`` / ``decode`` of ``RwkvLM``, the hybrid and whisper: the
-  rank gathers every weight whole from the same rules and runs the
-  serving step on its rows of the batch, with its rows of the decode
-  state whole (``decode_layout`` ``none`` in the record).
+  cache's rows (``seq``) or kv heads (``heads``), whisper's cross K/V by
+  heads, RWKV's ``wkv`` by value columns and the hybrid's ``ssm_h`` by
+  ``d_inner``, each split over ``model`` where the axis divides it, else
+  whole, as the reference lays it out.
 
 The model is built with ``impl="xla"``, as the reference's dry run
 builds it: the plain routes, never a kernel.  The plain per-token
@@ -71,7 +69,6 @@ Usage::
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import time
@@ -85,8 +82,8 @@ from ..configs import SHAPES, cells_for, get_config, list_archs
 from ..models import build_model
 from ..models.common import ArchConfig, param_tree
 from ..optim import adamw_init
-from ..parallel.sharding import BATCH_AXES, batch_rows, \
-    decode_state_shardings, gather_tree, param_shardings, shard_tree
+from ..parallel.sharding import BATCH_AXES, decode_state_shardings, \
+    param_shardings, shard_tree
 from ..tree import tree_leaves, tree_map
 from .hlo_cost import analyze_graph
 from .mesh import make_production_mesh
@@ -135,27 +132,6 @@ def _fake_world(size: int) -> None:
                             world_size=size)
 
 
-@contextlib.contextmanager
-def _weights(model, tree):
-    """``model``'s parameters replaced by the leaves of ``tree`` (the
-    reference's nested dict, as :func:`param_tree` gives it) for the
-    block."""
-    saved = []
-    for name, _ in list(model.named_parameters()):
-        *path, leaf = name.split(".")
-        owner, node = model, tree
-        for key in path:
-            owner, node = getattr(owner, key), node[key]
-        saved.append((owner, leaf, owner._parameters[leaf]))
-        owner._parameters[leaf] = torch.nn.Parameter(node[leaf],
-                                                     requires_grad=False)
-    try:
-        yield model
-    finally:
-        for owner, leaf, p in saved:
-            owner._parameters[leaf] = p
-
-
 def _fake(t: torch.Tensor, device) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, device=device)
 
@@ -180,54 +156,34 @@ def build_cell(arch: str, shape_name: str, mesh, *,
     shardings = param_shardings(full, mesh, mode=mode, heads_divisible=hd_div)
     shards = tree_map(torch.clone, shard_tree(full, shardings))
 
-    layout = decode_layout
     if shape.kind == "train":
         batch = {k: _fake(v, dev) for k, v in make_batch_stub(
             cfg, batch=shape.global_batch, seq=shape.seq_len,
             kind="train").items()}
         step = make_train_step(model, shardings=shardings)
         args = (shards, adamw_init(shards), batch)
-    elif getattr(model, "serve_parallel", False):
-        if shape.kind == "prefill":
-            batch = {k: _fake(v, dev) for k, v in make_batch_stub(
-                cfg, batch=shape.global_batch, seq=shape.seq_len,
-                kind="prefill").items()}
-            step = make_prefill_fn(model, max_seq=shape.seq_len,
-                                   shardings=shardings, layout=layout)
-            args = (shards, batch)
-        else:
-            whole = model.init_decode_state(shape.global_batch,
-                                            shape.seq_len)
-            state = tree_map(torch.clone, shard_tree(
-                whole, decode_state_shardings(
-                    whole, mesh, layout=layout, batch_divisible=divisible)))
-            tokens = torch.zeros((rows,), dtype=torch.int32, device=dev)
-            step = make_decode_fn(model, shardings=shardings, layout=layout,
-                                  max_seq=shape.seq_len)
-            args = (shards, state, tokens)
+    elif shape.kind == "prefill":
+        batch = {k: _fake(v, dev) for k, v in make_batch_stub(
+            cfg, batch=shape.global_batch, seq=shape.seq_len,
+            kind="prefill").items()}
+        step = make_prefill_fn(model, max_seq=shape.seq_len,
+                               shardings=shardings, layout=decode_layout)
+        args = (shards, batch)
     else:
-        layout = "none"
-        if shape.kind == "prefill":
-            batch = {k: _fake(v, dev) for k, v in make_batch_stub(
-                cfg, batch=shape.global_batch, seq=shape.seq_len,
-                kind="prefill").items()}
-            batch = batch_rows(batch, mesh) if divisible else batch
-            serve = make_prefill_fn(model, max_seq=shape.seq_len)
-            args = (shards, batch)
-        else:
-            state = model.init_decode_state(rows, shape.seq_len)
-            tokens = torch.zeros((rows,), dtype=torch.int32, device=dev)
-            serve = make_decode_fn(model)
-            args = (shards, state, tokens)
-
-        def step(shards, *inputs):
-            with _weights(model, gather_tree(shards, shardings)):
-                return serve(*inputs)
+        whole = model.init_decode_state(shape.global_batch, shape.seq_len)
+        state = tree_map(torch.clone, shard_tree(
+            whole, decode_state_shardings(
+                whole, mesh, layout=decode_layout,
+                batch_divisible=divisible)))
+        tokens = torch.zeros((rows,), dtype=torch.int32, device=dev)
+        step = make_decode_fn(model, shardings=shardings,
+                              layout=decode_layout, max_seq=shape.seq_len)
+        args = (shards, state, tokens)
 
     meta = {
         "arch": arch, "shape": shape_name, "kind": shape.kind,
         "mesh": "x".join(str(n) for n in mesh.shape.values()),
-        "chips": mesh.size, "decode_layout": layout, "remat": "full",
+        "chips": mesh.size, "decode_layout": decode_layout, "remat": "full",
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
         "model_flops": model_flops(cfg, shape.kind, shape.global_batch,
                                    shape.seq_len),

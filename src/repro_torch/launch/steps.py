@@ -63,18 +63,19 @@ attention split by heads where they divide the axis and by query rows
 where they do not, and the MLP by ``d_ff``.
 
 **Serving on a mesh** (``make_prefill_fn`` / ``make_decode_fn`` with
-``shardings=``; ``TransformerLM`` only) the weights rest in their shards,
-training or serving rules, and each layer's are gathered where it reads
-them, a ``model`` split kept where the work is split by it (a
-``ServeLayout``).  The prefill splits the work over ``model`` as a
-training step's forward does; the decode cache is the rank's window of
-``decode_state_shardings(layout=)``, its rows (``seq``) or kv heads
-(``heads``) split over ``model`` where the axis divides them; a decode
-step repeats the lanes on every ``model`` rank and splits the attention
-over the cache's window (a softmax over ``model``), q heads, ``d_ff``,
-experts and the vocabulary.  The other families (no ``serve_parallel``)
-keep their serving path: every rank holds their whole weights and its
-rows of the cache.
+``shardings=``; every family) the weights rest in their shards, training
+or serving rules, and each layer's are gathered where it reads them, a
+``model`` split kept where the work is split by it (a ``ServeLayout``).
+The prefill splits the work over ``model`` as a training step's forward
+does (RWKV's recurrence and the hybrid's SSM scan over the prompt's
+tokens alone, not the padding); the decode state is the rank's shard of
+``decode_state_shardings(layout=)``: the cache's rows (``seq``) or kv
+heads (``heads``), whisper's cross K/V by heads, RWKV's ``wkv`` by its
+value columns and the hybrid's ``ssm_h`` by ``d_inner``, each split over
+``model`` where the axis divides it.  A decode step repeats the lanes on
+every ``model`` rank and splits the attention over the cache's window
+(a softmax over ``model``) or heads, the recurrent state's update over
+its window, and ``d_ff``, experts and the vocabulary.
 """
 
 from __future__ import annotations
@@ -199,19 +200,29 @@ def make_train_step(
     return step
 
 
-def _serving_layout(model, shardings, layout: str, max_seq: int, *,
-                  seq_len: int = 0, decoding: bool = False):
+def _state_shape(model, max_seq: Optional[int]):
+    """``model``'s decode state of one lane and ``max_seq`` rows on
+    ``meta`` (shapes alone), or None; made where a serving function is
+    made, so that a step's count of memory leaves it out."""
+    if max_seq is None:
+        return None
+    return model.init_decode_state(1, max_seq, device="meta")
+
+
+def _serving_layout(model, shardings, layout: str, max_seq: int,
+                    state_shape, *, seq_len: int = 0,
+                    decoding: bool = False):
     """The mesh of ``shardings`` and the ``ServeLayout`` of a serving step
-    on it."""
-    if not getattr(model, "serve_parallel", False):
-        raise ValueError(f"{type(model).__name__} has no serving layout on "
-                         "a mesh")
+    on it, its decode-state windows those of ``state_shape`` (the
+    model's state, :func:`_state_shape`)."""
     cfg = model.cfg
     mesh = tree_leaves(shardings)[0].mesh
     return mesh, ServeLayout(
-        mesh, shardings, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, max_seq=max_seq, seq_len=seq_len,
-        cache_layout=layout, decoding=decoding)
+        mesh, shardings,
+        state_shape=state_shape or _state_shape(model, max_seq),
+        max_seq=max_seq, seq_len=seq_len, cache_layout=layout,
+        decoding=decoding,
+        heads_divisible=cfg.num_heads % mesh.shape.get("model", 1) == 0)
 
 
 def make_prefill_fn(model, *, max_seq: Optional[int] = None, shardings=None,
@@ -219,8 +230,8 @@ def make_prefill_fn(model, *, max_seq: Optional[int] = None, shardings=None,
     """``prefill(batch) -> (decode state, last logits)``: the prompt and,
     by family, the encoder frames or the patch embeddings.
 
-    With ``shardings`` (the parameters' on a ``TrainMesh``; a
-    ``TransformerLM``): ``prefill(params, batch)`` on this rank's shards
+    With ``shardings`` (the parameters' on a ``TrainMesh``; any family):
+    ``prefill(params, batch)`` on this rank's shards
     ``params`` and the global ``batch``, of which it takes its rows over
     ``("pod", "data")`` where they divide (else all of them), as the
     reference's ``batch_shardings``; it returns this rank's shards of the
@@ -243,10 +254,12 @@ def make_prefill_fn(model, *, max_seq: Optional[int] = None, shardings=None,
 
         return prefill
 
+    state_shape = _state_shape(model, max_seq)
+
     def prefill_on_mesh(params, batch):
         S = batch["tokens"].shape[1]
         mesh, lay = _serving_layout(model, shardings, layout, max_seq or S,
-                                  seq_len=S)
+                                    state_shape, seq_len=S)
         n = math.prod(mesh.shape.get(a, 1) for a in BATCH_AXES)
         if batch["tokens"].shape[0] % n == 0:
             batch = batch_rows(batch, mesh)
@@ -271,9 +284,11 @@ def make_decode_fn(model, *, shardings=None, layout: str = "seq",
     if max_seq is None:
         raise ValueError("a decode step on a mesh needs the cache's max_seq")
 
+    state_shape = _state_shape(model, max_seq)
+
     def decode_on_mesh(params, state, tokens):
         mesh, lay = _serving_layout(model, shardings, layout, max_seq,
-                                  decoding=True)
+                                    state_shape, decoding=True)
         with mesh_context(mesh, lay):
             return model.decode_step(state, tokens, params=lay.tree(params))
 

@@ -210,10 +210,11 @@ def split_attention(
     ``impl="kernel"`` and no gradient, that branch runs the flash kernel
     (K2) on the rank's heads.  Else (§Perf-B5) the rank computes q, k and v
     on its own rows with the replicated weights, gathers only k and v,
-    attends its queries over all keys (``blockwise_attn``: K2 takes no
-    query offset), and ``wo`` is a local product.  Padding past the
-    sequence's end sits after every real token, so the causal mask keeps
-    real queries off it.
+    attends its queries over all keys, and ``wo`` is a local product; with
+    ``impl="kernel"`` and no gradient, through K2 with the query offset
+    ``layout.seq_start`` (its chunk's first position), else
+    ``blockwise_attn``.  Padding past the sequence's end sits after every
+    real token, so the causal mask keeps real queries off it.
 
     Under a ``ServeLayout`` it returns ``(y, (k, v))``: the K/V rows of
     the rank's cache window (``layout.cache_rows`` of the rows, zero past
@@ -239,9 +240,15 @@ def split_attention(
             w.update(q_norm=p["q_norm"], k_norm=p["k_norm"])
         q, k, v = qkv(x, w, cfg, q_pos, rope_base)
         k, v = layout.gather_seq(k), layout.gather_seq(v)
-        out = blockwise_attn(
-            q.reshape(B, c, K, G, hd), k, v, q_positions=q_pos,
-            k_positions=k_pos, **attn)
+        q = q.reshape(B, c, K, G, hd)
+        if impl == "kernel" and not torch.is_grad_enabled():
+            out = fa_ops.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                q_positions=q_pos, k_positions=k_pos, causal=True,
+                q_offset=layout.seq_start, **attn)
+        else:
+            out = blockwise_attn(q, k, v, q_positions=q_pos,
+                                 k_positions=k_pos, **attn)
         y = out.reshape(B, c, H * hd) @ layout.whole(p["wo"], 0, H * hd)
         if not cache:
             return y

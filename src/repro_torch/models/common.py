@@ -54,9 +54,13 @@ __all__ = [
     "gated_mlp",
     "layer_windows",
     "layer_rope_bases",
+    "mesh_columns",
+    "mesh_embedding",
+    "mesh_scores",
     "param_tree",
     "remat_call",
     "scale_embedding",
+    "serve_layout",
     "softcap",
     "split_layout",
     "split_mlp",
@@ -220,6 +224,70 @@ def split_layout():
     layout = _LAYOUT.get()
     return layout if layout is not None and layout.split_model and \
         not layout.serving else None
+
+
+def serve_layout():
+    """The serving step's ``ServeLayout`` bound here (a prefill or decode
+    step on a serving mesh), or None."""
+    layout = _LAYOUT.get()
+    return layout if layout is not None and layout.serving else None
+
+
+def mesh_embedding(table: torch.Tensor, tokens: torch.Tensor, layout,
+                   cfg: ArchConfig) -> torch.Tensor:
+    """Embeddings on a serving mesh (``layout``): a prefill's padded
+    (B, S) tokens → this rank's chunk (B, c, D); a decode step's (B,) →
+    (B, D).  Where the table is split over ``model`` by vocabulary, each
+    rank looks the tokens up in its rows, zeros for the others', and the
+    parts are summed over ``model`` (``scatter_seq``): exact, one term
+    nonzero.  Where it is split by its columns (``model`` does not divide
+    the vocabulary), each rank looks them up in its columns and they are
+    all-gathered (:func:`mesh_columns`)."""
+    vocab = cfg.vocab_size
+    if table.shape[0] == vocab:
+        # a prefill's chunk of the tokens; of a table split by its columns,
+        # cut after the gather, whose ranks must look up the same rows
+        chunk = slice(layout.seq_start, layout.seq_start + layout.chunk)
+        split = table.shape[1] != cfg.d_model
+        if not layout.decoding and not split:
+            tokens = tokens[:, chunk]
+        h = mesh_columns(take_embedding(table, tokens), layout, cfg.d_model)
+        return h[:, chunk] if split and not layout.decoding else h
+    n = table.shape[0]
+    local = tokens.long() - layout.part(vocab)[0]
+    mine = (local >= 0) & (local < n)
+    h = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
+    return layout.scatter_seq(h)
+
+
+def mesh_columns(x: torch.Tensor, layout, width: int) -> torch.Tensor:
+    """Rows ``x`` of a table, whole along their last dimension of
+    ``width``: all-gathered over ``model`` where the table rests split by
+    its columns (every rank's ``x`` the same rows), else ``x``."""
+    if x.shape[-1] == width:
+        return x
+    return layout.mesh.all_gather(x, "model", x.dim() - 1)
+
+
+def mesh_scores(h: torch.Tensor, table: torch.Tensor, layout,
+                vocab: int) -> torch.Tensor:
+    """(B, D) → (B, V) logits on every rank of a serving mesh: each rank
+    scores its slice of the vocabulary (of a table split over ``model``, or
+    its ``part`` of a whole one where ``model`` does not divide V, padded
+    to the equal chunk), and the slices are all-gathered; of a table split
+    by its columns, each rank's part of the contraction over ``D``, summed
+    over ``model``."""
+    if table.shape[1] != h.shape[-1]:
+        lo, hi = layout.part(h.shape[-1])
+        return layout.sum_parts(h[..., lo:hi] @ table.T)
+    if table.shape[0] != vocab:
+        return layout.mesh.all_gather(h @ table.T, "model", 1)
+    if not layout.split_model:
+        return h @ table.T
+    lo, hi = layout.part(vocab)
+    n = -(-vocab // layout.model_size)
+    part = torch.nn.functional.pad(h @ table[lo:hi].T, (0, n - (hi - lo)))
+    return layout.mesh.all_gather(part, "model", 1)[:, :vocab]
 
 
 def whole_table(table: torch.Tensor, vocab: int) -> torch.Tensor:

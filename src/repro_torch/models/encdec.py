@@ -16,8 +16,14 @@ Like the reference, the model runs through ``forward``, ``prefill`` and
 there too).  The decode state holds the self-attention cache and each
 layer's cross-attention K/V.  A decode step adds the learned position of
 slot 0 to every slot (``pos_embed[pos[0]]``), as the reference does.
-Weights live on the module; the serving functions take no ``params``
-argument.  ``loss(params, batch)`` trains on ``batch["frames"]`` through
+Weights live on the module; on one device the serving functions take no
+``params`` argument.  On a serving mesh (``launch.steps.make_prefill_fn``
+/ ``make_decode_fn`` with ``shardings=``, which bind a
+``parallel.sharding.ServeLayout``) they take ``params=``, this rank's
+shards, and the state is this rank's shards of it (``_mesh_prefill``,
+``_mesh_decode``): the prefill as the training layout below, each rank
+keeping its window of the self-attention cache and its heads of the cross
+K/V.  ``loss(params, batch)`` trains on ``batch["frames"]`` through
 the same layers, grad-enabled, each decoder layer under activation
 checkpointing, as the reference's default ``remat="full"``.
 
@@ -43,13 +49,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import NEG_INF, blockwise_attn, update_cache
+from ..parallel.collectives import softmax_over
+from .attention import NEG_INF, _cache_window, blockwise_attn, update_cache
 from .common import (
     ArchConfig,
     cross_entropy,
     frozen,
+    mesh_columns,
+    mesh_embedding,
+    mesh_scores,
     remat_call,
     resolve_device,
+    serve_layout,
     split_layout,
     take_embedding,
     torch_dtype,
@@ -102,7 +113,7 @@ def _mha(x, kv, p, cfg, *, causal, positions=None):
     return y, (k, v)
 
 
-def _split_mha(x, p, cfg, layout, *, causal, length, kv=None):
+def _split_mha(x, p, cfg, layout, *, causal, length, kv=None, keep=False):
     """:func:`_mha` on a mesh that splits it over ``model`` (``layout``, a
     ``TrainLayout``): ``x`` (B, c, D) is this rank's chunk of a sequence of
     ``length`` positions padded to a multiple of the axis, and so is the
@@ -117,7 +128,12 @@ def _split_mha(x, p, cfg, layout, *, causal, length, kv=None):
     reduce-scattered back to its chunk and ``bo`` added once.  Else the
     rank computes all heads for its own queries against gathered K/V
     (self-attention projects its chunk's K/V and gathers only them), and
-    ``wo`` is a local product."""
+    ``wo`` is a local product.
+
+    ``keep`` (a serving prefill's ``ServeLayout``): also returns the K/V
+    of the rank's window of the decode state, ``(y, (k, v))``: for
+    self-attention the cache's rows and heads (``_cache_window``), for
+    cross-attention the heads of ``xk``/``xv`` over every frame."""
     B, c, D = x.shape
     H, hd = cfg.num_heads, cfg.hd
     start, _ = layout.span(length)
@@ -139,7 +155,10 @@ def _split_mha(x, p, cfg, layout, *, causal, length, kv=None):
             q_positions=torch.arange(start, start + c, device=x.device),
             k_positions=torch.arange(Sk, device=x.device),
             chunk=min(512, Sk), **attn)
-        return out.reshape(B, c, H * hd) @ whole("wo", 0, H * hd) + p["bo"]
+        y = out.reshape(B, c, H * hd) @ whole("wo", 0, H * hd) + p["bo"]
+        if not keep:
+            return y
+        return y, (k, v) if kv is not None else _cache_window(layout, k, v)
     h0, h1 = layout.part(H)
     Hr = h1 - h0
     local = lambda k, d, n: layout.local(p[k], d, n)
@@ -157,8 +176,22 @@ def _split_mha(x, p, cfg, layout, *, causal, length, kv=None):
         q_positions=torch.arange(S, device=x.device),
         k_positions=torch.arange(Sk, device=x.device),
         chunk=min(512, Sk), **attn)
-    y = out.reshape(B, S, Hr * hd) @ local("wo", 0, H * hd)
-    return layout.scatter_seq(y) + p["bo"]
+    y = layout.scatter_seq(out.reshape(B, S, Hr * hd)
+                           @ local("wo", 0, H * hd)) + p["bo"]
+    if not keep:
+        return y
+    if kv is not None:                    # the rank's heads of xk / xv
+        return y, (k, v)
+    (r0, r1), (j0, j1) = layout.cache_rows, layout.cache_heads
+    if h0 <= j0 and j1 <= h1:             # the window's heads are at hand
+        return y, _cache_window(layout, k, v, h0)
+    lo = min(r0, length)
+    rows = xg[:, lo:min(r1, length)]
+    cols = (j0 * hd, j1 * hd)
+    kw = (rows @ layout.cut(p["wk"], 1, H * hd, cols)).unflatten(-1, (-1, hd))
+    vw = (rows @ layout.cut(p["wv"], 1, H * hd, cols)).unflatten(-1, (-1, hd)) \
+        + layout.cut(p["bv"], 0, H, (j0, j1))
+    return y, _cache_window(layout, kw, vw, j0, first_row=lo)
 
 
 def _mlp(x, p, layout=None, d_ff: int = 0):
@@ -282,13 +315,16 @@ class EncDecLM(nn.Module):
 
     # ------------------------------------------------------------- encode
 
-    def _encode(self, frames: torch.Tensor, layers, final_ln) -> torch.Tensor:
+    def _encode(self, frames: torch.Tensor, layers, final_ln,
+                layout=None) -> torch.Tensor:
         """The encoder over per-layer parameter dicts ``layers`` and the
-        final LayerNorm's ``{"scale", "bias"}``.  On a training mesh that
-        splits the work over ``model``, the output is this rank's chunk of
-        the frames (padded at their end to a multiple of the axis)."""
+        final LayerNorm's ``{"scale", "bias"}``.  On a mesh that splits the
+        work over ``model`` (a training step's, or ``layout``: a serving
+        prefill's), the output is this rank's chunk of the frames (padded
+        at their end to a multiple of the axis)."""
         cfg = self.cfg
-        layout = split_layout()
+        if layout is None:
+            layout = split_layout()
         T = frames.shape[1]
         pos = torch.from_numpy(sinusoids(T, cfg.d_model)).to(frames.device)
         h = (frames + pos).to(self.dtype)
@@ -462,9 +498,16 @@ class EncDecLM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
                 frames: Optional[torch.Tensor] = None,
-                patch_embeds: Optional[torch.Tensor] = None):
+                patch_embeds: Optional[torch.Tensor] = None,
+                params: Optional[Dict[str, Any]] = None):
         """Encode ``frames`` and run the prompt: (decode_state, logits at
-        the last position)."""
+        the last position).  Under a serving mesh's ``ServeLayout``,
+        :meth:`_mesh_prefill` on ``params`` (this rank's shards)."""
+        layout = serve_layout()
+        if layout is not None:
+            return self._mesh_prefill(
+                params, tokens, self._frames(frames, patch_embeds, "prefill"),
+                layout)
         enc_out = self.encode(self._frames(frames, patch_embeds, "prefill"))
         B, S = tokens.shape
         max_seq = max_seq or S
@@ -485,11 +528,16 @@ class EncDecLM(nn.Module):
         return state, self._final(h[:, -1])
 
     @torch.no_grad()
-    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor):
+    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor, *,
+                    params: Optional[Dict[str, Any]] = None):
         """One token per slot: (state, (B, V) logits).  Lane b writes its
         self-attention K/V at ``pos[b]`` (in place) and attends rows
         ``<= pos[b]``, then the fixed cross K/V; every lane takes slot 0's
-        learned position, as in the reference."""
+        learned position, as in the reference.  Under a serving mesh's
+        ``ServeLayout``, :meth:`_mesh_decode` on ``params``."""
+        layout = serve_layout()
+        if layout is not None:
+            return self._mesh_decode(params, state, tokens, layout)
         cfg = self.cfg
         B = tokens.shape[0]
         H, hd = cfg.num_heads, cfg.hd
@@ -518,3 +566,178 @@ class EncDecLM(nn.Module):
         new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
                      "xk": state["xk"], "xv": state["xv"], "pos": pos + 1}
         return new_state, self._final(h)
+
+    # ----------------------------------------------- serving on a mesh
+    #
+    # The reference's serving cell on a production mesh: the weights rest
+    # in their shards and each layer's are gathered where it reads them
+    # (``parallel.sharding.ServeLayout``), the prefill runs as a training
+    # step's forward does, and each rank keeps its window of the
+    # self-attention cache (rows or heads) and its heads of the cross K/V.
+
+    def _mesh_prefill(self, params, tokens: torch.Tensor,
+                      frames: torch.Tensor, layout):
+        """Frames and prompt on a serving mesh: ``tokens`` (B, S) and
+        ``frames`` (B, T, D) are this rank's rows, whole.  The encoder is
+        sequence-parallel over its T frames (padded to a multiple of
+        ``model``) and its output gathered whole; the decoder over the
+        tokens, its self-attention and cross-attention through
+        :func:`_split_mha` (keeping the rank's cache window and its heads
+        of the cross K/V), its MLP split by ``d_ff``.  Returns (this rank's
+        shards of the decode state, the last logits (B, V), from the rank
+        whose chunk holds token S - 1)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        D, T = cfg.d_model, frames.shape[1]
+        enc = self._encode(
+            frames, unstack_layers(params["enc_layers"], cfg.encoder_layers),
+            params["enc_final_ln"], layout)
+        enc_out = layout.gather_seq(enc)[:, :T]
+        padded = layout.chunk * layout.model_size
+        tokens = F.pad(tokens, (0, padded - S))
+        # the chunk's rows of the positions (zeros past the table, on
+        # padding)
+        start = layout.seq_start
+        pos = mesh_columns(params["pos_embed"][:padded], layout, D)
+        pos = torch.cat([pos, pos.new_zeros((padded - pos.shape[0], D))])
+        pos = pos[start:start + layout.chunk]
+        h = mesh_embedding(params["embed"], tokens, layout, cfg) + pos
+        ks, vs, xks, xvs = [], [], [], []
+        for p in unstack_layers(params["dec_layers"], cfg.num_layers):
+            a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
+            y, (k, v) = _split_mha(a, p["self_attn"], cfg, layout,
+                                   causal=True, length=S, keep=True)
+            h = h + y
+            x = layer_norm(h, p["ln_x"]["scale"], p["ln_x"]["bias"])
+            y, (xk, xv) = _split_mha(x, p["cross_attn"], cfg, layout,
+                                     causal=False, length=S, kv=enc_out,
+                                     keep=True)
+            h = h + y
+            m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
+            h = h + _mlp(m, p["mlp"], layout, cfg.d_ff)
+            ks.append(k)
+            vs.append(v)
+            xks.append(xk)
+            xvs.append(xv)
+        h = layer_norm(layout.row(h, S - 1), params["dec_final_ln"]["scale"],
+                       params["dec_final_ln"]["bias"])
+        state = {
+            "cache_k": torch.stack(ks), "cache_v": torch.stack(vs),
+            "xk": torch.stack(xks), "xv": torch.stack(xvs),
+            "pos": torch.full((B,), S, dtype=torch.int32,
+                              device=tokens.device),
+        }
+        return state, mesh_scores(h, params["embed"], layout,
+                                  cfg.vocab_size)
+
+    def _mesh_decode(self, params, state, tokens: torch.Tensor, layout):
+        """A decode step on a serving mesh: the lanes (this rank's rows,
+        whole on every ``model`` rank), the state this rank's shards, the
+        cache written in place.  Self-attention over the cache's window
+        (:func:`_decode_self_attn`, the softmax over ``model`` where the
+        rows are split), cross-attention on the rank's heads of the cross
+        K/V (:func:`_decode_cross_attn`), the MLP split by ``d_ff``; every
+        lane takes slot 0's learned position, as the reference does."""
+        cfg = self.cfg
+        pos = state["pos"]
+        h = mesh_embedding(params["embed"], tokens, layout, cfg) \
+            + mesh_columns(params["pos_embed"][pos[:1].long()], layout,
+                           cfg.d_model)
+        for l, p in enumerate(unstack_layers(params["dec_layers"],
+                                             cfg.num_layers)):
+            a = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
+            h = h + _decode_self_attn(a, p["self_attn"], cfg,
+                                      state["cache_k"][l],
+                                      state["cache_v"][l], pos, layout)
+            x = layer_norm(h, p["ln_x"]["scale"], p["ln_x"]["bias"])
+            h = h + _decode_cross_attn(x, p["cross_attn"], cfg,
+                                       state["xk"][l], state["xv"][l],
+                                       layout)
+            m = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
+            h = h + _mlp(m, p["mlp"], layout, cfg.d_ff)
+        new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
+                     "xk": state["xk"], "xv": state["xv"], "pos": pos + 1}
+        h = layer_norm(h, params["dec_final_ln"]["scale"],
+                       params["dec_final_ln"]["bias"])
+        return new_state, mesh_scores(h, params["embed"], layout,
+                                      cfg.vocab_size)
+
+
+# --------------------------------------------------------------------------
+# a decode step's attention on a serving mesh
+# --------------------------------------------------------------------------
+
+
+def _heads_out(o: torch.Tensor, p, layout, heads, H: int, hd: int
+               ) -> torch.Tensor:
+    """The output projection of ``o`` (B, (j1 - j0)·hd), the heads
+    ``heads`` = (j0, j1), on a decoding ``ServeLayout``: the rank's rows of
+    ``wo`` for its heads where they are split, else its slice of the rows
+    for all heads, the partial products summed over ``model``; ``bo`` once."""
+    j0, j1 = heads
+    if j1 - j0 < H:
+        y = o @ layout.cut(p["wo"], 0, H * hd, (j0 * hd, j1 * hd))
+    else:
+        lo, hi = layout.part(H * hd)
+        y = o[:, lo:hi] @ layout.local(p["wo"], 0, H * hd)
+    return layout.sum_parts(y) + p["bo"]
+
+
+def _q_heads(x, p, layout, heads, H: int, hd: int) -> torch.Tensor:
+    """q (B, j1 - j0, hd) of the heads ``heads`` = (j0, j1): where they are
+    all of them and ``wq`` rests split over ``model`` (by columns, whole
+    heads or not), each rank's product with its columns, all-gathered;
+    else the product with their columns of ``wq``."""
+    j0, j1 = heads
+    if j1 - j0 == H:
+        q = layout.product(x, p["wq"], H * hd)
+    else:
+        q = x @ layout.cut(p["wq"], 1, H * hd, (j0 * hd, j1 * hd))
+    return q.unflatten(-1, (-1, hd)) + layout.cut(p["bq"], 0, H, heads)
+
+
+def _decode_self_attn(x, p, cfg, cache_k, cache_v, pos, layout):
+    """Whisper's decode self-attention on a serving mesh (``layout``: a
+    decoding ``ServeLayout``), the sibling of ``split_decode`` for MHA with
+    biases and no RoPE: ``x`` (B, D) the lanes, the cache this rank's
+    window (rows ``cache_rows``, heads ``cache_heads``), written in place.
+    The rank projects q for the window's heads (:func:`_q_heads`), k and v
+    for them, writes the K/V rows of its window, and attends over its rows in
+    fp32, as the reference: the softmax takes the rows' global max and sum
+    over ``model`` where they are split (``softmax_over``), and the partial
+    P·V is summed over ``model``.  Returns the output projection summed
+    over ``model`` (:func:`_heads_out`), (B, D)."""
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.hd
+    (r0, _), heads = layout.cache_rows, layout.cache_heads
+    j0, j1 = heads
+    cols = (j0 * hd, j1 * hd)
+    q = _q_heads(x, p, layout, heads, H, hd)
+    k = (x @ layout.cut(p["wk"], 1, H * hd, cols)).unflatten(-1, (-1, hd))
+    v = (x @ layout.cut(p["wv"], 1, H * hd, cols)).unflatten(-1, (-1, hd)) \
+        + layout.cut(p["bv"], 0, H, heads)
+    update_cache(cache_k, cache_v, k, v, pos, start=r0,
+                 max_seq=layout.max_seq)
+    s = torch.einsum("bhd,bshd->bhs", q.float() / math.sqrt(hd),
+                     cache_k.float())
+    idx = torch.arange(r0, r0 + cache_k.shape[1], device=x.device)
+    s = torch.where((idx[None, :] <= pos.long()[:, None])[:, None], s,
+                    NEG_INF)
+    split = layout.rows_split
+    w = softmax_over(s, layout.mesh, "model") if split else \
+        torch.softmax(s, dim=-1)
+    o = torch.einsum("bhs,bshd->bhd", w, cache_v.float())
+    if split:
+        o = layout.mesh.all_reduce(o, ["model"])
+    return _heads_out(o.reshape(B, -1).to(x.dtype), p, layout, heads, H, hd)
+
+
+def _decode_cross_attn(x, p, cfg, xk, xv, layout):
+    """Whisper's decode cross-attention on a serving mesh over the rank's
+    heads of the fixed cross K/V (all of them where the heads do not
+    divide ``model``): the output projection summed over ``model``."""
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.hd
+    heads = layout.window("xk", 3)
+    o = _attend(_q_heads(x, p, layout, heads, H, hd), xk, xv)
+    return _heads_out(o.reshape(B, -1).to(x.dtype), p, layout, heads, H, hd)

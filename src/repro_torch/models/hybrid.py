@@ -17,7 +17,15 @@ the reference, no TPU kernel).  A decode step runs the dense-cache
 attention and :func:`ssm_step`.  The engine serves this model in its
 dense mode (``init_decode_state`` / ``prefill`` / ``decode_step``); the
 state holds the K/V cache and each layer's fp32 SSM state.  Weights live
-on the module; the serving functions take no ``params`` argument.
+on the module; on one device the serving functions take no ``params``
+argument.  On a serving mesh (``launch.steps.make_prefill_fn`` /
+``make_decode_fn`` with ``shardings=``, which bind a
+``parallel.sharding.ServeLayout``) they take ``params=``, this rank's
+shards, and the state is this rank's shards of it (``_mesh_prefill``,
+``_mesh_decode``): attention as ``TransformerLM``'s (K2 on the rank's q
+heads or, where they do not divide the axis, on its query rows at their
+offset), the SSM by ``d_inner``, each rank keeping its window of the
+cache and its columns of the SSM state.
 
 ``loss(params, batch)`` trains through the reference's training route:
 attention through :func:`~repro_torch.models.attention.blockwise_attn`
@@ -54,6 +62,7 @@ from .attention import (
     decode_attn,
     qkv,
     split_attention,
+    split_decode,
     update_cache,
 )
 from .common import (
@@ -61,9 +70,12 @@ from .common import (
     cross_entropy,
     frozen,
     gated_mlp,
+    mesh_embedding,
+    mesh_scores,
     remat_call,
     resolve_device,
     rms_norm,
+    serve_layout,
     split_layout,
     split_mlp,
     take_embedding,
@@ -238,7 +250,7 @@ class HybridLM(nn.Module):
         y = y * F.silu(z)
         return y @ p["w_out"], h
 
-    def _split_ssm_branch(self, x, p, layout):
+    def _split_ssm_branch(self, x, p, layout, length: Optional[int] = None):
         """:meth:`_ssm_branch` on a mesh that splits ``d_inner`` over
         ``model``: ``x`` is this rank's chunk (B, c, D) of the sequence, and
         so is the output.  The rank takes its columns ``[lo, hi)`` of both
@@ -246,9 +258,13 @@ class HybridLM(nn.Module):
         outputs is not the halves': the leaf is gathered whole), gathers
         ``xc`` whole for ``w_dt``'s input, sums the ranks' ``xc @ w_B`` and
         ``xc @ w_C``, scans its columns and reduce-scatters its part of
-        ``y @ w_out``."""
+        ``y @ w_out``.  ``length``: the scan runs over the first ``length``
+        tokens alone (a prompt, not its padding).  Returns (the output, the
+        final state of the rank's columns, all ``d_inner`` where ``model``
+        does not divide it)."""
         di, N = self.di, self.N
         xg = layout.gather_seq(x)
+        T = xg.shape[1] if length is None else length
         w_in = layout.whole(p["w_in"], 1, 2 * di)
         if di % layout.model_size:
             # the reference's constraint cannot split d_inner (fit_spec
@@ -258,8 +274,9 @@ class HybridLM(nn.Module):
                                    "D_skip", "w_out")}
             h0 = torch.zeros((x.shape[0], di, N), dtype=torch.float32,
                              device=x.device)
-            y, _ = self._ssm_branch(xg, {"w_in": w_in, **w}, h0)
-            return y.narrow(1, layout.seq_start, layout.chunk)
+            y, h = self._ssm_branch(xg[:, :T], {"w_in": w_in, **w}, h0)
+            y = F.pad(y, (0, 0, 0, xg.shape[1] - T))
+            return y.narrow(1, layout.seq_start, layout.chunk), h
         lo, hi = layout.part(di)
         local = lambda k, d: layout.local(p[k], d, di)
         xc = xg @ w_in[:, lo:hi]
@@ -271,10 +288,11 @@ class HybridLM(nn.Module):
         A = -torch.exp(local("A_log", 0))
         h0 = torch.zeros((x.shape[0], hi - lo, N), dtype=torch.float32,
                          device=x.device)
-        _, y = ssm_scan(xc, dt, Bp, Cp, A, h0)
+        h, y = ssm_scan(xc[:, :T], dt[:, :T], Bp[:, :T], Cp[:, :T], A, h0)
+        y = F.pad(y, (0, 0, 0, xg.shape[1] - T))
         y = y + local("D_skip", 0).to(y.dtype) * xc
         y = y * F.silu(z)
-        return layout.scatter_seq(y @ local("w_out", 0))
+        return layout.scatter_seq(y @ local("w_out", 0)), h
 
     def _fuse(self, h, attn_y, ssm_y, p, layout=None):
         """The residual add of both branches, then the gated MLP
@@ -334,7 +352,7 @@ class HybridLM(nn.Module):
             attn_y = split_attention(
                 a, p["attn"], cfg, window=int(self.windows[l]),
                 rope_base=cfg.rope_base, layout=layout)
-            ssm_y = self._split_ssm_branch(a, p["ssm"], layout)
+            ssm_y, _ = self._split_ssm_branch(a, p["ssm"], layout)
             return self._fuse(h, attn_y, ssm_y, p, layout)
         attn_y = attention_block(
             a, p["attn"], cfg, window=int(self.windows[l]),
@@ -390,8 +408,14 @@ class HybridLM(nn.Module):
         }
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None):
-        """Run the prompt, return (decode_state, logits at last position)."""
+    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
+                params: Optional[Dict[str, Any]] = None):
+        """Run the prompt, return (decode_state, logits at last position).
+        Under a serving mesh's ``ServeLayout``, :meth:`_mesh_prefill` on
+        ``params`` (this rank's shards)."""
+        layout = serve_layout()
+        if layout is not None:
+            return self._mesh_prefill(params, tokens, layout)
         B, S = tokens.shape
         max_seq = max_seq or S
         positions = torch.arange(S, device=tokens.device)
@@ -413,12 +437,18 @@ class HybridLM(nn.Module):
         return state, self._final(h[:, -1])
 
     @torch.no_grad()
-    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor):
+    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor, *,
+                    params: Optional[Dict[str, Any]] = None):
         """One token per slot: (state, (B, V) logits).  Lane b writes its
         K/V at ``pos[b]`` and attends rows ``<= pos[b]`` within its layer's
         window; the cache and the SSM states are written in place and
         returned; ``pos`` advances by one on every lane.  The SSM skip adds
-        in fp32 before the cast, as the reference's decode does."""
+        in fp32 before the cast, as the reference's decode does.  Under a
+        serving mesh's ``ServeLayout``, :meth:`_mesh_decode` on
+        ``params``."""
+        layout = serve_layout()
+        if layout is not None:
+            return self._mesh_decode(params, state, tokens, layout)
         cfg = self.cfg
         pos = state["pos"]
         h = take_embedding(self.embed, tokens)
@@ -443,3 +473,93 @@ class HybridLM(nn.Module):
         new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
                      "ssm_h": state["ssm_h"], "pos": pos + 1}
         return new_state, self._final(h)
+
+    # ----------------------------------------------- serving on a mesh
+    #
+    # The reference's serving cell on a production mesh: the weights rest
+    # in their shards and each layer's are gathered where it reads them
+    # (``parallel.sharding.ServeLayout``), the prefill runs as a training
+    # step's forward does, and each rank keeps its window of the cache
+    # (rows or kv heads) and its ``d_inner`` columns of the SSM state.
+
+    def _mesh_prefill(self, params, tokens: torch.Tensor, layout):
+        """The prompt on a serving mesh: ``tokens`` (B, S) are this rank's
+        rows, whole; the residual stream is its chunk of them (padded at
+        the end to a multiple of ``model``).  Attention through
+        ``split_attention`` (K2 on the rank's q heads, or on its query rows
+        at their offset), keeping the K/V of the rank's cache window; the
+        SSM branch split by ``d_inner``, its scan over the S tokens alone,
+        keeping the final state of the rank's columns; the MLP split by
+        ``d_ff``.  Returns (this rank's shards of the decode state, the
+        last logits (B, V), from the rank whose chunk holds token
+        S - 1)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        tokens = F.pad(tokens, (0, layout.chunk * layout.model_size - S))
+        h = mesh_embedding(params["embed"], tokens, layout, cfg)
+        ks, vs, hs = [], [], []
+        for l, p in enumerate(unstack_layers(params["layers"],
+                                             cfg.num_layers)):
+            a = rms_norm(h, p["ln1"], cfg.norm_eps)
+            attn_y, (k, v) = split_attention(
+                a, p["attn"], cfg, window=int(self.windows[l]),
+                rope_base=cfg.rope_base, layout=layout, impl=self.impl)
+            ssm_y, state = self._split_ssm_branch(a, p["ssm"], layout,
+                                                  length=S)
+            h = self._fuse(h, attn_y, ssm_y, p, layout)
+            ks.append(k)
+            vs.append(v)
+            hs.append(state)
+        h = rms_norm(layout.row(h, S - 1), params["final_norm"],
+                     cfg.norm_eps)
+        state = {
+            "cache_k": torch.stack(ks), "cache_v": torch.stack(vs),
+            "ssm_h": torch.stack(hs),
+            "pos": torch.full((B,), S, dtype=torch.int32,
+                              device=tokens.device),
+        }
+        return state, mesh_scores(h, params["embed"], layout,
+                                  cfg.vocab_size)
+
+    def _mesh_decode(self, params, state, tokens: torch.Tensor, layout):
+        """A decode step on a serving mesh: the lanes (this rank's rows,
+        whole on every ``model`` rank), the state this rank's shards,
+        written in place.  Attention through ``split_decode`` on the
+        cache's window; the SSM step on the rank's ``d_inner`` columns
+        ``[c0, c1)`` (``a @ w_in`` gathered from the ranks' columns of
+        ``w_in``, ``xc`` gathered for ``w_dt``'s input, ``xc @ w_B``,
+        ``xc @ w_C`` and ``y @ w_out`` summed over ``model``); the MLP
+        split by ``d_ff``."""
+        cfg = self.cfg
+        di = self.di
+        pos = state["pos"]
+        cols = layout.window("ssm_h", 2)
+        c0, c1 = cols
+        split = c1 - c0 < di
+        part = lambda y: layout.sum_parts(y) if split else y
+        h = mesh_embedding(params["embed"], tokens, layout, cfg)
+        for l, p in enumerate(unstack_layers(params["layers"],
+                                             cfg.num_layers)):
+            a = rms_norm(h, p["ln1"], cfg.norm_eps)
+            attn_y = split_decode(
+                a, p["attn"], cfg, state["cache_k"][l], state["cache_v"][l],
+                pos, window=int(self.windows[l]), rope_base=cfg.rope_base,
+                layout=layout)
+            ps = p["ssm"]
+            cut = lambda k, d: layout.cut(ps[k], d, di, cols)
+            xz = layout.product(a, ps["w_in"], 2 * di)
+            xc, z = xz[:, c0:c1], xz[:, di + c0:di + c1]
+            xc_all = layout.mesh.all_gather(xc, "model", 1) if split else xc
+            dt = F.softplus(xc_all @ cut("w_dt", 1) + cut("dt_bias", 0))
+            A = -torch.exp(cut("A_log", 0))
+            hs, y = ssm_step(state["ssm_h"][l], xc.float(), dt.float(),
+                             part(xc @ cut("w_B", 0)).float(),
+                             part(xc @ cut("w_C", 0)).float(), A)
+            state["ssm_h"][l] = hs
+            y = (y + cut("D_skip", 0) * xc).to(h.dtype) * F.silu(z)
+            h = self._fuse(h, attn_y, part(y @ cut("w_out", 0)), p, layout)
+        new_state = {"cache_k": state["cache_k"], "cache_v": state["cache_v"],
+                     "ssm_h": state["ssm_h"], "pos": pos + 1}
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return new_state, mesh_scores(h, params["embed"], layout,
+                                      cfg.vocab_size)

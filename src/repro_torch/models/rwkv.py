@@ -14,7 +14,14 @@ a decode step runs :func:`wkv6_step` in plain PyTorch, as the reference
 runs it outside any Pallas kernel.  Serving state is O(1) per sequence and
 there is no KV cache, so the engine serves this model in its dense mode
 (``init_decode_state`` / ``prefill`` / ``decode_step``).  Weights live on
-the module; the serving functions take no ``params`` argument.
+the module; on one device the serving functions take no ``params``
+argument.  On a serving mesh (``launch.steps.make_prefill_fn`` /
+``make_decode_fn`` with ``shardings=``, which bind a
+``parallel.sharding.ServeLayout``) they take ``params=``, this rank's
+shards, and the state is this rank's shards of it (``_mesh_prefill``,
+``_mesh_decode``): the prefill runs as the training layout below, the
+recurrence through K3 on the rank's rows of the prompt's tokens, and each
+rank keeps its value columns of the ``wkv`` state.
 
 ``loss(params, batch)`` trains through the reference's training route:
 the recurrence in :func:`wkv6_scan` (the XLA scan's counterpart,
@@ -46,9 +53,12 @@ from .common import (
     ArchConfig,
     cross_entropy,
     frozen,
+    mesh_embedding,
+    mesh_scores,
     remat_call,
     resolve_device,
     rms_norm,
+    serve_layout,
     split_layout,
     take_embedding,
     torch_dtype,
@@ -279,13 +289,24 @@ class RwkvLM(nn.Module):
     def _split_layer(self, h, p, layout):
         """One layer on a mesh that splits its work over ``model``: ``h`` is
         this rank's chunk of the (padded) sequence of its rows, and so is
-        the output.  The time mix runs on the rank's rows of the whole
-        sequence (the token shift and the recurrence need it whole) with
-        its weights whole; the channel mix on the gathered sequence with
-        the rank's slice of ``d_ff``, its gate on the chunk alone."""
+        the output (:meth:`_split_time_mix`, :meth:`_split_channel_mix`)."""
+        h, _ = self._split_time_mix(h, p, layout, impl="xla")
+        h, _ = self._split_channel_mix(h, p, layout)
+        return h
+
+    def _split_time_mix(self, h, p, layout, *, impl: str,
+                        length: Optional[int] = None):
+        """``h`` plus the time mix, on a mesh that splits the work over
+        ``model``: it runs on the rank's rows of the whole sequence (the
+        token shift and the recurrence need it whole) with its weights
+        whole, and comes back to the chunk.  ``length``: the recurrence
+        runs over the first ``length`` tokens alone (a prompt, not its
+        padding), so its final state is the prompt's.  Returns (h, the
+        final state of the rank's rows)."""
         cfg = self.cfg
-        D, F_, H = cfg.d_model, cfg.d_ff, self.H
+        D, H = cfg.d_model, self.H
         rows = layout.seq_to_rows(h)
+        T = rows.shape[1] if length is None else length
         tm = {k: p[k] for k in ("ln1", "mu_x", "mu_rkvwg", "tm_w1", "tm_w2",
                                 "w0", "dw1", "dw2", "lnx_scale", "lnx_bias")}
         for k in ("wr", "wk", "wv", "wg"):
@@ -294,9 +315,18 @@ class RwkvLM(nn.Module):
         tm["u"] = layout.whole(p["u"], 0, H)
         state0 = torch.zeros((rows.shape[0], H, self.hd, self.hd),
                              dtype=torch.float32, device=h.device)
-        a = rms_norm(rows, tm["ln1"], cfg.norm_eps)
-        a, _, _ = self._time_mix(a, tm, state0, None, impl="xla")
-        h = h + layout.rows_to_seq(a, h.shape[0])
+        a = rms_norm(rows[:, :T], tm["ln1"], cfg.norm_eps)
+        a, state, _ = self._time_mix(a, tm, state0, None, impl=impl)
+        if T < rows.shape[1]:
+            a = F.pad(a, (0, 0, 0, rows.shape[1] - T))
+        return h + layout.rows_to_seq(a, h.shape[0]), state
+
+    def _split_channel_mix(self, h, p, layout):
+        """``h`` plus the channel mix on the gathered sequence with the
+        rank's slice of ``d_ff``, its gate on the chunk alone.  Returns
+        (h, the normed input ``m`` of the chunk)."""
+        cfg = self.cfg
+        D, F_ = cfg.d_model, cfg.d_ff
         m = rms_norm(h, p["ln2"], cfg.norm_eps)
         whole = layout.gather_seq(m)
         xx = _token_shift(whole) - whole
@@ -304,7 +334,7 @@ class RwkvLM(nn.Module):
         xr = m + xx.narrow(1, layout.seq_start, layout.chunk) * p["cmu_r"]
         k = torch.square(torch.relu(xk @ layout.local(p["wck"], 1, F_)))
         kv = layout.scatter_seq(k @ layout.local(p["wcv"], 0, F_))
-        return h + torch.sigmoid(xr @ layout.whole(p["wcr"], 1, D)) * kv
+        return h + torch.sigmoid(xr @ layout.whole(p["wcr"], 1, D)) * kv, m
 
     def train_forward(self, params: Dict[str, Any], tokens: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -351,8 +381,14 @@ class RwkvLM(nn.Module):
         }
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None):
-        """Run the prompt, return (decode_state, logits at last position)."""
+    def prefill(self, tokens: torch.Tensor, *, max_seq: Optional[int] = None,
+                params: Optional[Dict[str, Any]] = None):
+        """Run the prompt, return (decode_state, logits at last position).
+        Under a serving mesh's ``ServeLayout``, :meth:`_mesh_prefill` on
+        ``params`` (this rank's shards)."""
+        layout = serve_layout()
+        if layout is not None:
+            return self._mesh_prefill(params, tokens, layout)
         B, T = tokens.shape
         wkv, tm_prev, cm_prev = [], [], []
         h = take_embedding(self.embed, tokens)
@@ -369,8 +405,14 @@ class RwkvLM(nn.Module):
         return state, logits
 
     @torch.no_grad()
-    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor):
-        """One token per slot: (new decode state, (B, V) logits)."""
+    def decode_step(self, state: Dict[str, Any], tokens: torch.Tensor, *,
+                    params: Optional[Dict[str, Any]] = None):
+        """One token per slot: (new decode state, (B, V) logits).  Under a
+        serving mesh's ``ServeLayout``, :meth:`_mesh_decode` on
+        ``params``."""
+        layout = serve_layout()
+        if layout is not None:
+            return self._mesh_decode(params, state, tokens, layout)
         cfg = self.cfg
         B = tokens.shape[0]
         D, H, hd = cfg.d_model, self.H, self.hd
@@ -412,3 +454,120 @@ class RwkvLM(nn.Module):
             "cm_prev": torch.stack(cm_prev), "pos": state["pos"] + 1,
         }
         return new_state, self._final(h)
+
+    # ----------------------------------------------- serving on a mesh
+    #
+    # The reference's serving cell on a production mesh: the weights rest
+    # in their shards and each layer's are gathered where it reads them
+    # (``parallel.sharding.ServeLayout``), the prefill runs as a training
+    # step's forward does, and each rank keeps the value columns ``hd_v``
+    # of the ``wkv`` state that ``decode_state_shardings`` gives it.
+
+    def _wkv_window(self, state: torch.Tensor, B: int, layout):
+        """The prompt's final ``wkv`` state of the rank's rows (B / model
+        of its B lanes, or all B where ``model`` does not divide them) →
+        the rank's window of every lane's, (B, H, hd, hd_v window): the
+        columns sent to their owners (an all-to-all), or the rows gathered
+        where the columns do not split."""
+        j0, j1 = layout.window("wkv", 4)
+        if not layout.rows_divide(B):
+            return state[..., j0:j1]
+        if j1 - j0 < self.hd:
+            return layout.mesh.all_to_all(state, "model", 3, 0)
+        return layout.mesh.all_gather(state, "model", 0)
+
+    def _mesh_prefill(self, params, tokens: torch.Tensor, layout):
+        """The prompt on a serving mesh, as the reference's prefill lays it
+        out: ``tokens`` (B, S) are this rank's rows, whole; the residual
+        stream is its chunk of them (padded at the end to a multiple of
+        ``model``); each layer's time mix runs K3 (``impl``) on the rank's
+        rows of the first S tokens and its channel mix splits ``d_ff``
+        (:meth:`_split_time_mix`, :meth:`_split_channel_mix`).  The state:
+        each rank's ``wkv`` window of every lane, and ``tm_prev`` /
+        ``cm_prev``, the normed inputs of token S - 1, from the rank whose
+        chunk holds it.  Returns (this rank's shards of the decode state,
+        the last logits (B, V))."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        tokens = F.pad(tokens, (0, layout.chunk * layout.model_size - S))
+        h = mesh_embedding(params["embed"], tokens, layout, cfg)
+        wkv, tm_prev, cm_prev = [], [], []
+        for p in unstack_layers(params["layers"], cfg.num_layers):
+            tm_prev.append(rms_norm(layout.row(h, S - 1), p["ln1"],
+                                    cfg.norm_eps))
+            h, state = self._split_time_mix(h, p, layout, impl=self.impl,
+                                            length=S)
+            wkv.append(self._wkv_window(state, B, layout))
+            h, m = self._split_channel_mix(h, p, layout)
+            cm_prev.append(layout.row(m, S - 1))
+        h = rms_norm(layout.row(h, S - 1), params["final_norm"],
+                     cfg.norm_eps)
+        state = {
+            "wkv": torch.stack(wkv), "tm_prev": torch.stack(tm_prev),
+            "cm_prev": torch.stack(cm_prev),
+            "pos": torch.full((B,), S, dtype=torch.int32,
+                              device=tokens.device),
+        }
+        return state, mesh_scores(h, params["embed"], layout,
+                                  cfg.vocab_size)
+
+    def _mesh_decode(self, params, state, tokens: torch.Tensor, layout):
+        """A decode step on a serving mesh: the lanes (this rank's rows,
+        whole on every ``model`` rank), the state this rank's shards.  The
+        rank updates only its value columns ``[j0, j1)`` of each head's
+        state (output column j reads state column j alone; r, k, w and u
+        are whole).  r, k, v and the channel mix's receptance are each
+        rank's product with its stored columns of the weight, all-gathered
+        (``ServeLayout.product``: the lanes' rows, not the leaf), and the
+        rank keeps v's columns ``[j0, j1)`` of each head (strided across
+        heads, so not its stored shard); y is all-gathered over them before
+        the per-head group norm; the gate and ``wo`` split ``D`` over
+        ``model`` (a sum of partial products), and the channel mix
+        ``d_ff``."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        D, F_, H, hd = cfg.d_model, cfg.d_ff, self.H, self.hd
+        j0, j1 = layout.window("wkv", 4)
+        lo, hi = layout.part(D)
+        h = mesh_embedding(params["embed"], tokens, layout, cfg)
+        wkv, tm_prev, cm_prev = [], [], []
+        for l, p in enumerate(unstack_layers(params["layers"],
+                                             cfg.num_layers)):
+            a = rms_norm(h, p["ln1"], cfg.norm_eps)
+            xx = state["tm_prev"][l].to(a.dtype) - a
+            base = a + xx * p["mu_x"]
+            lora = torch.tanh(base @ p["tm_w1"]).reshape(B, 5, TM_LORA)
+            delta = torch.einsum("bfl,fld->bfd", lora, p["tm_w2"])
+            mixed = a[:, None] + xx[:, None] * (p["mu_rkvwg"] + delta)
+            xr, xk, xv, xw, xg = [mixed[:, i] for i in range(5)]
+            r = layout.product(xr, p["wr"], D).reshape(B, H, hd).float()
+            k = layout.product(xk, p["wk"], D).reshape(B, H, hd).float()
+            v = layout.product(xv, p["wv"], D).reshape(B, H, hd)[..., j0:j1]
+            dec = p["w0"] + torch.tanh(xw @ p["dw1"]) @ p["dw2"]
+            w = torch.exp(-torch.exp(dec.float())).reshape(B, H, hd)
+            s, y = wkv6_step(state["wkv"][l], r, k, v.float(), w,
+                             layout.whole(p["u"], 0, H))
+            if j1 - j0 < hd:
+                y = layout.mesh.all_gather(y, "model", 2)
+            y = _group_norm(y.reshape(B, D).to(a.dtype), p["lnx_scale"],
+                            p["lnx_bias"], H)
+            g = F.silu(xg @ layout.local(p["wg"], 1, D))
+            h = h + layout.sum_parts((y[:, lo:hi] * g)
+                                     @ layout.local(p["wo"], 0, D))
+            m = rms_norm(h, p["ln2"], cfg.norm_eps)
+            xx2 = state["cm_prev"][l].to(m.dtype) - m
+            xk2 = m + xx2 * p["cmu_k"]
+            xr2 = m + xx2 * p["cmu_r"]
+            kk = torch.square(torch.relu(xk2 @ layout.local(p["wck"], 1, F_)))
+            h = h + torch.sigmoid(layout.product(xr2, p["wcr"], D)) * \
+                layout.sum_parts(kk @ layout.local(p["wcv"], 0, F_))
+            wkv.append(s)
+            tm_prev.append(a)
+            cm_prev.append(m)
+        new_state = {
+            "wkv": torch.stack(wkv), "tm_prev": torch.stack(tm_prev),
+            "cm_prev": torch.stack(cm_prev), "pos": state["pos"] + 1,
+        }
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return new_state, mesh_scores(h, params["embed"], layout,
+                                      cfg.vocab_size)

@@ -97,15 +97,17 @@ from .attention import (
 from .common import (
     ArchConfig,
     cross_entropy,
-    current_layout,
     frozen,
     gated_mlp,
     layer_rope_bases,
     layer_windows,
+    mesh_embedding,
+    mesh_scores,
     resolve_device,
     remat_call,
     rms_norm,
     scale_embedding,
+    serve_layout,
     softcap,
     split_layout,
     split_mlp,
@@ -123,11 +125,6 @@ __all__ = ["TransformerLM"]
 class TransformerLM(nn.Module):
     """Decoder-only LM (dense or MoE); parameters are allocated, not
     initialised — call :meth:`init` or ``load_state_dict``."""
-
-    #: a serving step on a mesh splits this family's work over ``model``
-    #: as a training step does (``parallel.sharding.ServeLayout``:
-    #: ``_mesh_prefill``, ``_mesh_decode``)
-    serve_parallel = True
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  impl: str = "kernel") -> None:
@@ -402,7 +399,7 @@ class TransformerLM(nn.Module):
         """Run the prompt, return (decode_state, logits at last position).
         Under a serving mesh's ``ServeLayout``, :meth:`_mesh_prefill` on
         ``params`` (this rank's shards)."""
-        layout = _serve_layout()
+        layout = serve_layout()
         if layout is not None:
             return self._mesh_prefill(params, tokens, patch_embeds, layout)
         B, S = tokens.shape
@@ -503,7 +500,7 @@ class TransformerLM(nn.Module):
         attends rows ``<= pos[b]`` within its layer's window; ``pos``
         advances by one on every lane.  Under a serving mesh's
         ``ServeLayout``, :meth:`_mesh_decode` on ``params``."""
-        layout = _serve_layout()
+        layout = serve_layout()
         if layout is not None:
             return self._mesh_decode(params, state, tokens, layout)
         cfg = self.cfg
@@ -533,38 +530,20 @@ class TransformerLM(nn.Module):
 
     def _mesh_embed(self, table: torch.Tensor, tokens: torch.Tensor,
                     layout, patch_embeds=None) -> torch.Tensor:
-        """Embeddings on a serving mesh: a prefill's padded (B, S) tokens
-        → this rank's chunk (B, c, D); a decode step's (B,) → (B, D).
-        Where the table is split over ``model`` (by vocabulary), each rank
-        looks the tokens up in its rows, zeros for the others', and the
-        parts are summed over ``model`` (``scatter_seq``): exact, one
-        term nonzero."""
-        cfg = self.cfg
-        V = cfg.vocab_size
+        """Embeddings on a serving mesh (``mesh_embedding``), scaled, with
+        the patch prefix where the model has one."""
         start = 0 if layout.decoding else layout.seq_start
-        if table.shape[0] == V:
-            if not layout.decoding:
-                tokens = tokens[:, start:start + layout.chunk]
-            h = take_embedding(table, tokens)
-        else:
-            n = table.shape[0]
-            local = tokens.long() - layout.part(V)[0]
-            mine = (local >= 0) & (local < n)
-            h = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0)
-            h = layout.scatter_seq(h)
-        return self._with_patches(scale_embedding(h, cfg), patch_embeds,
+        h = mesh_embedding(table, tokens, layout, self.cfg)
+        return self._with_patches(scale_embedding(h, self.cfg), patch_embeds,
                                   start)
 
     def _mesh_logits(self, params, h: torch.Tensor, layout) -> torch.Tensor:
-        """(B, D) → (B, V) on every rank: each rank scores its slice of a
-        table split over ``model``, and the slices are all-gathered."""
+        """(B, D) → (B, V) on every rank (``mesh_scores``)."""
         cfg = self.cfg
         h = rms_norm(h, params["final_norm"], cfg.norm_eps,
                      plus_one=cfg.post_norms)
         table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        logits = h @ table.T
-        if table.shape[0] != cfg.vocab_size:
-            logits = layout.mesh.all_gather(logits, "model", 1)
+        logits = mesh_scores(h, table, layout, cfg.vocab_size)
         if cfg.final_logit_softcap:
             logits = softcap(logits, cfg.final_logit_softcap)
         return logits
@@ -830,9 +809,3 @@ class TransformerLM(nn.Module):
         return type(self), {"cfg": dataclasses.replace(
             cfg, num_heads=cfg.num_heads // n,
             num_kv_heads=cfg.num_kv_heads // n, head_dim=cfg.hd)}
-
-
-def _serve_layout():
-    """The serving mesh's ``ServeLayout`` bound here, or None."""
-    layout = current_layout()
-    return layout if layout is not None and layout.serving else None

@@ -21,12 +21,12 @@ reference's does; its ``placements`` are the same layout as DTensor's
 
 Below the rules, the functions that move trees between layouts on a
 ``TrainMesh``: :func:`shard_tree` (this rank's slice of each whole leaf),
-:func:`gather_tree` (the whole leaves back, all-gathered),
+:func:`gather_leaf` (a whole leaf back, all-gathered),
 :func:`gather_leaf_to_host0` (one whole leaf on rank 0 alone, for a
 checkpoint), and :class:`TrainLayout` with :class:`Shards`: how a
 training step gathers each leaf where it is used and reduces its
 gradient as the backward leaves it; :class:`ServeLayout`, the same for a
-serving step, with the decode cache's window.  Slices are contiguous
+serving step, with the decode state's windows.  Slices are contiguous
 chunks, in the rank order of the axes, as JAX lays out a
 ``NamedSharding``.
 
@@ -72,7 +72,6 @@ __all__ = [
     "gather_leaf",
     "gather_shards",
     "gather_leaf_to_host0",
-    "gather_tree",
     "named",
     "opt_state_shardings",
     "param_shardings",
@@ -546,12 +545,6 @@ def gather_leaf_to_host0(t: torch.Tensor, s: NamedSharding
     return whole
 
 
-def gather_tree(tree, shardings):
-    """:func:`gather_leaf` of every leaf."""
-    return tree_unflatten_like(tree, [
-        gather_leaf(t, s) for t, s in zip(_leaves(tree), _leaves(shardings))])
-
-
 def batch_rows(batch: Mapping[str, torch.Tensor], mesh, *,
                seq_axis: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """This rank's rows of a global batch, split over the batch axes as
@@ -761,10 +754,16 @@ class TrainLayout:
         return all_to_all(y, self.mesh, "model", 1, 0)
 
 
+#: the embedding tables, which a serving step reads only through
+#: ``models.common``'s mesh helpers (``mesh_embedding``, ``mesh_scores``,
+#: ``mesh_columns``)
+TABLES = ("embed", "unembed", "pos_embed")
+
+
 class ServeLayout(TrainLayout):
-    """How a serving rank computes ``TransformerLM``'s prefill or decode
-    step with its shards, as the reference's serving cell lays it out
-    (``launch/dryrun.py``'s ``build_cell``, the model's ``constrain``
+    """How a serving rank computes a family's prefill or decode step with
+    its shards, as the reference's serving cell lays it out
+    (``launch/dryrun.py``'s ``build_cell``, the models' ``constrain``
     sites); ``models.common.mesh_context`` binds it.  No gradients.
 
     The weights rest as ``shardings`` gives them (``param_shardings``,
@@ -773,10 +772,13 @@ class ServeLayout(TrainLayout):
     rank holds one layer's gathered weights at a time): over the batch
     axes it is split on, and over ``model`` unless its ``model`` split is
     one the work is split by, the training rules' (a rank's q heads, its
-    slice of ``d_ff``, its experts, its slice of the vocabulary).  The
-    serving rules re-home a dense leaf's FSDP split onto ``model`` where
-    that axis is free (``wk``/``wv`` on ``D``, ``wq``/``wo`` where the
-    heads do not divide): such a leaf is gathered whole where it is read.
+    slice of ``d_ff`` or ``d_inner``, its experts, its slice of the
+    vocabulary).  An embedding table (``TABLES``) keeps its ``model``
+    split whichever dimension it is on: ``models.common``'s mesh helpers
+    look rows up and score on the split table.  The serving rules re-home a dense leaf's FSDP split onto
+    ``model`` where that axis is free (``wk``/``wv`` on ``D``, ``wq``/``wo``
+    where the heads do not divide): such a leaf is gathered whole where it
+    is read.
 
     Prefill (``decoding`` False): the residual stream is this rank's
     chunk of the sequence of ``seq_len`` tokens padded to a multiple of
@@ -784,38 +786,79 @@ class ServeLayout(TrainLayout):
     ``model`` rank holds the same lanes whole, :meth:`gather_seq` is the
     identity and :meth:`scatter_seq` the sum over ``model``.
 
-    The decode cache of ``max_seq`` rows is this rank's shard of
-    ``decode_state_shardings(layout=cache_layout)``: rows ``cache_rows``
-    and kv heads ``cache_heads`` (``[lo, hi)`` each).  ``seq`` splits the
-    rows over ``model`` and ``heads`` the kv heads, each only where the
-    axis divides them (``fit_spec``); else the cache is whole on every
+    The decode state is this rank's shard of
+    ``decode_state_shardings(layout=cache_layout)`` of ``state_shape``
+    (the family's ``init_decode_state`` on ``meta``): :meth:`window` gives
+    each leaf's ``[lo, hi)`` along a dimension, read off that spec, so the
+    layout and the state's sharding cannot disagree.  The cache's rows
+    (``seq``, ``cache_rows``) or kv heads (``heads``, ``cache_heads``),
+    whisper's cross K/V by heads, RWKV's ``wkv`` by ``hd_v`` and the
+    hybrid's ``ssm_h`` by ``d_inner``, each split over ``model`` only where
+    the axis divides it (``fit_spec``); else the leaf is whole on every
     rank, as the reference's is.
     """
 
     serving = True
 
-    def __init__(self, mesh, shardings, *, num_heads: int,
-                 num_kv_heads: int, max_seq: int, seq_len: int = 0,
-                 cache_layout: str = "seq", decoding: bool = False) -> None:
+    def __init__(self, mesh, shardings, *, state_shape: Mapping[str, Any],
+                 max_seq: int, seq_len: int = 0, cache_layout: str = "seq",
+                 decoding: bool = False, heads_divisible: bool = True
+                 ) -> None:
         if cache_layout not in ("seq", "heads"):
             raise ValueError(f"cache layout {cache_layout!r}: seq or heads")
         super().__init__(mesh, shardings, seq_len=seq_len)
         self.decoding = bool(decoding)
         self.max_seq = max_seq
         self.cache_layout = cache_layout
-        self.heads_divisible = num_heads % self.model_size == 0
+        self.heads_divisible = heads_divisible
+        specs = decode_state_shardings(state_shape, mesh, layout=cache_layout,
+                                       batch_divisible=False)
         M, r = self.model_size, self.rank
-
-        def window(full: int, split: bool) -> Tuple[int, int]:
-            if not split or M == 1:
-                return 0, full
-            return r * (full // M), (r + 1) * (full // M)
-
-        self.cache_rows = window(max_seq, cache_layout == "seq"
-                                 and max_seq % M == 0)
-        self.cache_heads = window(num_kv_heads, cache_layout == "heads"
-                                  and num_kv_heads % M == 0)
+        self._windows: Dict[str, Tuple[Tuple[int, int], ...]] = {}
+        for key, leaf in state_shape.items():
+            split = specs[key]._split(tuple(leaf.shape))
+            self._windows[key] = tuple(
+                (r * (n // M), (r + 1) * (n // M)) if "model" in names
+                else (0, n) for n, names in zip(leaf.shape, split))
         self._work_dims: Dict[str, frozenset] = {}
+
+    def window(self, key: str, dim: int) -> Tuple[int, int]:
+        """``[lo, hi)`` of this rank's shard of the decode-state leaf
+        ``key`` along ``dim``."""
+        return self._windows[key][dim]
+
+    @property
+    def cache_rows(self) -> Tuple[int, int]:
+        """This rank's rows of the attention cache (its ``window`` of
+        ``cache_k`` along the sequence)."""
+        return self.window("cache_k", 2)
+
+    @property
+    def cache_heads(self) -> Tuple[int, int]:
+        """This rank's kv heads of the attention cache."""
+        return self.window("cache_k", 3)
+
+    def cut(self, w: torch.Tensor, dim: int, full: int,
+            window: Tuple[int, int]) -> torch.Tensor:
+        """Entries ``window`` of ``w`` along ``dim`` (``full`` whole): the
+        stored ``model`` shard where that is the window, else a slice of
+        ``w`` whole (gathered where it is stored split)."""
+        lo, hi = window
+        if w.shape[dim] != full:
+            if (lo, hi) == self.part(full) and w.shape[dim] == hi - lo:
+                return w
+            w = self.whole(w, dim, full)
+        return w.narrow(dim, lo, hi - lo)
+
+    def product(self, x: torch.Tensor, w: torch.Tensor, full: int
+                ) -> torch.Tensor:
+        """``x @ w`` with all ``full`` columns: where ``w`` rests split over
+        ``model`` by its columns, each rank's product with its own,
+        all-gathered (``x``'s rows by ``full``, not ``w``)."""
+        y = x @ w
+        if w.shape[-1] == full:
+            return y
+        return self.mesh.all_gather(y, "model", y.dim() - 1)
 
     @property
     def rows_split(self) -> bool:
@@ -827,6 +870,8 @@ class ServeLayout(TrainLayout):
                          ) -> frozenset:
         """The dimensions of the leaf at ``path`` whose ``model`` split the
         work keeps: those the training rules split over ``model``."""
+        if path not in self._work_dims and path in TABLES:
+            self._work_dims[path] = frozenset(range(t.dim()))
         if path not in self._work_dims:
             mesh = self.mesh
             whole = tuple(n * math.prod(mesh.shape[a] for a in names)

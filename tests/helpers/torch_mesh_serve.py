@@ -1,9 +1,13 @@
 """Rank functions for the port's serving-mesh tests
-(tests/test_torch_mesh_serve.py), run by ``helpers.torch_dist.run_ranks``:
+(tests/test_torch_mesh_serve.py, tests/test_torch_mesh_serve_families.py),
+run by ``helpers.torch_dist.run_ranks``:
 torch only, never jax.  Each builds a ``(data, model)`` ``TrainMesh`` over
-the ranks' gloo group on the CPU, serves ``TransformerLM`` in the
+the ranks' gloo group on the CPU, serves a model of any family in the
 reference's serving layout and returns numpy arrays.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -20,6 +24,9 @@ from repro_torch.parallel.sharding import (
     shard_tree,
 )
 from repro_torch.tree import tree_flatten_with_path, tree_map
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+from chip_smoke import k2_offsets  # noqa: E402
 
 __all__ = ["lane_rows", "serve_case", "serve_ranks"]
 
@@ -43,9 +50,13 @@ def serve_case(mesh, cfg, weights, rules, layout, batch, max_seq, lane_pos,
     resting under ``rules`` (``train`` or ``serve``) and the cache laid out
     by ``layout``; set each lane's position of ``lane_pos`` ({lane: pos});
     then one decode step per row of ``tokens`` (steps, B).  Returns this
-    rank's lanes, logits, cache shards and the shard shapes the rules give,
-    its resident parameter elements against the rules' and the whole, and,
-    with ``flops``, the ``CostMode`` FLOPs of one more decode step."""
+    rank's lanes, logits, decode-state shards (every leaf but ``pos``,
+    after the prefill and after the steps; the cache's also as
+    ``prefill_cache`` / ``decode_cache``) and the shard shapes the layout
+    gives them, its resident parameter elements against the rules' and the
+    whole, and, with ``flops``, the ``CostMode`` FLOPs of one more decode
+    step, and the query offsets of the prefill's calls of K2's entry
+    point."""
     model = build_model(cfg, device="cpu")
     model.load_state_dict(params_from_numpy(cfg, weights))
     full = param_tree(model)
@@ -59,30 +70,36 @@ def serve_case(mesh, cfg, weights, rules, layout, batch, max_seq, lane_pos,
                               layout=layout)
     decode = make_decode_fn(model, shardings=sh, layout=layout,
                             max_seq=max_seq)
-    state, logits = prefill(params, {k: torch.from_numpy(v)
-                                     for k, v in batch.items()})
+    offsets = []
+    with k2_offsets(offsets):
+        state, logits = prefill(params, {k: torch.from_numpy(v)
+                                         for k, v in batch.items()})
     lo, hi = lane_rows(mesh, batch["tokens"].shape[0])
     for lane, p in lane_pos.items():
         if lo <= lane < hi:
             state["pos"][lane - lo] = p
+    keys = [k for k in state if k != "pos"]
     out = {"lanes": (lo, hi), "prefill_logits": logits.numpy().copy(),
-           "prefill_cache": [state[k].numpy().copy()
-                             for k in ("cache_k", "cache_v")]}
+           "k2_offsets": offsets,
+           "prefill_state": {k: state[k].numpy().copy() for k in keys}}
     steps = []
     for row in tokens:
         state, logits = decode(params, state,
                                torch.from_numpy(row[lo:hi].copy()))
         steps.append(logits.numpy().copy())
     out["decode_logits"] = steps
-    out["decode_cache"] = [state[k].numpy().copy()
-                           for k in ("cache_k", "cache_v")]
-    whole_state = {k: torch.empty((cfg.num_layers, hi - lo, max_seq,
-                                   cfg.num_kv_heads, cfg.hd), device="meta")
-                   for k in ("cache_k", "cache_v")}
+    out["decode_state"] = {k: state[k].numpy().copy() for k in keys}
+    whole_state = model.init_decode_state(hi - lo, max_seq, device="meta")
     ssh = decode_state_shardings(whole_state, mesh, layout=layout,
                                  batch_divisible=False)
-    out["cache_shape"] = ssh["cache_k"].shard_shape(
-        tuple(whole_state["cache_k"].shape))
+    out["state_shapes"] = {k: ssh[k].shard_shape(tuple(whole_state[k].shape))
+                           for k in keys}
+    out["whole_shapes"] = {k: tuple(whole_state[k].shape) for k in keys}
+    if "cache_k" in keys:
+        out["cache_shape"] = out["state_shapes"]["cache_k"]
+        for when in ("prefill", "decode"):
+            out[f"{when}_cache"] = [out[f"{when}_state"][k]
+                                    for k in ("cache_k", "cache_v")]
     flat = list(zip(tree_flatten_with_path(params),
                     tree_flatten_with_path(sh), tree_flatten_with_path(full)))
     out["resident"] = sum(t.numel() for (_, t), _, _ in flat)
