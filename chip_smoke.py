@@ -136,7 +136,17 @@ prints no result line):
    step's busy share and forward / backward / optimizer spans
    (``[train-profile]``); (c) a blocking checkpoint of its parameters,
    restored onto the card bitwise, the legacy loader's ``SegfaultError``
-   on the same image, save and restore GB/s (``[train-ckpt]``);
+   on the same image, save and restore GB/s (``[train-ckpt]``); (d) the
+   reference's remat policies (``build_model(cfg, remat=)``,
+   ``[train-remat]``): (b)'s model from its weights and first batch,
+   stepped once under ``"full"`` and 3 times under each of ``"dots"`` and
+   ``"none"``, the step-0 loss equal to ``"full"``'s and every leaf's
+   gradient within 1e-3 of it (relative L2), each policy's median step
+   time, tokens/s and peak memory; hymba-1.5b and rwkv6-3b at their
+   published widths, 1 of 32 layers, batch 1 of 2048 tokens, bf16: one
+   step of hymba under ``"full"`` and ``"none"`` (gradients held to each
+   other, the SSM scan keeping one state per 64-token chunk, not per
+   token), one of RWKV6, each with its peak;
 16. orchestration and replicas on phase 4's model: (a) a
    ``WorkloadOrchestrator`` on a 2-worker ``ServerlessScheduler`` over a
    ``ThreadExecutor``, with an ``ElasticAutoscaler`` (2..3 workers) ticked
@@ -302,6 +312,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -646,6 +657,40 @@ def check_paged() -> dict:
     return main
 
 
+def _window_mask(rows: torch.Tensor, Sk: int, window: int) -> torch.Tensor:
+    """SDPA's boolean mask for the queries at positions ``rows`` over
+    ``Sk`` keys: causal, and within ``window`` positions where it is set
+    (key j seen by query i for i - window < j <= i, as K2's window)."""
+    keys = torch.arange(Sk, device=rows.device)[None, :]
+    mask = keys <= rows[:, None]
+    if window:
+        mask &= keys > rows[:, None] - window
+    return mask
+
+
+#: the library call timed beside a kernel must compute the same function:
+#: in fp32 within ``TOL`` of the plain version elementwise (a window mask
+#: off by one key moves a row by ~1e-3); in bf16, which rounds other
+#: intermediates than the plain version, within this relative L2
+LIBRARY_REL = 2e-2
+
+
+def _same_function(out, ref, dtype, what: str) -> None:
+    """Raises unless ``out`` (the library call's) is the plain version's
+    function ``ref``: elementwise within ``TOL`` in fp32, within
+    ``LIBRARY_REL`` (relative L2) in bf16."""
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = ((out.float() - ref.float()).norm()
+           / ref.float().norm().clamp_min(1e-30)).item()
+    log(f"[flash-library] {what} {str(dtype)[6:]}: max|err| {err:.3g}, "
+        f"relative L2 {rel:.3g} against the plain version")
+    if dtype == torch.float32:
+        compare(out, ref, dtype, what)
+    elif not rel <= LIBRARY_REL:
+        raise AssertionError(f"{what}: not the kernel's function (relative "
+                             f"L2 {rel:.3g})")
+
+
 def check_flash() -> dict:
     import torch.nn.functional as F
 
@@ -684,12 +729,26 @@ def check_flash() -> dict:
             flops = 4 * pairs * H * hd
             bms, by = bound(nbytes, flops, dtype)
             lib_ms = None
+            qt, kt, vt = (q.reshape(1, S, H, hd).transpose(1, 2),
+                          k.transpose(1, 2), v.transpose(1, 2))
             if not window and not cap:
-                qt, kt, vt = (q.reshape(1, S, H, hd).transpose(1, 2),
-                              k.transpose(1, 2), v.transpose(1, 2))
                 lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, scale=scale,
                     enable_gqa=True))
+            elif not cap and (dtype == torch.bfloat16
+                              or S * S * H * 4 <= PLAIN_SCORE_BYTES):
+                # a window and no softcap: the same function as SDPA with
+                # a boolean mask of the causal band (no call applies a cap),
+                # held to the plain version in fp32, timed in bf16
+                mask = _window_mask(torch.arange(S, device="cuda"), S,
+                                    window)
+                lib = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+                _same_function(lib().transpose(1, 2), ref, dtype,
+                               f"sdpa with the window mask, S={S} "
+                               f"window={window}")
+                if dtype == torch.bfloat16:
+                    lib_ms = time_ms(lib)
             log(f"[flash_attention] {str(dtype)[6:]} B=1 S={S} H={H} K={K} "
                 f"hd={hd} window={window} cap={cap}: max|err|={err:.3g} "
                 f"({share:.3f} x {tol_str(dtype)}) | {ms:.4f} ms "
@@ -789,15 +848,19 @@ def check_flash_offset() -> dict:
             flops = 4 * pairs * H * hd
             bms, by = bound(nbytes, flops, dtype)
             lib_ms = None
-            if not window and not cap:
+            if not cap:
                 # SDPA's causal mask is top-left aligned: an explicit mask
-                mask = (torch.arange(Sk, device="cuda")[None, :]
-                        <= torch.arange(off, off + Sq, device="cuda")[:, None])
+                # (of the causal band, with a window)
+                mask = _window_mask(torch.arange(off, off + Sq,
+                                                 device="cuda"), Sk, window)
                 qt, kt, vt = (qo.reshape(1, Sq, H, hd).transpose(1, 2),
                               k.transpose(1, 2), v.transpose(1, 2))
-                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, scale=scale,
-                    enable_gqa=True))
+                lib = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+                _same_function(lib().transpose(1, 2),
+                               plain().reshape(1, Sq, H, hd), dtype,
+                               f"sdpa with the mask, {what}")
+                lib_ms = time_ms(lib)
             log(f"[flash-offset] {what}: max|err|={err:.3g} "
                 f"({share:.3f} x {tol_str(dtype)}), against the offset-0 "
                 f"call's rows {err_whole:.3g} | {ms:.4f} ms "
@@ -3366,10 +3429,228 @@ def _checkpoint_full_width(params) -> None:
         f"bitwise equal; legacy semantics: {legacy}")
 
 
+#: part (d): (b)'s cell stepped under each remat policy, and the two
+#: recurrent families at their published widths, one layer each, batch 1
+#: of 2048 tokens (64-token chunks: 32 boundary states a scan)
+REMAT_STEPS = 3
+REMAT_GRAD_REL = 1e-3
+#: bytes the memory allocated before a step may grow by over the steps
+REMAT_GROWTH = 1e9
+REMAT_SCAN_LAYERS, REMAT_SCAN_S = 1, 2048
+
+
+def _remat_step(cfg, policy: str, batches, steps_n: int, ref=None,
+                during=None) -> dict:
+    """``steps_n`` steps of ``make_train_step`` on ``cfg``'s model built
+    with ``remat=policy`` (random weights, seed 0) over ``batches``: the
+    step-0 loss and gradients (held to ``ref``'s, a run under another
+    policy, where given: the largest relative L2 of a leaf), the step
+    times, the peak memory of steps 1.. (of step 0 for one step), the
+    kernels' launches.  ``during``: a context for the steps."""
+    import repro_torch.launch.steps as steps
+    from repro_torch.models import build_model
+    from repro_torch.models.common import param_tree
+    from repro_torch.optim import ScheduleConfig, adamw_init
+    from repro_torch.tree import tree_flatten_with_path
+
+    model = build_model(cfg, device="cuda", remat=policy)
+    model.init(torch.Generator("cuda").manual_seed(0))
+    params = param_tree(model)
+    opt = adamw_init(params)
+    # as Trainer steps (b)'s cell: the state updated in place
+    step = steps.make_train_step(model, ScheduleConfig(
+        peak_lr=3e-3, warmup_steps=1, decay_steps=100), donate=True)
+    out = {"policy": policy, "times": [], "before": []}
+    real_update = steps.adamw_update
+
+    def update(grads, *a, **kw):
+        if "grads" not in out:
+            named = [(".".join(map(str, p)), g)
+                     for p, g in tree_flatten_with_path(grads)]
+            _check_grads(named)
+            if ref is None:
+                out["grads"] = [(n, g.to("cpu")) for n, g in named]
+            else:
+                rels, out["equal"] = [], 0
+                for (n, g), (_, w) in zip(named, ref["grads"]):
+                    w = w.to(g.device)
+                    out["equal"] += torch.equal(g, w)
+                    rels.append((float((g.float() - w.float()).norm()
+                                       / w.float().norm().clamp_min(1e-30)),
+                                 n))
+                out["grads"] = max(rels)
+        return real_update(grads, *a, **kw)
+
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    steps.adamw_update = update
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with during or contextlib.nullcontext():
+            for i in range(steps_n):
+                torch.cuda.synchronize()
+                out["before"].append(torch.cuda.memory_allocated())
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batches[i])
+                torch.cuda.synchronize()
+                out["times"].append(time.perf_counter() - t0)
+                if i == 0:
+                    out["loss"] = metrics["loss"].item()
+                    if steps_n > 1:
+                        torch.cuda.reset_peak_memory_stats()
+    finally:
+        steps.adamw_update = real_update
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["launches"] = {n: fn.launches for n, fn in counters.items()}
+    if any(out["launches"].values()):
+        raise AssertionError(f"{policy}: training launched "
+                             f"{out['launches']}")
+    if not np.isfinite(out["loss"]):
+        raise AssertionError(f"{policy}: step-0 loss {out['loss']}")
+    # the state is updated in place: what a step leaves allocated (a
+    # reference cycle holding its gradients, say) would pile up
+    if max(out["before"]) > out["before"][0] + REMAT_GROWTH:
+        raise AssertionError(f"{policy}: allocated before each step "
+                             f"{out['before']}")
+    del model, params, opt, step
+    _free_card()
+    return out
+
+
+def _remat_against(tag: str, run: dict, ref: dict, tokens: int) -> None:
+    """Logs ``run`` beside ``ref`` and fails where its step-0 loss or a
+    gradient departs from ``ref``'s."""
+    rel, leaf = run["grads"]
+    med = float(np.median(run["times"][1:] or run["times"]))
+    log(f"[train-remat] {tag} remat={run['policy']}: step-0 loss "
+        f"{run['loss']:.6f} ({'equal to' if run['loss'] == ref['loss'] else 'against'} "
+        f"{ref['policy']}'s {ref['loss']:.6f}); gradients against "
+        f"{ref['policy']}'s: {run['equal']} of {len(ref['grads'])} leaves "
+        f"bit-equal, largest relative L2 {rel:.3g} ({leaf}); step times "
+        f"{[round(t, 4) for t in run['times']]} s, median "
+        f"{med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s; peak "
+        f"{run['peak'] / 1e9:.2f} GB (max_memory_allocated"
+        f"{' of steps 1..' if len(run['times']) > 1 else ''}; allocated "
+        f"before each step {[round(b / 1e9, 2) for b in run['before']]} "
+        "GB)")
+    if not np.isclose(run["loss"], ref["loss"], rtol=1e-6, atol=0):
+        raise AssertionError(f"{tag} remat={run['policy']}: step-0 loss "
+                             f"{run['loss']} against {ref['loss']}")
+    if rel > REMAT_GRAD_REL:
+        raise AssertionError(f"{tag} remat={run['policy']}: gradient of "
+                             f"{leaf} {rel:.3g} from {ref['policy']}'s")
+
+
+@contextlib.contextmanager
+def _scan_saves(record: list):
+    """Each ``ssm_scan`` call of the hybrid inside the block run under a
+    ``saved_tensors_hooks`` pair that records the (shape, bytes) of what
+    autograd keeps for its backward (outside any layer checkpoint, whose
+    own hooks would take the tensors first)."""
+    import repro_torch.models.hybrid as hybrid
+
+    real = hybrid.ssm_scan
+
+    def pack(t):
+        record.append((tuple(t.shape), t.numel() * t.element_size()))
+        return t
+
+    def scan(*a, **kw):
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            return real(*a, **kw)
+
+    hybrid.ssm_scan = scan
+    try:
+        yield
+    finally:
+        hybrid.ssm_scan = real
+
+
+def _train_remat() -> dict:
+    """Part (d): the remat policies on the card.  Returns the kernels'
+    launches (none)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    t_start = time.perf_counter()
+    total = {name: 0 for name in _launch_counters()}
+
+    def batches(cfg, B, S, n):
+        data = SyntheticLM(DataConfig(global_batch=B, seq_len=S,
+                                      vocab_size=cfg.vocab_size))
+        return [{k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch_at(i).items()} for i in range(n)]
+
+    def add(run):
+        for name, n in run["launches"].items():
+            total[name] += n
+        return run
+
+    # gemma2-9b: (b)'s weights (seed 0) and batches
+    cfg = dataclasses.replace(get_config("gemma2-9b"),
+                              num_layers=SERVE_LAYERS)
+    bs = batches(cfg, TRAIN_B, TRAIN_S, REMAT_STEPS)
+    full = add(_remat_step(cfg, "full", bs, REMAT_STEPS))
+    med = float(np.median(full["times"][1:]))
+    log(f"[train-remat] gemma2-9b x{SERVE_LAYERS} layers bf16, "
+        f"B={TRAIN_B} S={TRAIN_S} (depth cut 42 -> {SERVE_LAYERS}): "
+        f"remat=full step-0 loss {full['loss']:.6f}; step times "
+        f"{[round(t, 4) for t in full['times']]} s, median "
+        f"{med * 1e3:.1f} ms, {TRAIN_B * TRAIN_S / med:.0f} tokens/s; peak "
+        f"{full['peak'] / 1e9:.2f} GB (max_memory_allocated of steps 1..; "
+        f"allocated before each step "
+        f"{[round(b / 1e9, 2) for b in full['before']]} GB)")
+    for policy in ("dots", "none"):
+        run = add(_remat_step(cfg, policy, bs, REMAT_STEPS, ref=full))
+        _remat_against(f"gemma2-9b x{SERVE_LAYERS}", run, full,
+                       TRAIN_B * TRAIN_S)
+    del full, bs
+
+    # hymba-1.5b: the SSM scan's chunk checkpoints
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              num_layers=REMAT_SCAN_LAYERS)
+    bs = batches(cfg, 1, REMAT_SCAN_S, 1)
+    full = add(_remat_step(cfg, "full", bs, 1))
+    saved: list = []
+    none = add(_remat_step(cfg, "none", bs, 1, ref=full,
+                           during=_scan_saves(saved)))
+    di = cfg.ssm_d_inner or 2 * cfg.d_model
+    state = (1, di, cfg.ssm_state_size)
+    state_bytes = 4 * math.prod(state)
+    states = sum(1 for shape, _ in saved if shape == state)
+    chunks = -(-REMAT_SCAN_S // 64)
+    log(f"[train-remat] hymba-1.5b x{REMAT_SCAN_LAYERS} of 32 layers bf16, "
+        f"B=1 S={REMAT_SCAN_S}: remat=full step {full['times'][0] * 1e3:.1f}"
+        f" ms, peak {full['peak'] / 1e9:.2f} GB; the SSM scan under "
+        f"remat=none kept {sum(b for _, b in saved) / 1e6:.2f} MB for its "
+        f"backward in {len(saved)} tensors, {states} of them states "
+        f"{state} ({states * state_bytes / 1e6:.2f} MB; one per 64-token "
+        f"chunk: {chunks}, {chunks * state_bytes / 1e6:.2f} MB; one per "
+        f"token would be {REMAT_SCAN_S * state_bytes / 1e6:.1f} MB)")
+    _remat_against(f"hymba-1.5b x{REMAT_SCAN_LAYERS}", none, full,
+                   REMAT_SCAN_S)
+    if states != chunks:
+        raise AssertionError(f"the SSM scan kept {states} states, not one "
+                             f"per chunk ({chunks})")
+    del full, none, bs
+
+    # rwkv6-3b: the WKV6 scan's chunk checkpoints under the layer's
+    cfg = dataclasses.replace(get_config("rwkv6-3b"),
+                              num_layers=REMAT_SCAN_LAYERS)
+    run = add(_remat_step(cfg, "full", batches(cfg, 1, REMAT_SCAN_S, 1), 1))
+    log(f"[train-remat] rwkv6-3b x{REMAT_SCAN_LAYERS} of 32 layers bf16, "
+        f"B=1 S={REMAT_SCAN_S}: one step {run['times'][0] * 1e3:.1f} ms, "
+        f"loss {run['loss']:.6f}, peak {run['peak'] / 1e9:.2f} GB; part (d) "
+        f"took {time.perf_counter() - t_start:.1f} s")
+    return total
+
+
 def phase_training() -> dict:
     """Card against CPU for each family (3 fp32 steps, one more run with
-    ``accum_steps=2``), recovery on the card, then full-width gemma2-9b
-    training with its checkpoint.  Returns the kernels' launches (none)."""
+    ``accum_steps=2``), recovery on the card, full-width gemma2-9b
+    training with its checkpoint, then the remat policies (part (d)).
+    Returns the kernels' launches (none)."""
     total = {name: 0 for name in _launch_counters()}
     cells = _train_cells()
     runs = [(tag, cfg, seq, 1) for tag, cfg, seq in cells]
@@ -3380,6 +3661,9 @@ def phase_training() -> dict:
     _train_recovery_card()
     _free_card()
     for name, n in _train_full_width().items():
+        total[name] += n
+    _free_card()
+    for name, n in _train_remat().items():
         total[name] += n
     return total
 

@@ -40,9 +40,16 @@ on CPU fake tensors.
   whole, as the reference lays it out.
 
 The model is built with ``impl="xla"``, as the reference's dry run
-builds it: the plain routes, never a kernel.  The plain per-token
-recurrences (RWKV6, the hybrid's SSM) are counted on 128 tokens and scaled
-(``hlo_cost.token_loop``).
+builds it: the plain routes, never a kernel; and with the layer remat
+policy of ``--remat`` (``full``, ``dots`` or ``none``, recorded as
+``remat``), so the count is what the step under that policy runs and
+keeps: ``full`` reruns each layer's forward in the backward, ``dots``
+reruns all but the products with no batch dimension, whose outputs it
+keeps, ``none`` reruns nothing and keeps what autograd saves (on a mesh a
+saved gathered leaf as its shard, gathered again in the backward).  The
+plain per-token recurrences (RWKV6, the hybrid's SSM) are counted on 128
+tokens and scaled (``hlo_cost.token_loop``), their 64-token chunk
+checkpoints with them.
 
 Per cell it records the reference's keys: per-rank FLOPs, HBM bytes and
 collective wire bytes, the collectives by kind, the roofline terms on the
@@ -74,13 +81,13 @@ import math
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from ..configs import SHAPES, cells_for, get_config, list_archs
 from ..models import build_model
-from ..models.common import ArchConfig, param_tree
+from ..models.common import REMAT_POLICIES, ArchConfig, param_tree
 from ..optim import adamw_init
 from ..parallel.sharding import BATCH_AXES, decode_state_shardings, \
     param_shardings, shard_tree
@@ -91,7 +98,7 @@ from .steps import make_batch_stub, make_decode_fn, make_prefill_fn, \
     make_train_step
 
 __all__ = ["CARD_BYTES", "LOOP_CHUNK", "build_cell", "model_flops",
-           "run_cell", "port_skip"]
+           "run_cell"]
 
 #: one H100 SXM's HBM, datasheet (80 GB)
 CARD_BYTES = 80e9
@@ -108,14 +115,6 @@ def model_flops(cfg: ArchConfig, kind: str, batch: int, seq: int) -> float:
     if kind == "prefill":
         return 2.0 * n * batch * seq
     return 2.0 * n * batch  # decode: one token per sequence
-
-
-def port_skip(remat: str) -> Optional[str]:
-    """Why the port has no program for these options, or None."""
-    if remat != "full":
-        return (f"--remat {remat}: the port's layers remat in full "
-                "(models/common.py remat_call)")
-    return None
 
 
 def _fake_world(size: int) -> None:
@@ -137,15 +136,15 @@ def _fake(t: torch.Tensor, device) -> torch.Tensor:
 
 
 def build_cell(arch: str, shape_name: str, mesh, *,
-               serve_params: bool = False, decode_layout: str = "seq"
-               ) -> Tuple[Any, tuple, Dict[str, Any]]:
+               serve_params: bool = False, decode_layout: str = "seq",
+               remat: str = "full") -> Tuple[Any, tuple, Dict[str, Any]]:
     """(step, its arguments, meta) of rank 0's step on ``mesh`` (a
-    production mesh on the fake world); call it inside a
-    ``FakeTensorMode``."""
+    production mesh on the fake world), the model built with the layer
+    remat policy ``remat``; call it inside a ``FakeTensorMode``."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     dev = mesh.device
-    model = build_model(cfg, device=dev, impl="xla")
+    model = build_model(cfg, device=dev, impl="xla", remat=remat)
     n_batch = math.prod(mesh.shape.get(a, 1) for a in BATCH_AXES)
     divisible = shape.global_batch % n_batch == 0
     rows = shape.global_batch // n_batch if divisible else shape.global_batch
@@ -183,7 +182,7 @@ def build_cell(arch: str, shape_name: str, mesh, *,
     meta = {
         "arch": arch, "shape": shape_name, "kind": shape.kind,
         "mesh": "x".join(str(n) for n in mesh.shape.values()),
-        "chips": mesh.size, "decode_layout": decode_layout, "remat": "full",
+        "chips": mesh.size, "decode_layout": decode_layout, "remat": remat,
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
         "model_flops": model_flops(cfg, shape.kind, shape.global_batch,
                                    shape.seq_len),
@@ -202,7 +201,8 @@ def _out_bytes(out) -> float:
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
              device="cuda", serve_params: bool = False, tag: str = "",
-             decode_layout: str = "seq") -> Dict[str, Any]:
+             decode_layout: str = "seq", remat: str = "full"
+             ) -> Dict[str, Any]:
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     _fake_world(512 if multi_pod else 256)
@@ -211,7 +211,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: Path,
     with FakeTensorMode(allow_non_fake_inputs=True):
         step, args, meta = build_cell(arch, shape_name, mesh,
                                       serve_params=serve_params,
-                                      decode_layout=decode_layout)
+                                      decode_layout=decode_layout,
+                                      remat=remat)
         t_build = time.time() - t0
         t0 = time.time()
         hc, out = analyze_graph(step, args, loop_chunk=LOOP_CHUNK)
@@ -272,7 +273,7 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--decode-layout", default="seq", choices=["heads", "seq"])
-    ap.add_argument("--remat", default="full", choices=["full", "dots", "none"])
+    ap.add_argument("--remat", default="full", choices=REMAT_POLICIES)
     ap.add_argument("--tag", default="")
     ap.add_argument("--serve-params", action="store_true",
                     help="rest the weights of decode/prefill in the serving "
@@ -300,8 +301,7 @@ def main(argv=None) -> None:
         cells = [(args.arch, args.shape)]
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
-    skip = port_skip(args.remat)
-    if skip is None and torch.device(args.device).type == "cuda" and \
+    if torch.device(args.device).type == "cuda" and \
             not torch.backends.cuda.is_built():
         raise SystemExit("this PyTorch has no CUDA build, so it cannot make "
                          "fake CUDA tensors: pass --device cpu")
@@ -313,9 +313,6 @@ def main(argv=None) -> None:
             fname = f"{arch}__{shape}__{mesh_name}"
             if args.tag:
                 fname += f"__{args.tag}"
-            if skip is not None:
-                print(f"[n/a-port] {fname}: {skip}", flush=True)
-                continue
             if args.skip_existing and (out_dir / f"{fname}.json").exists():
                 print(f"[skip] {fname}")
                 continue
@@ -324,7 +321,8 @@ def main(argv=None) -> None:
                 r = run_cell(arch, shape, multi_pod=mp, out_dir=out_dir,
                              device=args.device,
                              serve_params=args.serve_params, tag=args.tag,
-                             decode_layout=args.decode_layout)
+                             decode_layout=args.decode_layout,
+                             remat=args.remat)
                 rf, mem = r["roofline"], r["memory"]
                 print(
                     f"[ok]   {fname}  trace={r['compile_s']:.0f}s "

@@ -46,6 +46,10 @@ Per operation, times the multiplier in force (:meth:`CostMode.scaled`):
   count multiplied by ``T / loop_chunk``, forward and backward, and its
   per-token outputs widened to T: its cost is linear in T, and the trace of
   a 32k-token prefill is then thousands of operations, not millions.
+  A loop that checkpoints its chunks under grad (the scans' 64-token
+  chunks) runs them so on its ``loop_chunk`` tokens too: the chunks'
+  recompute in the backward is counted, scaled alike, and the boundary
+  states its backward keeps are charged ``T / loop_chunk`` times.
 * **Peak memory**: each new storage an operation returns is live until
   its storage is freed; the peak over the step, plus what the caller
   declares resident (parameters, state), is ``peak_bytes``.  A chunked

@@ -17,8 +17,9 @@ from the devices it sees.  The mesh's collectives (``all_gather``,
 ``all_reduce``, ``reduce_scatter``, ``all_to_all``) are those the
 training step and the MoE block run over one axis's group (``send`` and
 ``recv``, between two ranks, carry a checkpoint's shards); on a gloo
-group a CUDA tensor goes through host memory, and the bytes it moves
-there are counted in ``staged_bytes``.
+group a CUDA tensor goes through pinned host memory (the card copies
+to and from it at its full rate), and the bytes it moves there are
+counted in ``staged_bytes``.
 
 **Serving**: the reference is single-controller: one process holds the engine, the
 allocator, the sampler and the virtual clock, and ``shard_map`` sends only
@@ -103,6 +104,15 @@ COLLECTIVE_TIMEOUT_S = 120
 # ------------------------------------------------------------ training
 
 
+def _empty(x: torch.Tensor, shape, staged: bool) -> torch.Tensor:
+    """An empty tensor of ``shape`` for a collective's result beside its
+    operand ``x``: in pinned host memory where the operand was staged
+    there, else where ``x`` lies."""
+    if staged:
+        return torch.empty(tuple(shape), dtype=x.dtype, pin_memory=True)
+    return x.new_empty(tuple(shape))
+
+
 class TrainMesh(AbstractMesh):
     """A training mesh over the ``torch.distributed`` world: axis names and
     sizes (row-major over the ranks, as ``DeviceMesh`` lays them out),
@@ -155,12 +165,18 @@ class TrainMesh(AbstractMesh):
 
     # --------------------------------------------------- collectives
 
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether the group takes ``t`` only through host memory (a CUDA
+        tensor on gloo)."""
+        return self.backend == "gloo" and t.is_cuda
+
     def _out(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` where the group can take it: host memory for a CUDA
-        tensor on gloo (counted)."""
-        if self.backend == "gloo" and t.is_cuda:
+        """``t`` where the group can take it: for a CUDA tensor on gloo, a
+        copy in pinned host memory (counted), which the card copies to and
+        from at its full rate."""
+        if self._staged(t):
             self.staged_bytes += t.numel() * t.element_size()
-            return t.cpu()
+            return _empty(t, t.shape, True).copy_(t)
         return t
 
     def _back(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -182,9 +198,10 @@ class TrainMesh(AbstractMesh):
         if n == 1:
             return t
         x = self._out(t.contiguous())
-        parts = [torch.empty_like(x) for _ in range(n)]
+        parts = [_empty(x, x.shape, self._staged(t)) for _ in range(n)]
         dist.all_gather(parts, x, group=self._group(axis))
-        return self._back(torch.cat(parts, dim=dim), t)
+        # joined where ``t`` lies: staged parts go to the card one by one
+        return torch.cat([self._back(p, t) for p in parts], dim=dim)
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str],
                    op: str = "sum") -> torch.Tensor:
@@ -213,7 +230,7 @@ class TrainMesh(AbstractMesh):
         if n == 1:
             return t
         x = self._out(t.movedim(dim, 0).contiguous())
-        out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+        out = _empty(x, (x.shape[0] // n, *x.shape[1:]), self._staged(t))
         dist.reduce_scatter_tensor(out, x, group=self._group(axis))
         return self._back(out, t).movedim(0, dim)
 
@@ -228,11 +245,11 @@ class TrainMesh(AbstractMesh):
         if n == 1:
             return t
         x = self._out(t.movedim(split_dim, 0).contiguous())
-        out = torch.empty_like(x)
+        out = _empty(x, x.shape, self._staged(t))
         dist.all_to_all_single(out, x, group=self._group(axis))
-        out = torch.cat([b.movedim(0, split_dim) for b in out.chunk(n)],
-                        dim=concat_dim)
-        return self._back(out, t)
+        out = self._back(out, t)
+        return torch.cat([b.movedim(0, split_dim) for b in out.chunk(n)],
+                         dim=concat_dim)
 
     def send(self, t: torch.Tensor, dst: int) -> None:
         """``t`` to rank ``dst``, which calls :meth:`recv`."""

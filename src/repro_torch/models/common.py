@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -34,13 +35,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ..parallel.sharding import Shards, fit_spec
+from ..parallel.sharding import Shards, fit_spec, regather_saved_leaves
 
 __all__ = [
     "ArchConfig",
     "axis_size",
+    "check_remat",
     "cross_entropy",
     "current_layout",
     "current_mesh",
@@ -58,7 +64,10 @@ __all__ = [
     "mesh_embedding",
     "mesh_scores",
     "param_tree",
+    "REMAT_POLICIES",
+    "SAVED_DOTS",
     "remat_call",
+    "remat_chunk",
     "scale_embedding",
     "serve_layout",
     "softcap",
@@ -499,22 +508,87 @@ def unstack_layers(tree: Mapping[str, Any], L: int) -> List[Dict[str, Any]]:
     return list(tree.unbind(0))
 
 
-def remat_call(fn: Callable, *args):
-    """``fn(*args)``, under activation checkpointing when gradients are on
-    (the reference's default ``remat="full"``, a ``jax.checkpoint`` of
-    each layer): only the layer's inputs are kept, and its activations
-    are recomputed in the backward pass.  On a training mesh a layer's
-    :class:`Shards` are gathered where ``fn`` reads them, so inside the
-    checkpoint: the recompute gathers them again, and the backward
-    reduces their gradients as it leaves the layer.  The recompute binds
-    the mesh and layout bound here: on a CUDA device the backward runs on
-    the autograd engine's own thread, which does not see this thread's
-    context variables."""
+#: the reference's layer remat policies (``build_model(cfg, remat=...)``)
+REMAT_POLICIES = ("full", "dots", "none")
+
+#: products with no batch dimension: the outputs ``remat="dots"`` saves
+#: (``x @ w`` on a 2-D weight lowers to one of them; ``einsum``, ``bmm``
+#: and ``baddbmm`` carry a batch dimension and are recomputed)
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def check_remat(policy: str) -> str:
+    """``policy`` if it is one of :data:`REMAT_POLICIES`, else a
+    ``ValueError``."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
+                         f"{policy!r}")
+    return policy
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: save
+    what :data:`SAVED_DOTS` return, recompute everything else (the
+    collectives of a mesh, gathers of weights included)."""
+    if op in SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn: Callable, *args, policy: str = "full"):
+    """``fn(*args)`` (one layer) under the reference's remat ``policy``
+    when gradients are on:
+
+    * ``"full"`` (``jax.checkpoint(policy=None)``): only the layer's inputs
+      are kept, and its activations are recomputed in the backward pass;
+    * ``"dots"`` (``dots_with_no_batch_dims_saveable``): a selective
+      checkpoint that keeps the outputs of the products with no batch
+      dimension (:data:`SAVED_DOTS`) and recomputes the rest;
+    * ``"none"``: no checkpoint; autograd keeps what it saves.
+
+    On a training mesh a layer's :class:`Shards` are gathered where ``fn``
+    reads them, so inside the checkpoint: the recompute gathers them
+    again, and the backward reduces their gradients as it leaves the
+    layer.  Under ``"none"``, where nothing is recomputed,
+    ``parallel.sharding.regather_saved_leaves`` keeps the same property:
+    a gathered leaf that autograd saves is kept as its shard and gathered
+    again when the backward reads it.  The recompute binds the mesh and
+    layout bound here: on a CUDA device the backward runs on the autograd
+    engine's own thread, which does not see this thread's context
+    variables."""
+    check_remat(policy)
     if not torch.is_grad_enabled():
         return fn(*args)
     mesh, layout = current_mesh(), current_layout()
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
-        contextlib.nullcontext(), mesh_context(mesh, layout)))
+    if policy == "none":
+        if layout is None:
+            return fn(*args)
+        with regather_saved_leaves():
+            return fn(*args)
+
+    def contexts():
+        if policy == "full":
+            return contextlib.nullcontext(), mesh_context(mesh, layout)
+        save, recompute = create_selective_checkpoint_contexts(_dots_policy)
+        return save, _both(recompute, mesh_context(mesh, layout))
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
+def remat_chunk(fn: Callable) -> Callable:
+    """``fn`` (one chunk of a recurrence) as the scans call it: with
+    gradients on, under a checkpoint, as the reference's ``@jax.checkpoint``
+    ``chunk_fn`` (the backward keeps the chunk's inputs alone and
+    recomputes its states); ``fn`` itself otherwise."""
+    if not torch.is_grad_enabled():
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
 
 
 def cross_entropy(logits: torch.Tensor, batch: Mapping[str, Any]

@@ -25,7 +25,7 @@ shards, and the state is this rank's shards of it (``_mesh_prefill``,
 keeping its window of the self-attention cache and its heads of the cross
 K/V.  ``loss(params, batch)`` trains on ``batch["frames"]`` through
 the same layers, grad-enabled, each decoder layer under activation
-checkpointing, as the reference's default ``remat="full"``.
+checkpointing whatever ``remat`` says, as the reference's.
 
 On a training mesh that splits the work over ``model``
 (``models.common.split_layout``) the reference's ``constrain`` sites lay
@@ -53,6 +53,7 @@ from ..parallel.collectives import softmax_over
 from .attention import NEG_INF, _cache_window, blockwise_attn, update_cache
 from .common import (
     ArchConfig,
+    check_remat,
     cross_entropy,
     frozen,
     mesh_columns,
@@ -248,11 +249,14 @@ class EncDecLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  max_target_positions: int = 4096,
-                 impl: str = "kernel") -> None:
+                 impl: str = "kernel", remat: str = "full") -> None:
         super().__init__()
         if cfg.family != "audio":
             raise ValueError(
                 f"EncDecLM needs family 'audio', got {cfg.family!r}")
+        # taken and ignored, as the reference's: every decoder layer is
+        # checkpointed
+        check_remat(remat)
         self.cfg = cfg
         self.impl = impl          # no kernel on this family's path
         self.device = resolve_device(device)

@@ -30,11 +30,12 @@ cache and its columns of the SSM state.
 ``loss(params, batch)`` trains through the reference's training route:
 attention through :func:`~repro_torch.models.attention.blockwise_attn`
 (``impl="xla"``; the flash kernel has no backward) and the SSM through
-:func:`ssm_scan`, each layer under activation checkpointing (the
-reference's default ``remat="full"``).  On a training mesh that splits
-the work over ``model`` (``models.common.split_layout``) the reference's
-``constrain`` sites lay it out: the residual stream is the rank's chunk
-of the sequence; attention goes through
+:func:`ssm_scan` (each chunk of 64 tokens checkpointed), each layer
+under activation checkpointing where ``remat="full"`` (the default) and
+bare otherwise: the reference's ``"dots"`` is its ``"none"`` here.  On
+a training mesh that splits the work over ``model``
+(``models.common.split_layout``) the reference's ``constrain`` sites lay
+it out: the residual stream is the rank's chunk of the sequence; attention goes through
 :func:`~repro_torch.models.attention.split_attention`; the SSM branch
 splits ``d_inner`` over ``model`` (``xc``, ``z``, ``dt`` and the scan on
 the rank's columns, ``xc @ w_B`` and ``xc @ w_C`` summed over the ranks,
@@ -67,12 +68,14 @@ from .attention import (
 )
 from .common import (
     ArchConfig,
+    check_remat,
     cross_entropy,
     frozen,
     gated_mlp,
     mesh_embedding,
     mesh_scores,
     remat_call,
+    remat_chunk,
     resolve_device,
     rms_norm,
     serve_layout,
@@ -117,35 +120,48 @@ def ssm_step(h, x, dt, B_t, C_t, A):
     return h, y
 
 
+def _ssm_chunk(h, x, dt, b, c, A):
+    """One chunk of :func:`ssm_scan`, time-major: x/dt (c, B, di), b/c
+    (c, B, N) from state h → (final h, y (B, c, di))."""
+    dA = torch.exp(dt[..., None] * A)                          # (c, B, di, N)
+    dBx = (dt * x)[..., None] * b[:, :, None, :]
+    states = []
+    for t in range(x.shape[0]):
+        h = torch.addcmul(dBx[t], h, dA[t])
+        states.append(h)
+    return h, torch.einsum("tbdn,tbn->btd", torch.stack(states), c)
+
+
 @token_loop(per_token=(0, 1, 2, 3), per_token_out=(1,))
 def ssm_scan(x, dt, Bp, Cp, A, h0, *, chunk: int = 64):
     """x/dt: (B, T, di); Bp/Cp: (B, T, N) → (final h, y (B, T, di) in x's
     dtype): :func:`ssm_step`'s recurrence in fp32, token by token, for any
-    T (the reference's scan needs ``min(64, T)`` to divide T).
+    T (the reference's scan needs ``min(64, T)`` to divide T; here the
+    last chunk may be short).
 
     Per chunk of up to ``chunk`` tokens the decays ``exp(dt·A)`` and inputs
     ``dt·x·B`` are formed at once, each token's state is one fused
     multiply-add, and the outputs are one product with ``C`` over the
-    chunk's stacked states, so memory stays O(chunk·di·N).  Each state is
-    a tensor of its own (not written into a buffer), so autograd can
-    differentiate the scan.
+    chunk's stacked states.  With gradients on, each chunk runs under a
+    checkpoint (:func:`~repro_torch.models.common.remat_chunk`), as the
+    reference's ``@jax.checkpoint`` ``chunk_fn``: the backward keeps one
+    state per chunk boundary and recomputes one chunk's states at a time,
+    not one state per token.  Inside a layer's checkpoint (``remat=
+    "full"``) the two nest, as in the reference.  Under the dry run's
+    ``CostMode`` (``token_loop``) the scan runs on the mode's first
+    ``loop_chunk`` tokens, chunked and checkpointed alike, scaled to T.
     """
     Bsz, T, di = x.shape
     # time-major, so each token's slice of a chunk buffer is contiguous
     xt, dtt, bt, ct = (v.float().transpose(0, 1) for v in (x, dt, Bp, Cp))
     A = A.float()
     h = h0.float()
+    run = remat_chunk(_ssm_chunk)
     ys = []
     for s in range(0, T, chunk):
         e = min(s + chunk, T)
-        dA = torch.exp(dtt[s:e, ..., None] * A)                # (c, B, di, N)
-        dBx = (dtt[s:e] * xt[s:e])[..., None] * bt[s:e, :, None, :]
-        states = []
-        for t in range(e - s):
-            h = torch.addcmul(dBx[t], h, dA[t])
-            states.append(h)
-        ys.append(torch.einsum("tbdn,tbn->btd", torch.stack(states),
-                               ct[s:e]))
+        h, y = run(h, xt[s:e], dtt[s:e], bt[s:e], ct[s:e], A)
+        ys.append(y)
     return h, torch.cat(ys, dim=1).to(x.dtype)
 
 
@@ -154,13 +170,16 @@ class HybridLM(nn.Module):
     call :meth:`init` or ``load_state_dict``."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
-                 impl: str = "kernel") -> None:
+                 impl: str = "kernel", remat: str = "full") -> None:
         super().__init__()
         if cfg.family != "hybrid":
             raise ValueError(
                 f"HybridLM needs family 'hybrid', got {cfg.family!r}")
         self.cfg = cfg
         self.impl = impl
+        # the reference checkpoints a layer under "full" alone: its "dots"
+        # runs the layer bare, as "none"
+        self.remat = "full" if check_remat(remat) == "full" else "none"
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.windows = hymba_windows(cfg)
@@ -374,7 +393,8 @@ class HybridLM(nn.Module):
         h = take_embedding(embed, tokens)
         for l, p in enumerate(unstack_layers(params["layers"],
                                              cfg.num_layers)):
-            h = remat_call(self._train_layer, h, p, l, positions)
+            h = remat_call(self._train_layer, h, p, l, positions,
+                           policy=self.remat)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         # split over model, the tied table is gathered once (its two uses

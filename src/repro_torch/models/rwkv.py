@@ -26,10 +26,11 @@ rank keeps its value columns of the ``wkv`` state.
 ``loss(params, batch)`` trains through the reference's training route:
 the recurrence in :func:`wkv6_scan` (the XLA scan's counterpart,
 differentiable; the kernel has no backward, nor has the reference's
-Pallas kernel a VJP), each layer under activation checkpointing (the
-reference's default ``remat="full"``).  On a training mesh that splits
-the work over ``model`` (``models.common.split_layout``) the reference's
-``constrain`` sites lay it out: the residual stream is the rank's chunk
+Pallas kernel a VJP; each chunk of 64 tokens checkpointed), each layer
+under activation checkpointing whatever ``remat`` says, as the
+reference's.  On a training mesh that splits the work over ``model``
+(``models.common.split_layout``) the reference's ``constrain`` sites lay
+it out: the residual stream is the rank's chunk
 of the sequence between layers; the time mix runs on the rank's rows of
 the whole sequence, the batch split over ``("data", "model")`` (§Perf-A2;
 all the rows where ``model`` does not divide them), with its weights
@@ -51,11 +52,13 @@ from ..kernels.wkv6.ops import wkv6
 from ..launch.hlo_cost import token_loop
 from .common import (
     ArchConfig,
+    check_remat,
     cross_entropy,
     frozen,
     mesh_embedding,
     mesh_scores,
     remat_call,
+    remat_chunk,
     resolve_device,
     rms_norm,
     serve_layout,
@@ -92,20 +95,43 @@ def wkv6_step(state, r, k, v, w, u):
     return state, y
 
 
-@token_loop(per_token=(0, 1, 2, 3), per_token_out=(1,))
-def wkv6_scan(r, k, v, w, u, state0):
-    """(B, T, H, hd) inputs → final state + (B, T, H, hd) outputs in r's
-    dtype: the exact per-token scan of :func:`wkv6_step` in fp32, for any
-    T (the reference's XLA scan also checkpoints chunks of 64 tokens, which
-    needs 64 to divide T)."""
-    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
-    state, u = state0.float(), u.float()
+def _wkv6_chunk(state, r, k, v, w, u):
+    """One chunk of :func:`wkv6_scan`: (B, c, H, hd) fp32 inputs from
+    ``state`` → (final state, (B, c, H, hd) outputs)."""
     ys = []
     for t in range(r.shape[1]):
-        state, y = wkv6_step(state, r32[:, t], k32[:, t], v32[:, t],
-                             w32[:, t], u)
+        state, y = wkv6_step(state, r[:, t], k[:, t], v[:, t], w[:, t], u)
         ys.append(y)
-    return state, torch.stack(ys, dim=1).to(r.dtype)
+    return state, torch.stack(ys, dim=1)
+
+
+@token_loop(per_token=(0, 1, 2, 3), per_token_out=(1,))
+def wkv6_scan(r, k, v, w, u, state0, *, chunk: int = 64):
+    """(B, T, H, hd) inputs → final state + (B, T, H, hd) outputs in r's
+    dtype: the exact per-token scan of :func:`wkv6_step` in fp32, in
+    chunks of up to ``chunk`` tokens, for any T (the reference's XLA scan
+    needs ``min(64, T)`` to divide T; here the last chunk may be short).
+
+    With gradients on, each chunk runs under a checkpoint
+    (:func:`~repro_torch.models.common.remat_chunk`), as the reference's
+    ``@jax.checkpoint`` ``chunk_fn``: the backward keeps one state per
+    chunk boundary and recomputes one chunk's states at a time, not one
+    state per token; inside the layer's checkpoint the two nest, as in
+    the reference.  Under the dry run's ``CostMode`` (``token_loop``) the
+    scan runs on the mode's first ``loop_chunk`` tokens, chunked and
+    checkpointed alike, and every count is scaled to T: the forward, the
+    chunks' recompute in the backward and the boundary states the
+    backward keeps."""
+    r32, k32, v32, w32 = (x.float() for x in (r, k, v, w))
+    state, u = state0.float(), u.float()
+    run = remat_chunk(_wkv6_chunk)
+    ys = []
+    for s in range(0, r.shape[1], chunk):
+        e = min(s + chunk, r.shape[1])
+        state, y = run(state, r32[:, s:e], k32[:, s:e], v32[:, s:e],
+                       w32[:, s:e], u)
+        ys.append(y)
+    return state, torch.cat(ys, dim=1).to(r.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -149,10 +175,12 @@ class RwkvLM(nn.Module):
     :meth:`init` or ``load_state_dict``."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
-                 impl: str = "kernel") -> None:
+                 impl: str = "kernel", remat: str = "full") -> None:
         super().__init__()
         if cfg.family != "ssm":
             raise ValueError(f"RwkvLM needs family 'ssm', got {cfg.family!r}")
+        # taken and ignored, as the reference's: every layer is checkpointed
+        check_remat(remat)
         self.cfg = cfg
         self.impl = impl
         self.device = resolve_device(device)

@@ -67,8 +67,11 @@ metrics), where ``params`` is the reference's nested dict of tensors
 (:func:`~repro_torch.models.common.param_tree` gives the module's own).
 It runs grad-enabled through the reference's training route
 (``impl="xla"``: :func:`~repro_torch.models.attention.blockwise_attn`,
-never the flash kernel, which has no backward), each layer under
-activation checkpointing, as the reference's default ``remat="full"``.
+never the flash kernel, which has no backward), each layer under the
+reference's remat policy (``remat=``, :func:`~repro_torch.models.common.
+remat_call`): ``"full"`` (the default) checkpoints the layer, ``"dots"``
+keeps its products with no batch dimension and recomputes the rest,
+``"none"`` checkpoints nothing.
 """
 
 from __future__ import annotations
@@ -96,6 +99,7 @@ from .attention import (
 )
 from .common import (
     ArchConfig,
+    check_remat,
     cross_entropy,
     frozen,
     gated_mlp,
@@ -127,7 +131,7 @@ class TransformerLM(nn.Module):
     initialised — call :meth:`init` or ``load_state_dict``."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
-                 impl: str = "kernel") -> None:
+                 impl: str = "kernel", remat: str = "full") -> None:
         super().__init__()
         if cfg.family not in ("dense", "moe", "vlm"):
             raise ValueError(
@@ -135,6 +139,7 @@ class TransformerLM(nn.Module):
                 f"{cfg.family!r}")
         self.cfg = cfg
         self.impl = impl
+        self.remat = check_remat(remat)
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.windows = layer_windows(cfg)
@@ -372,7 +377,8 @@ class TransformerLM(nn.Module):
         auxes = []
         for l, p in enumerate(unstack_layers(params["layers"],
                                              cfg.num_layers)):
-            h, aux = remat_call(self._train_layer, h, p, l, positions)
+            h, aux = remat_call(self._train_layer, h, p, l, positions,
+                                policy=self.remat)
             auxes.append(aux)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps,
                      plus_one=cfg.post_norms)

@@ -39,7 +39,10 @@ of the one-axis serving mesh, exact by contract (a model declares
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+import weakref
 from collections.abc import Mapping as MappingABC
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
@@ -76,6 +79,7 @@ __all__ = [
     "opt_state_shardings",
     "param_shardings",
     "param_spec",
+    "regather_saved_leaves",
     "serving_tp_shards",
     "shard_tree",
 ]
@@ -579,6 +583,88 @@ def batch_rows(batch: Mapping[str, torch.Tensor], mesh, *,
 
 
 # --------------------------------------------------------------------------
+# gathered leaves saved for a backward with no recompute
+# --------------------------------------------------------------------------
+
+#: what the layer running under :func:`regather_saved_leaves` gathered:
+#: storage key -> (shard, gathers, gathered shape)
+_GATHERED: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_gathered", default=None)
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def _gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """``gather_sum_grads(t, mesh, axis, dim)``, noted where
+    :func:`regather_saved_leaves` is in force: the result can be gathered
+    again from ``t``'s shard (a gather of a gathered leaf chains)."""
+    out = gather_sum_grads(t, mesh, axis, dim)
+    gathered = _GATHERED.get()
+    if gathered is not None:
+        base, steps = t, ()
+        entry = gathered.get(_storage_key(t))
+        if entry is not None and t.is_contiguous() and \
+                t.storage_offset() == 0 and tuple(t.shape) == entry[2]:
+            base, steps = entry[0], entry[1]
+        key = _storage_key(out)
+        gathered[key] = (base, steps + ((mesh, axis, dim),),
+                         tuple(out.shape))
+        weakref.finalize(out.untyped_storage(), gathered.pop, key, None)
+    return out
+
+
+@dataclass
+class _Regather:
+    """A saved view of a gathered leaf, kept as the leaf's shard."""
+
+    base: torch.Tensor
+    steps: tuple
+    size: torch.Size
+    stride: Tuple[int, ...]
+    offset: int
+
+    def unpack(self) -> torch.Tensor:
+        with torch.no_grad():
+            t = self.base
+            for mesh, axis, dim in self.steps:
+                t = mesh.all_gather(t, axis, dim)
+        return t.as_strided(self.size, self.stride, self.offset)
+
+
+@contextlib.contextmanager
+def regather_saved_leaves():
+    """Within the block (one layer under ``remat="none"``), a tensor that
+    autograd saves for the backward and that views one gathered here
+    (a leaf, by :meth:`TrainLayout.leaf` or :meth:`TrainLayout.whole`, or
+    what else ``whole`` gathers, as the hybrid's ``xc``) is kept as the
+    rank's shard, and gathered again when the backward reads it.  So no
+    whole leaf outlives the layer's forward, as under a checkpoint, at
+    the cost of one more gather a saved tensor in the backward.  Every
+    rank runs the same graph, so the backward gathers in the same order
+    on every rank."""
+    gathered: Dict[int, tuple] = {}
+
+    def pack(t: torch.Tensor):
+        entry = gathered.get(_storage_key(t))
+        if entry is None:
+            return t
+        return _Regather(entry[0], entry[1], t.size(), t.stride(),
+                         t.storage_offset())
+
+    def unpack(x):
+        return x.unpack() if isinstance(x, _Regather) else x
+
+    token = _GATHERED.set(gathered)
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+    finally:
+        _GATHERED.reset(token)
+
+
+# --------------------------------------------------------------------------
 # the layout a training step computes in
 # --------------------------------------------------------------------------
 
@@ -590,7 +676,13 @@ class TrainLayout:
     :class:`Shards` (FSDP): a layer's leaves inside the function that
     ``remat_call`` checkpoints, so the recompute gathers them again and no
     whole layer outlives its use, the others (``embed``, ``final_norm``,
-    ...) at their use.  A leaf is gathered over the batch axes it is
+    ...) at their use.  Under each remat policy no whole leaf of a layer
+    is kept for the backward: ``"full"`` keeps the layer's inputs alone;
+    ``"dots"`` keeps its products' outputs and recomputes the gathers
+    with the rest; ``"none"`` runs the layer under
+    :func:`regather_saved_leaves`, which keeps a gathered leaf that
+    autograd saves as its shard and gathers it again when the backward
+    reads it.  A leaf is gathered over the batch axes it is
     split on, with the backward reduce-scattering the ranks' gradients
     (``gather_sum_grads``); over the batch axes it is not split on, its
     gradient is all-reduced.  So each leaf's gradient leaves the backward
@@ -652,7 +744,7 @@ class TrainLayout:
                 if mesh.shape[a] == 1:
                     continue
                 if a in batch:
-                    t = gather_sum_grads(t, mesh, a, d)
+                    t = _gather(t, mesh, a, d)
         return t
 
     # -------------------------------------- the split over ``model``
@@ -680,7 +772,7 @@ class TrainLayout:
         stored split, the backward summing the ranks' gradients."""
         if not self.split_model or w.shape[dim] == full:
             return w
-        return gather_sum_grads(w, self.mesh, "model", dim)
+        return _gather(w, self.mesh, "model", dim)
 
     def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """The whole (padded) sequence from the ranks' chunks."""

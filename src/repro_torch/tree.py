@@ -56,19 +56,21 @@ def tree_map(fn: Callable, tree):
 def tree_unflatten_like(like, leaves) -> Any:
     """``like``'s structure with its leaves, in flatten order, replaced by
     ``leaves``."""
-    it: Iterator = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, Mapping):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}      # like's own key order
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
 
-    return build(like)
+def _build(node, it: Iterator) -> Any:
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle, which would keep ``leaves`` (a step's
+    # gradients) alive until the cyclic garbage collector runs
+    if node is None:
+        return None
+    if isinstance(node, Mapping):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}      # like's own key order
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
 
 
 def keystr(path: Tuple) -> str:

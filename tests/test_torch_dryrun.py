@@ -1,8 +1,8 @@
 """The port's dry run (``repro_torch.launch.dryrun``): one production cell
 end to end in a subprocess as rank 0 of a fake world of 256, a dense and
 whisper's ``train_4k`` cell's and a dense ``decode_32k`` cell's peak and
-useful-FLOP ratio, the option it declines and the decode layout it runs,
-and one cell beside the reference's own dry-run JSON."""
+useful-FLOP ratio, the remat policy and the decode layout it takes as
+options, and one cell beside the reference's own dry-run JSON."""
 
 import json
 import subprocess
@@ -10,8 +10,6 @@ import sys
 from pathlib import Path
 
 import pytest
-
-from repro_torch.launch.dryrun import main, port_skip
 
 ROOT = Path(__file__).resolve().parent.parent
 ENV = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin:/usr/local/bin"}
@@ -95,14 +93,17 @@ def test_dryrun_skips_ineligible_cell(tmp_path):
     (["--remat", "dots"], "remat"),
     (["--decode-layout", "heads"], None),
 ])
-def test_dryrun_port_declines_options(tmp_path, capsys, flags, why):
-    """An option the port has no program for (``--remat dots``) prints
-    ``[n/a-port]`` with the reason and writes nothing.  ``--decode-layout
-    heads`` has one: gemma2-9b ``decode_32k`` runs (in a subprocess, whose
-    fake world stays out of this one) with the cache split by kv heads
-    where they divide ``model``; its 8 kv heads do not divide 16, so each
-    rank holds its 8 lanes of the cache whole (90.2 GB), as the
-    reference's layout leaves them, and the cell does not fit."""
+def test_dryrun_port_declines_options(tmp_path, flags, why):
+    """The options the reference's dry run takes, each run by the port (in
+    a subprocess, whose fake world stays out of this one).  ``--remat
+    dots``: whisper-tiny ``train_4k`` runs with the model built under that
+    policy and the JSON records it; whisper's decoder layers are
+    checkpointed whatever the policy says, as the reference's, so the
+    rank's peak is the ``full`` cell's.  ``--decode-layout heads``:
+    gemma2-9b ``decode_32k`` runs with the cache split by kv heads where
+    they divide ``model``; its 8 kv heads do not divide 16, so each rank
+    holds its 8 lanes of the cache whole (90.2 GB), as the reference's
+    layout leaves them, and the cell does not fit."""
     if why is None:
         d = _port_cell(tmp_path, *flags, arch="gemma2-9b",
                        shape="decode_32k")
@@ -110,13 +111,10 @@ def test_dryrun_port_declines_options(tmp_path, capsys, flags, why):
         assert d["memory"]["argument_bytes"] > 90e9
         assert d["memory"]["fits"] is False
         return
-    main(["--arch", "whisper-tiny", "--shape", "decode_32k", "--device",
-          "cpu", "--out", str(tmp_path), *flags])
-    out = capsys.readouterr().out
-    assert out.startswith("[n/a-port] whisper-tiny__decode_32k__16x16")
-    assert why in out
-    assert not list(tmp_path.glob("*"))
-    assert port_skip("full") is None
+    d = _port_cell(tmp_path, *flags, arch="whisper-tiny", shape="train_4k")
+    assert d["ok"] and d[why] == "dots"
+    assert d["kind"] == "train"
+    assert d["memory"]["peak_bytes"] <= 12e9
 
 
 def test_dryrun_dense_decode_cell_fits_with_its_cache_split(tmp_path):
