@@ -678,6 +678,32 @@ class MetricsRegistry:
                 {"method": method},
             )
         fams.append(fam)
+        # host time by engine span: the totals live in the telemetry sink,
+        # so engines sharing one sink are read once
+        spans: Dict[str, List[float]] = {}
+        seen = set()
+        for engine, s in zip(servings, stats):
+            sink = id(engine.telemetry)
+            if sink in seen:
+                continue
+            seen.add(sink)
+            for name, (n, sec) in s.get("spans", {}).items():
+                tot = spans.setdefault(name, [0, 0.0])
+                tot[0] += n
+                tot[1] += sec
+        secs = _Family(
+            self._n("serving_span_seconds_total"), "counter",
+            "Host seconds inside each serving span (engine.step, its "
+            "phases and their arena, model, logits and sampler leaves).",
+        )
+        counts = _Family(
+            self._n("serving_spans_total"), "counter",
+            "Serving spans closed, by span.",
+        )
+        for name in sorted(spans):
+            secs.add(spans[name][1], {"span": name})
+            counts.add(spans[name][0], {"span": name})
+        fams.extend((secs, counts))
         return fams
 
     def _replica_families(self, replica_sets: List[Any]) -> List[_Family]:

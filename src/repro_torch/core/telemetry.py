@@ -6,9 +6,14 @@ nothing.  The paper's admission story (§III, §V) is *centrally* audited:
 every stage — image check, verification, budget, pool checkout — lands in
 one place so an operator can reconstruct exactly why a program was admitted
 or denied.  :class:`TelemetrySink` is that place: a bounded event log plus
-monotonic counters, shared by :mod:`~repro.core.admission`,
+monotonic counters and span totals, shared by :mod:`~repro.core.admission`,
 :mod:`~repro.core.pool`, :class:`~repro.core.sandbox.Sandbox`,
 :class:`~repro.core.tasks.ServerlessScheduler` and the serving loop.
+
+Spans (:meth:`TelemetrySink.span`) time the host's work in named regions:
+their count and seconds always accumulate in the sink, and while a
+``torch.profiler`` runs each span is also a ``record_function`` range, so
+it sits on the profiler's timeline beside the kernels it launched.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
 __all__ = [
     "DEFAULT_BUCKETS",
     "Histogram",
@@ -27,6 +34,8 @@ __all__ = [
     "TelemetrySink",
     "resolve_sink",
 ]
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 # Latency-oriented upper bounds (seconds): 10us .. 10s, then +Inf.
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -62,11 +71,6 @@ class TelemetryEvent:
     tenant: str = ""
     detail: str = ""
     data: Tuple[Tuple[str, Any], ...] = ()
-
-    @property
-    def what(self) -> str:
-        """Back-compat alias for the seed's ``AuditEvent.what`` field."""
-        return self.kind
 
     def get(self, key: str, default: Any = None) -> Any:
         for k, v in self.data:
@@ -129,19 +133,36 @@ class Histogram:
         out.append((float("inf"), cum + self._counts[-1]))
         return out
 
-    def quantile(self, q: float) -> float:
-        """Estimated q-quantile from bucket upper bounds (for benchmarks)."""
-        if self.count == 0:
-            return 0.0
-        rank = q * self.count
-        for le, cum in self.bucket_counts():
-            if cum >= rank:
-                return le
-        return float("inf")
+
+class _Span:
+    """One open span of a sink (see :meth:`TelemetrySink.span`)."""
+
+    __slots__ = ("_sink", "_name", "_args", "_range", "_t0")
+
+    def __init__(self, sink: "TelemetrySink", name: str, args: str) -> None:
+        self._sink = sink
+        self._name = name
+        self._args = args
+        self._range = None
+
+    def __enter__(self) -> "_Span":
+        if _profiler_enabled():
+            self._range = torch.autograd.profiler.record_function(
+                self._name, self._args or None)
+            self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        ns = time.perf_counter_ns() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._sink.add_span(self._name, ns)
 
 
 class TelemetrySink:
-    """Bounded event log + counters + histograms shared across the plane.
+    """Bounded event log + counters + histograms + span totals shared
+    across the plane.
 
     Thread-safe: the pool's background refiller and the serving loop may
     emit concurrently.
@@ -151,6 +172,8 @@ class TelemetrySink:
         self._events: "deque[TelemetryEvent]" = deque(maxlen=capacity)
         self._counters: Dict[str, int] = {}
         self._histograms: Dict[Tuple[str, str], Histogram] = {}
+        #: span name -> [count, host nanoseconds]
+        self._spans: Dict[str, List[int]] = {}
         self._lock = threading.Lock()
 
     # ----------------------------------------------------------------- emit
@@ -236,7 +259,38 @@ class TelemetrySink:
                 )
             hist.observe(value)
 
+    def span(self, name: str, args: str = "") -> _Span:
+        """Context manager timing the host's work in ``name``.
+
+        Always adds one to the name's count and the seconds spent (host
+        clock, ``time.perf_counter_ns``) to its total.  While a
+        ``torch.profiler`` runs it also opens
+        ``record_function(name, args)``, so the span and the kernels it
+        launched share the profiler's clock; with none running a span is
+        two clock reads and one update.  ``args`` (``req=<id>``,
+        ``step=<n>``) names the instance to that range only.
+        """
+        return _Span(self, name, args)
+
+    def add_span(self, name: str, ns: int, count: int = 1) -> None:
+        """Add ``count`` spans of ``ns`` host nanoseconds in all to
+        ``name``'s total: for work timed on the host clock in pieces too
+        small to open a span each (no profiler range)."""
+        with self._lock:
+            tot = self._spans.get(name)
+            if tot is None:
+                self._spans[name] = [count, ns]
+            else:
+                tot[0] += count
+                tot[1] += ns
+
     # ---------------------------------------------------------------- query
+
+    def spans(self) -> Dict[str, List[float]]:
+        """``{name: [count, seconds]}`` of every span closed so far
+        (monotonic, like the counters)."""
+        with self._lock:
+            return {k: [n, ns * 1e-9] for k, (n, ns) in self._spans.items()}
 
     @property
     def events(self) -> List[TelemetryEvent]:
@@ -289,3 +343,4 @@ class TelemetrySink:
             self._events.clear()
             self._counters.clear()
             self._histograms.clear()
+            self._spans.clear()

@@ -568,38 +568,41 @@ class ServingEngine:
             seq_id = self._seq_id(r)
             resume = self.kv_mode == "paged" and self.kv.has_sequence(seq_id)
             start = 0
-            if resume:
-                if seq_id not in self._chunk_progress:
-                    # pages survived the eviction: re-entry is a table edit
-                    # (mid-prefill, the chunk pump continues instead)
-                    self.kv.ensure_tokens(
-                        seq_id, len(r.prompt) + len(r.tokens)
-                    )
-                self._resumes += 1
-            else:
-                self.kv.add_sequence(seq_id)
-                total = len(r.prompt) + len(r.tokens)
-                if self._sharing:
-                    donor, match = self.kv.lookup_prefix(r.prompt)
-                    # share whole pages covering the matched prompt
-                    # prefix, but always prefill at least one token, and
-                    # only bother for a full page
-                    match = min(match, len(r.prompt), total - 1)
-                    if donor is not None and match >= self.kv.tokens_per_page:
-                        self.kv.share_prefix(seq_id, donor, match)
-                        start = match
-                        self._prefix_hits += 1
-                        self._prefix_tokens_saved += match
-                        self._note(
-                            "prefix_share", r,
-                            f"donor={donor} tokens={match}"
+            with self.telemetry.span("arena.admit", f"req={r.request_id}"):
+                if resume:
+                    if seq_id not in self._chunk_progress:
+                        # pages survived the eviction: re-entry is a table
+                        # edit (mid-prefill, the chunk pump continues)
+                        self.kv.ensure_tokens(
+                            seq_id, len(r.prompt) + len(r.tokens)
                         )
-                if self._chunked:
-                    # PREFILLING: the pump allocates pages chunk by chunk,
-                    # so a partial sequence holds exactly its scattered rows
-                    self._chunk_progress[seq_id] = start
+                    self._resumes += 1
                 else:
-                    self.kv.append_tokens(seq_id, total - start)
+                    self.kv.add_sequence(seq_id)
+                    total = len(r.prompt) + len(r.tokens)
+                    if self._sharing:
+                        donor, match = self.kv.lookup_prefix(r.prompt)
+                        # share whole pages covering the matched prompt
+                        # prefix, but always prefill at least one token,
+                        # and only bother for a full page
+                        match = min(match, len(r.prompt), total - 1)
+                        if donor is not None and \
+                                match >= self.kv.tokens_per_page:
+                            self.kv.share_prefix(seq_id, donor, match)
+                            start = match
+                            self._prefix_hits += 1
+                            self._prefix_tokens_saved += match
+                            self._note(
+                                "prefix_share", r,
+                                f"donor={donor} tokens={match}"
+                            )
+                    if self._chunked:
+                        # PREFILLING: the pump allocates pages chunk by
+                        # chunk, so a partial sequence holds exactly its
+                        # scattered rows
+                        self._chunk_progress[seq_id] = start
+                    else:
+                        self.kv.append_tokens(seq_id, total - start)
             self.admission.slot_acquired(r.tenant)
             self._admitted[r.tenant] = self._admitted.get(r.tenant, 0) + 1
             self._note("admit", r,
@@ -642,9 +645,11 @@ class ServingEngine:
             if self._slots[slot] is not r:
                 return                     # evicted before the prefill ran
             seq = self._sequence_tokens(r)
-        sub, _ = self.model.prefill(self._tensor(seq[None, :]),
-                                    max_seq=self.cfg.max_seq)
-        sub["pos"] = torch.full_like(sub["pos"], len(seq))
+        span = self.telemetry.span
+        with span("model.prefill", f"req={r.request_id}"):
+            sub, _ = self.model.prefill(self._tensor(seq[None, :]),
+                                        max_seq=self.cfg.max_seq)
+            sub["pos"] = torch.full_like(sub["pos"], len(seq))
         with self._lock:
             if self._slots[slot] is not r:
                 return                     # evicted mid-prefill: discard
@@ -654,7 +659,8 @@ class ServingEngine:
                 self._prefills_by_request.get(r.request_id, 0) + 1
             )
             self._note("prefill", r, f"slot={slot} tokens={seq.size}")
-        self._write_slot(sub, slot)
+        with span("model.write_slot", f"req={r.request_id}"):
+            self._write_slot(sub, slot)
 
     def _cow_locked(self, seq_id: str, logical: int) -> None:
         """Copy-on-write one logical page if another sequence maps it."""
@@ -673,20 +679,26 @@ class ServingEngine:
         the resident prefix rows), any shared page in the write range is
         COW'd, and the scatter lands on the suffix positions.
         """
+        span = self.telemetry.span
+        req = f"req={r.request_id}"
         with self._lock:
             if self._slots[slot] is not r:
                 return                     # evicted before the prefill ran
             seq = self._sequence_tokens(r)
             seq_id = self._seq_id(r)
             if start:
-                table = self._bucketed_table([seq_id])
+                with span("arena.write_plan", req):
+                    table = self._bucketed_table([seq_id])
         if start:
-            rows, _ = self._paged.paged_prefill_at(
-                self._tensor(seq[None, start:]), self.kv.store,
-                self._tensor(table), start,
-            )
+            with span("model.prefill_at", req):
+                rows, _ = self._paged.paged_prefill_at(
+                    self._tensor(seq[None, start:]), self.kv.store,
+                    self._tensor(table), start,
+                )
         else:
-            rows, _ = self._paged.paged_prefill(self._tensor(seq[None, :]))
+            with span("model.prefill", req):
+                rows, _ = self._paged.paged_prefill(
+                    self._tensor(seq[None, :]))
         with self._lock:
             if self._slots[slot] is not r:
                 return                     # evicted mid-prefill: discard
@@ -701,19 +713,22 @@ class ServingEngine:
                 + (f" shared={start}" if start else ""),
             )
             page = self.kv.tokens_per_page
-            for lp in range(start // page, -(-seq.size // page)):
-                # a divergent write into the trailing shared (partial)
-                # page triggers COW before the scatter lands
-                self._cow_locked(seq_id, lp)
-            page_ids, offsets = self.kv.token_positions(
-                seq_id, start, seq.size - start
-            )
-            self.kv.swap_store(self._paged.paged_write_prefill(
-                self.kv.store, rows, page_ids, offsets,
-            ))
+            with span("arena.write_plan", req):
+                for lp in range(start // page, -(-seq.size // page)):
+                    # a divergent write into the trailing shared (partial)
+                    # page triggers COW before the scatter lands
+                    self._cow_locked(seq_id, lp)
+                page_ids, offsets = self.kv.token_positions(
+                    seq_id, start, seq.size - start
+                )
+            with span("model.write_prefill", req):
+                self.kv.swap_store(self._paged.paged_write_prefill(
+                    self.kv.store, rows, page_ids, offsets,
+                ))
             if self._sharing:
                 # rows are resident now: this prompt can donate
-                self.kv.register_prefix(seq_id, r.prompt)
+                with span("arena.write_plan", req):
+                    self.kv.register_prefix(seq_id, r.prompt)
 
     # ----------------------------------------------------- chunked prefill
 
@@ -738,7 +753,8 @@ class ServingEngine:
             n = min(budget, len(r.prompt) + len(r.tokens) - p)
             if n <= 0:
                 continue
-            chunk_fn(slot, r, p, n)
+            with self.telemetry.span("engine.prefill", f"req={r.request_id}"):
+                chunk_fn(slot, r, p, n)
             budget -= n
             worked = True
         return worked
@@ -751,21 +767,27 @@ class ServingEngine:
         the resident rows via ``paged_prefill_at``; the progress entry,
         kept across page-preserving evictions, marks where a resumed
         prefill continues."""
+        span = self.telemetry.span
+        req = f"req={r.request_id}"
         with self._lock:
             if self._slots[slot] is not r:
                 return                     # evicted before the chunk ran
             seq = self._sequence_tokens(r)
             seq_id = self._seq_id(r)
-            self.kv.ensure_tokens(seq_id, p + n)
-            if p:
-                table = self._bucketed_table([seq_id])
+            with span("arena.write_plan", req):
+                self.kv.ensure_tokens(seq_id, p + n)
+                if p:
+                    table = self._bucketed_table([seq_id])
         if p:
-            rows, _ = self._paged.paged_prefill_at(
-                self._tensor(seq[None, p:p + n]), self.kv.store,
-                self._tensor(table), p,
-            )
+            with span("model.prefill_at", req):
+                rows, _ = self._paged.paged_prefill_at(
+                    self._tensor(seq[None, p:p + n]), self.kv.store,
+                    self._tensor(table), p,
+                )
         else:
-            rows, _ = self._paged.paged_prefill(self._tensor(seq[None, :n]))
+            with span("model.prefill", req):
+                rows, _ = self._paged.paged_prefill(
+                    self._tensor(seq[None, :n]))
         with self._lock:
             if self._slots[slot] is not r:
                 return                     # evicted mid-chunk: discard
@@ -777,19 +799,23 @@ class ServingEngine:
             )
             self._note("prefill_chunk", r, f"slot={slot} tokens={n} at={p}")
             page = self.kv.tokens_per_page
-            for lp in range(p // page, -(-(p + n) // page)):
-                # a write into a shared page (the trailing partial page of
-                # a shared prefix) triggers COW before the scatter
-                self._cow_locked(seq_id, lp)
-            page_ids, offsets = self.kv.token_positions(seq_id, p, n)
-            self.kv.swap_store(self._paged.paged_write_prefill(
-                self.kv.store, rows, page_ids, offsets,
-            ))
+            with span("arena.write_plan", req):
+                for lp in range(p // page, -(-(p + n) // page)):
+                    # a write into a shared page (the trailing partial
+                    # page of a shared prefix) triggers COW before the
+                    # scatter
+                    self._cow_locked(seq_id, lp)
+                page_ids, offsets = self.kv.token_positions(seq_id, p, n)
+            with span("model.write_prefill", req):
+                self.kv.swap_store(self._paged.paged_write_prefill(
+                    self.kv.store, rows, page_ids, offsets,
+                ))
             if p + n >= seq.size:
                 # fully resident: the slot joins the decode batch
                 del self._chunk_progress[seq_id]
                 if self._sharing:
-                    self.kv.register_prefix(seq_id, r.prompt)
+                    with span("arena.write_plan", req):
+                        self.kv.register_prefix(seq_id, r.prompt)
             else:
                 self._chunk_progress[seq_id] = p + n
 
@@ -805,14 +831,18 @@ class ServingEngine:
             seq = self._sequence_tokens(r)
             seq_id = self._seq_id(r)
             carry = self._chunk_carry.get(seq_id)
-        if carry is None:
-            carry = self.model.init_decode_state(1, self.cfg.max_seq)
-        carry, _ = self.model.prefill_chunk(
-            self._tensor(seq[None, p:p + n]), carry, p)
+        span = self.telemetry.span
+        req = f"req={r.request_id}"
+        with span("model.prefill_chunk", req):
+            if carry is None:
+                carry = self.model.init_decode_state(1, self.cfg.max_seq)
+            carry, _ = self.model.prefill_chunk(
+                self._tensor(seq[None, p:p + n]), carry, p)
         with self._lock:
             if self._slots[slot] is not r:
                 return                     # evicted mid-chunk: discard
-            self.kv.ensure_tokens(seq_id, p + n)
+            with span("arena.write_plan", req):
+                self.kv.ensure_tokens(seq_id, p + n)
             self._prefill_chunks += 1
             self._prefills["incremental"] += 1
             self._prefill_tokens["incremental"] += n
@@ -829,7 +859,8 @@ class ServingEngine:
                 self._chunk_carry[seq_id] = carry
                 done = False
         if done:
-            self._write_slot(carry, slot)
+            with span("model.write_slot", req):
+                self._write_slot(carry, slot)
 
     def _prefill_full(self) -> None:
         """Rebatching baseline: re-prefill every live slot as one
@@ -848,9 +879,11 @@ class ServingEngine:
         for i, _ in live:
             toks[i, : seqs[i].size] = seqs[i][:S]
             lens[i] = seqs[i].size
-        state, _ = self.model.prefill(self._tensor(toks),
-                                      max_seq=self.cfg.max_seq)
-        state["pos"] = self._tensor(lens)
+        with self.telemetry.span("model.prefill",
+                                 f"step={self._decode_steps}"):
+            state, _ = self.model.prefill(self._tensor(toks),
+                                          max_seq=self.cfg.max_seq)
+            state["pos"] = self._tensor(lens)
         self._state = state
         with self._lock:
             self._prefills["full"] += 1
@@ -867,30 +900,48 @@ class ServingEngine:
     def step(self) -> int:
         """One engine tick: validate arena, admit, decode once, retire.
 
-        Returns the number of requests retired this tick.
+        Returns the number of requests retired this tick.  The tick is
+        the ``engine.step`` span; inside it, ``engine.admit`` and one
+        ``engine.prefill`` a prefill, chunk or rebatch group the leaves,
+        and the leaves never nest: ``arena.*`` (the KV allocator's host
+        work), ``model.*`` (each call into the model with the upload of
+        its host arrays), ``engine.logits`` (the host waiting for the
+        logits) and ``sampler``.  ``engine.step`` less the leaves is the
+        engine's own host work.
         """
+        with self.telemetry.span("engine.step",
+                                 f"step={self._decode_steps}"):
+            return self._step()
+
+    def _step(self) -> int:
         if self.dead:
             return 0
+        span = self.telemetry.span
+        at = f"step={self._decode_steps}"
         self._evict_poisoned()
-        with self._lock:
+        with span("engine.admit", at), self._lock:
             admitted = self._admit_locked()
         paged = self.kv_mode == "paged"
         if self._chunked:
             # the pump runs every tick: a prompt larger than one budget
             # finishes over several steps
             if self._pump_prefill_chunks():
-                self.kv.arena.mm.host_vma_count()
+                with span("arena.vma_sample", at):
+                    self.kv.arena.mm.host_vma_count()
         elif admitted:
             if self.cfg.incremental:
                 prefill = (self._prefill_slot_paged if paged
                            else self._prefill_slot)
                 for slot, r, need, start in admitted:
                     if need:
-                        prefill(slot, r, start)
+                        with span("engine.prefill", f"req={r.request_id}"):
+                            prefill(slot, r, start)
             else:
-                self._prefill_full()
+                with span("engine.prefill", at):
+                    self._prefill_full()
             # sample arena occupancy while sequences are live
-            self.kv.arena.mm.host_vma_count()
+            with span("arena.vma_sample", at):
+                self.kv.arena.mm.host_vma_count()
         with self._lock:
             # PREFILLING slots join the decode batch only once their
             # prompt is fully resident
@@ -902,59 +953,70 @@ class ServingEngine:
                 # reserve this step's token row per live slot, then
                 # snapshot the slot-ordered page table, its width bucketed
                 # to the next power of two of the widest live sequence
-                pos = np.zeros((self.cfg.max_batch,), np.int32)
-                for i, r in live:
-                    pos[i] = len(r.prompt) + len(r.tokens)
-                    self.kv.ensure_tokens(self._seq_id(r), int(pos[i]) + 1)
-                    if self._sharing:
-                        # the append lands at pos: COW its page first if
-                        # another sequence still maps it
-                        self._cow_locked(
-                            self._seq_id(r),
-                            int(pos[i]) // self.kv.tokens_per_page,
-                        )
-                # a PREFILLING slot maps to an all--1 table row like an
-                # empty one: its lane writes nothing
-                table = self._bucketed_table([
-                    self._seq_id(r)
-                    if r is not None
-                    and self._seq_id(r) not in self._chunk_progress
-                    else None
-                    for r in self._slots
-                ])
+                with span("arena.reserve", at):
+                    pos = np.zeros((self.cfg.max_batch,), np.int32)
+                    for i, r in live:
+                        pos[i] = len(r.prompt) + len(r.tokens)
+                        self.kv.ensure_tokens(self._seq_id(r),
+                                              int(pos[i]) + 1)
+                        if self._sharing:
+                            # the append lands at pos: COW its page first
+                            # if another sequence still maps it
+                            self._cow_locked(
+                                self._seq_id(r),
+                                int(pos[i]) // self.kv.tokens_per_page,
+                            )
+                    # a PREFILLING slot maps to an all--1 table row like
+                    # an empty one: its lane writes nothing
+                    table = self._bucketed_table([
+                        self._seq_id(r)
+                        if r is not None
+                        and self._seq_id(r) not in self._chunk_progress
+                        else None
+                        for r in self._slots
+                    ])
         if not live:
             return 0
 
         last = np.zeros((self.cfg.max_batch,), np.int32)
         for i, r in live:
             last[i] = r.tokens[-1] if r.tokens else int(r.prompt[-1])
-        if paged:
-            store, logits = self._paged.paged_decode_step(
-                self.kv.store, self._tensor(last), self._tensor(table),
-                self._tensor(pos),
-            )
-            self.kv.swap_store(store)
-        else:
-            self._state, logits = self.model.decode_step(
-                self._state, self._tensor(last))
-        # bf16 -> fp32 -> float64 (in the sampler) is exact; integer
-        # logits go to the sampler as they are
-        if logits.is_floating_point():
-            logits = logits.float()
-        logits_np = logits.cpu().numpy()
+        with span("model.decode", at):
+            if paged:
+                store, logits = self._paged.paged_decode_step(
+                    self.kv.store, self._tensor(last), self._tensor(table),
+                    self._tensor(pos),
+                )
+                self.kv.swap_store(store)
+            else:
+                self._state, logits = self.model.decode_step(
+                    self._state, self._tensor(last))
+        with span("engine.logits", at):
+            # bf16 -> fp32 -> float64 (in the sampler) is exact; integer
+            # logits go to the sampler as they are
+            if logits.is_floating_point():
+                logits = logits.float()
+            logits_np = logits.cpu().numpy()
 
         retiring: List[Request] = []
         now_t = self._exec.now()
         with self._lock:
             self._decode_steps += 1
-            for i, r in live:
-                if self._slots[i] is not r:
-                    continue
-                tok, method = sample_token(
-                    logits_np[i],
-                    temperature=r.temperature, top_k=r.top_k,
-                    top_p=r.top_p, seed=r.seed, index=len(r.tokens),
-                )
+            # draw every row's token first, then book them in row order:
+            # the draws are pure, so the split changes no stream
+            rows = [(i, r) for i, r in live if self._slots[i] is r]
+            clock = time.perf_counter_ns
+            reserve_ns = 0
+            with span("sampler", at):
+                drawn = [
+                    sample_token(
+                        logits_np[i],
+                        temperature=r.temperature, top_k=r.top_k,
+                        top_p=r.top_p, seed=r.seed, index=len(r.tokens),
+                    )
+                    for i, r in rows
+                ]
+            for (i, r), (tok, method) in zip(rows, drawn):
                 self._sampled[method] += 1
                 r.tokens.append(tok)
                 if len(r.tokens) == 1:
@@ -972,6 +1034,7 @@ class ServingEngine:
                             tenant=r.tenant,
                         )
                 self._last_tok_t[r.request_id] = now_t
+                t0 = clock()
                 if paged:
                     # the row was reserved pre-step; make the count stick
                     self.kv.ensure_tokens(
@@ -979,19 +1042,24 @@ class ServingEngine:
                     )
                 else:
                     self.kv.append_tokens(self._seq_id(r), 1)
+                reserve_ns += clock() - t0
                 self._tokens_n[r.tenant] = self._tokens_n.get(r.tenant, 0) + 1
                 if len(r.tokens) >= r.max_new_tokens:
                     # release the KV pages and the slot *before* any user
                     # post-code runs: a failing post-processor can never
                     # leak them, and the slot is immediately reusable
                     r.done = True
-                    if not self._park_locked(r):
-                        self.kv.drop_sequence(self._seq_id(r))
+                    with span("arena.release", f"req={r.request_id}"):
+                        if not self._park_locked(r):
+                            self.kv.drop_sequence(self._seq_id(r))
                     self.admission.slot_released(r.tenant)
                     self._slots[i] = None
                     self._last_tok_t.pop(r.request_id, None)
                     self._note("retire", r, f"slot={i}")
                     retiring.append(r)
+            # each row's count after its draw: timed a call at a time and
+            # added once, too small to open a span each
+            self.telemetry.add_span("arena.reserve", reserve_ns, len(rows))
         for r in retiring:
             # postprocess outside the engine lock: user code must never
             # gate submit(), metrics scrapes or the chaos hooks
@@ -1338,7 +1406,7 @@ class ServingEngine:
             return sum(self._queue_depths_locked().values())
 
     def serving_stats(self) -> Dict[str, Any]:
-        """Snapshot with the reference's keys."""
+        """Snapshot with the reference's keys, and ``spans``."""
         with self._lock:
             return {
                 "queue_depth": self._queue_depths_locked(),
@@ -1365,6 +1433,8 @@ class ServingEngine:
                 "prefix_shared_pages_total": self.kv.shared_pages_total,
                 "prefix_cow_copies_total": self.kv.cow_copies_total,
                 "prefix_prefill_tokens_saved_total": self._prefix_tokens_saved,
+                # the port's own: host seconds by span, {name: [n, s]}
+                "spans": self.telemetry.spans(),
             }
 
     def admit_wait_snapshot(self) -> Tuple[float, float]:

@@ -7,7 +7,9 @@ Both engines take the same seeded workload (``helpers.serving.
 make_requests``, converted with :func:`port_request`) on a ``SimExecutor``
 of the same seed, so everything they report must be equal byte for byte:
 token streams and errors, latencies on the virtual clock, the decision
-trace, prefill counts, ``serving_stats`` and the page and slot ledgers.
+trace, prefill counts, ``serving_stats`` (every key the reference has;
+the port's own ``spans`` is checked by ``test_torch_spans.py``) and the
+page and slot ledgers.
 """
 
 import dataclasses
@@ -19,8 +21,9 @@ from repro_torch.core.tasks import TenantQuota
 from repro_torch.launch.mesh import make_serving_mesh, simulate_host_devices
 from repro_torch.runtime import Request, ServerConfig, ServingEngine
 
-__all__ = ["assert_engines_match", "close_port_meshes", "make_port_engine",
-           "port_mesh", "port_request", "port_requests", "streams"]
+__all__ = ["assert_engines_match", "assert_stats_match", "close_port_meshes",
+           "make_port_engine", "port_mesh", "port_request", "port_requests",
+           "streams"]
 
 #: open serving meshes by (size, offset): a test module's engines share
 #: their workers, as the reference's engines share the simulated devices
@@ -93,13 +96,22 @@ def streams(reqs):
     )
 
 
+def assert_stats_match(port, ref, tag=""):
+    """The port's ``serving_stats()`` on every key of the reference's,
+    each value equal; the port's keys beyond them (``spans``) are left to
+    the tests of what they report."""
+    got, want = port.serving_stats(), ref.serving_stats()
+    assert set(want) <= set(got), f"keys missing: {set(want) - set(got)}{tag}"
+    assert {k: got[k] for k in want} == want, tag
+
+
 def assert_engines_match(ref, port, ref_reqs, port_reqs, ctx=""):
     """Streams, trace, prefill counts, stats and ledgers, byte for byte."""
     tag = f" [{ctx}]" if ctx else ""
     assert streams(port_reqs) == streams(ref_reqs), f"streams differ{tag}"
     assert port.trace_text() == ref.trace_text(), f"traces differ{tag}"
     assert port.prefill_counts() == ref.prefill_counts(), tag
-    assert port.serving_stats() == ref.serving_stats(), tag
+    assert_stats_match(port, ref, tag)
     a, b = port.kv, ref.kv
     assert (a.pages_allocated, a.pages_freed, a.shared_pages_total,
             a.cow_copies_total, a.live_pages()) == (

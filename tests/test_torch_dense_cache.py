@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from helpers.torch_port import fp32_config, model_pair, to_torch
+from helpers.torch_serving import assert_stats_match
 
 import repro.runtime.serve_loop as jax_loop
 import repro_torch.runtime.serve_loop as port_loop
@@ -300,5 +301,5 @@ def test_dense_engine_matches_reference(arch, scfg):
         assert a.error is None and a.tokens == b.tokens, a.request_id
     assert port.trace() == ref.trace()
     assert port.prefill_counts() == ref.prefill_counts()
-    assert port.serving_stats() == ref.serving_stats()
+    assert_stats_match(port, ref)
     assert port.admission.slot_balance() == {}

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from helpers.torch_port import fp32_config, to_numpy, to_torch
+from helpers.torch_serving import assert_stats_match
 
 import repro.runtime.serve_loop as jax_loop
 import repro_torch.runtime.serve_loop as port_loop
@@ -200,7 +201,7 @@ def test_served_trace_and_ledgers_match_reference(served):
     (ref_engine, _), (port_engine, _) = served
     assert port_engine.trace() == ref_engine.trace()
     assert port_engine.prefill_counts() == ref_engine.prefill_counts()
-    assert port_engine.serving_stats() == ref_engine.serving_stats()
+    assert_stats_match(port_engine, ref_engine)
     a = port_engine.kv
     assert a.pages_allocated == a.pages_freed == ref_engine.kv.pages_freed
     assert port_engine.admission.slot_balance() == {}

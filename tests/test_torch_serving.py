@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from helpers.torch_port import fp32_config, model_pair
+from helpers.torch_serving import assert_stats_match
 
 import repro.runtime.serve_loop as jax_loop
 import repro_torch.runtime.serve_loop as port_loop
@@ -116,7 +117,7 @@ def test_prefill_counts_and_prefix_hits_match_reference(served):
     assert port_engine.prefill_counts() == ref_engine.prefill_counts()
     a, b = port_engine.serving_stats(), ref_engine.serving_stats()
     assert a["prefix_hits_total"] == b["prefix_hits_total"] == 1
-    assert a == b
+    assert_stats_match(port_engine, ref_engine)
 
 
 def test_page_ledgers_balance_and_match_reference(served):

@@ -17,7 +17,8 @@ import random
 
 import pytest
 from helpers.serving import make_engine, make_requests
-from helpers.torch_serving import make_port_engine, port_requests
+from helpers.torch_serving import (assert_stats_match, make_port_engine,
+                                   port_requests)
 from helpers.torch_toy import TorchToyLM
 
 from repro.core.tasks import TenantQuota as JaxQuota
@@ -71,7 +72,7 @@ def test_trace_and_prefill_counts_match_reference(served):
     (ref, _), (port, _) = served
     assert port.trace() == ref.trace()
     assert port.prefill_counts() == ref.prefill_counts()
-    assert port.serving_stats() == ref.serving_stats()
+    assert_stats_match(port, ref)
 
 
 def test_page_and_slot_ledgers_balance_and_match_reference(served):
