@@ -90,8 +90,11 @@ class MemoryManager:
             as_direction=config.as_direction,
         )
         self.backing = FileRangeAllocator(config.backing_size)
-        # granule-aligned addr -> HostMapping (one per faulted granule run)
+        # granule-aligned addr -> HostMapping (one per faulted granule)
         self._mappings: Dict[int, HostMapping] = {}
+        # len(coalesce_host_mappings(list(self._mappings.values()))), kept
+        # up to date as mappings come and go (see _joined)
+        self._host_vmas = 0
         self._fault_seq = 0
         self.fault_log: List[FaultRecord] = []
         self.host_vma_high_water = 0
@@ -109,7 +112,14 @@ class MemoryManager:
 
     def munmap(self, ar: AddrRange) -> None:
         self.vmas.remove(ar)
-        for start in [s for s in self._mappings if ar.start <= s < ar.end]:
+        g = self.config.granule
+        first = self._align_up(ar.start)
+        if (ar.end - first) // g > len(self._mappings):
+            starts = [s for s in self._mappings if ar.start <= s < ar.end]
+        else:
+            starts = [s for s in range(first, ar.end, g) if s in self._mappings]
+        for start in starts:
+            self._host_vmas -= 1 - self._joined(start - g) - self._joined(start)
             m = self._mappings.pop(start)
             self.backing.free(AddrRange(m.offset, m.offset_end))
 
@@ -156,10 +166,13 @@ class MemoryManager:
             a_i = addr + i * g
             off_i = fr.start + i * g
             self._mappings[a_i] = HostMapping(AddrRange(a_i, a_i + g), off_i, vma.flags)
+        # the chunk is one run to the host (contiguous addresses and
+        # offsets, one flags value), which may merge at either end
+        self._host_vmas += 1 - self._joined(addr - g) - self._joined(addr + length - g)
         self.fault_log.append(FaultRecord(addr, length, fr.start, direction, hinted))
-        # Host-VMA coalescing is O(n log n); only recompute per-fault when
-        # the crash threshold is being enforced (paper-scale benchmarks
-        # with enforcement off poll host_vma_count() on demand instead).
+        # The count is kept as mappings come and go, so the check is O(1); per
+        # fault it runs only when the crash threshold is enforced (with
+        # enforcement off, host_vma_count() samples the high-water mark).
         if self.config.enforce_map_count:
             self._note_host_vmas()
 
@@ -182,8 +195,21 @@ class MemoryManager:
     def host_vmas(self) -> List[HostMapping]:
         return coalesce_host_mappings(list(self._mappings.values()))
 
+    def _joined(self, a: int) -> bool:
+        """Whether the host merges the mappings at ``a`` and ``a + g``.
+
+        Every mapping is one aligned granule, so these two are the only
+        candidates for address contiguity; the test is
+        :func:`coalesce_host_mappings`'s own.
+        """
+        left = self._mappings.get(a)
+        right = self._mappings.get(a + self.config.granule)
+        return (left is not None and right is not None
+                and left.offset_end == right.offset
+                and left.flags == right.flags)
+
     def host_vma_count(self) -> int:
-        n = len(self.host_vmas())
+        n = self._host_vmas
         if n > self.host_vma_high_water:
             self.host_vma_high_water = n
         return n
